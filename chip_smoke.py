@@ -11,27 +11,44 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 2. ``build``   — compile every ``deepspeed_tpu_torch/csrc/*.cu`` with nvcc
    for sm_90a (one process per source, in parallel); seconds taken.
 3. ``kernels`` — each CUDA kernel against its plain PyTorch version on the
-   same inputs, at the serving path's shapes, in bf16 and fp32: max abs
-   error against the stated tolerance, the kernel's and the plain
-   version's device time (CUDA events around CUDA-graph replays), the
-   least time the card could take (bytes over 3.35 TB/s vs operations
-   over the peak rate), and one PyTorch library call computing the same
-   function where there is one.
+   same inputs, at the shapes of the serving and generate paths, in bf16
+   and fp32: max abs error against the stated tolerance, the kernel's and
+   the plain version's device time (CUDA events around CUDA-graph
+   replays), the least time the card could take (bytes over 3.35 TB/s vs
+   operations over the peak rate), and one PyTorch library call computing
+   the same function where there is one (``scaled_dot_product_attention``
+   with an explicit mask for the dense attention kernels; timed here only,
+   the port never calls it).
 4. ``serve``   — ``init_serving("llama-7b")`` at full width (H 4096, 32
    layers, 32 heads, D 128, FFN 11008, vocab 32000; seeded random bf16
    weights) serves 8 greedy requests (prompts of 64..700 tokens, two sharing
    a 256-token prefix so the prefix cache and copy-on-write run; 32 new
    tokens each). Launch counts are zeroed just before and read just after:
-   every kernel must have run. Prints TTFT and tokens/s.
+   each of the serving path's three kernels must have run. Prints TTFT and
+   tokens/s.
 5. ``e2e_parity`` — the same model cut to 2 layers at full width, fp32:
    one prefill chunk and 8 decode steps through the kernel path and
    through the plain versions (``forward(..., plain=True)``) on the card,
    over an arena whose unwritten slots hold NaN; last-position logits
    must agree.
+6. ``generate`` — the serving engine is closed and its ``InferenceEngine``
+   (the same llama-7b weights) runs ``generate`` on 8 right-padded prompts
+   of 64..500 tokens with an attention mask, 32 greedy new tokens, twice
+   (the second call reuses the dense arena). Launch counts are zeroed
+   before each call and read after it: ``flash_attention``,
+   ``decode_attention`` and ``fused_layer_norm`` must each have run.
+   Prints TTFT, decode tokens/s and the counts.
+7. ``e2e_generate_parity`` — llama-7b widths at 2 layers, fp32, 2 prompts
+   of 200 and 77 tokens: the dense static prefill and 8 decode steps
+   through the kernel path and through the plain versions, over an arena
+   whose slots outside ``valid`` hold large finite values; last-position
+   logits must agree.
 
-Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
-line ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
-code is non-zero; without a CUDA device it exits 1 and prints no result.
+Then one ``{"kernels": [...]}`` line (``launches``: each kernel's count over
+the serve run plus the first generate call), the nvidia-smi line, and as
+the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
+the exit code is non-zero; without a CUDA device it exits 1 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -44,12 +61,18 @@ import time
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.inference.kv_cache import init_paged_cache
+from deepspeed_tpu_torch.inference.kv_cache import (cache_memory_bytes,
+                                                    init_cache,
+                                                    init_paged_cache)
 from deepspeed_tpu_torch.models.presets import transformer_config
-from deepspeed_tpu_torch.models.transformer import forward, init_params
-from deepspeed_tpu_torch.ops import (fused_layer_norm, launch_counts,
+from deepspeed_tpu_torch.models.transformer import (alibi_slopes, forward,
+                                                    init_params)
+from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
+                                     fused_layer_norm, launch_counts,
                                      paged_decode_attention,
                                      paged_prefill_attention,
+                                     reference_decode_attention,
+                                     reference_flash_attention,
                                      reference_layer_norm,
                                      reference_paged_attention,
                                      reset_launch_counts)
@@ -74,7 +97,15 @@ SOURCES = {
                                "deepspeed_tpu/ops/paged_decode_attention.py:171"),
     "paged_prefill_attention": ("deepspeed_tpu_torch/csrc/paged_attention.cu",
                                 "deepspeed_tpu/ops/paged_decode_attention.py:294"),
+    "flash_attention": ("deepspeed_tpu_torch/csrc/flash_attention.cu",
+                        "deepspeed_tpu/ops/flash_attention.py:135"),
+    "decode_attention": ("deepspeed_tpu_torch/csrc/decode_attention.cu",
+                         "deepspeed_tpu/ops/decode_attention.py:161"),
 }
+SERVE_KERNELS = ("fused_layer_norm", "paged_decode_attention",
+                 "paged_prefill_attention")
+GENERATE_KERNELS = ("fused_layer_norm", "flash_attention", "decode_attention")
+STALE = 1e4        # dense arena slots outside every mask: large and finite
 
 
 def nvidia_smi() -> str:
@@ -279,6 +310,132 @@ def prefill_cases(dev, gen):
     return results
 
 
+def dense_operands(dev, gen, B, S, T, N, K, D, lens, dtype):
+    """q (B, S, N, D) and a (B, T, K, D) arena whose columns outside the
+    (B, T) key mask (right padding at ``lens``, plus holes) hold STALE."""
+    col = torch.arange(T, device=dev)
+    mask = (col[None] < torch.tensor(lens, device=dev)[:, None]).int()
+    mask[:, 1::7] = 0
+    mask[:, 0] = 1
+    q = torch.randn(B, S, N, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, T, K, D, generator=gen, device=dev)
+    v = torch.randn(B, T, K, D, generator=gen, device=dev)
+    dead = (mask == 0)[:, :, None, None]
+    k = torch.where(dead, torch.full_like(k, STALE), k).to(dtype)
+    v = torch.where(dead, torch.full_like(v, -STALE), v).to(dtype)
+    return q, k, v, mask
+
+
+def sdpa_call(q, k, v, keep):
+    """The library yardstick: one scaled_dot_product_attention call with an
+    explicit boolean mask (B, 1, S, T) over KV heads expanded to N."""
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep)
+
+
+def flash_cases(dev, gen):
+    """The static prefill of llama-7b's generate: 8 rows of 64..500 prompt
+    tokens bucketed to S 512 over a 1024-column arena, 32 heads of 128, in
+    bf16 and fp32; then alibi, GQA (K 8) and the cache-less S = T = 512."""
+    lens = [500, 64, 287, 133, 411, 350, 96, 222]
+    specs = [("prefill", torch.bfloat16, 512, 1024, 32, False),
+             ("prefill", torch.float32, 512, 1024, 32, False),
+             ("prefill_alibi", torch.bfloat16, 512, 1024, 32, True),
+             ("prefill_gqa", torch.bfloat16, 512, 1024, 8, False),
+             ("cacheless", torch.bfloat16, 512, 512, 32, False)]
+    results = []
+    for case, dtype, S, T, K, use_alibi in specs:
+        B, N, D = 8, 32, 128
+        q, k, v, mask = dense_operands(dev, gen, B, S, T, N, K, D, lens,
+                                       dtype)
+        al = alibi_slopes(N, device=dev) if use_alibi else None
+        got = flash_attention(q, k, v, mask, causal=True, alibi=al)
+        ref = reference_flash_attention(q, k, v, mask, causal=True, alibi=al)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {case}: non-finite output")
+        err = check(f"flash_attention {case} {dtype}", got, ref, TOL[dtype])
+        # the work these inputs need: causal pairs of visible keys, and the
+        # K / V rows some query sees
+        seen = mask[:, :min(S, T)].long()
+        vis = torch.cumsum(seen, dim=1)                      # keys <= i
+        rows = torch.arange(S, device=dev).clamp(max=min(S, T) - 1)
+        pairs = int(vis[:, rows].sum()) * N
+        item = q.element_size()
+        nbytes = (2 * B * S * N * D + 2 * int(seen.sum()) * K * D) * item \
+            + 4 * seen.numel()
+        b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * D,
+                              BF16_FLOPS if dtype != torch.float32
+                              else FP32_FLOPS)
+        keep = ((torch.arange(T, device=dev)[None, :]
+                 <= torch.arange(S, device=dev)[:, None])[None]
+                & (mask != 0)[:, None, :])[:, None]
+        results.append(dict(
+            case=case, B=B, S=S, T=T, N=N, K=K, D=D, lens=lens,
+            alibi=use_alibi, dtype=str(dtype), max_abs_err=err,
+            tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+            ms=time_ms(lambda: flash_attention(q, k, v, mask, causal=True,
+                                               alibi=al)),
+            plain_ms=time_ms(lambda: reference_flash_attention(
+                q, k, v, mask, causal=True, alibi=al), iters=4, reps=5),
+            library_ms=(time_ms(sdpa_call(q, k, v, keep))
+                        if al is None else None),
+            bound_ms=b_ms, bound_by=b_by))
+    return results
+
+
+def decode_dense_cases(dev, gen):
+    """llama-7b's decode step over the dense arena: B 8, 32 heads of 128,
+    T 1024, ragged validity with holes, bf16 and fp32; then alibi with
+    per-row key positions."""
+    lens = [1000, 77, 512, 300, 64, 800, 640, 129]
+    results = []
+    for case, dtype, use_alibi in (("decode", torch.bfloat16, False),
+                                   ("decode", torch.float32, False),
+                                   ("decode_alibi", torch.bfloat16, True)):
+        B, T, N, K, D = 8, 1024, 32, 32, 128
+        q, k, v, valid = dense_operands(dev, gen, B, 1, T, N, K, D, lens,
+                                        dtype)
+        q = q[:, 0].contiguous()
+        kv_len = max(lens)
+        al = alibi_slopes(N, device=dev) if use_alibi else None
+        kpos = None
+        if use_alibi:
+            col = torch.arange(T, dtype=torch.float32, device=dev)[None]
+            kpos = (col - torch.tensor([17.0 * b for b in range(B)],
+                                       device=dev)[:, None]).contiguous()
+        args = (q, k, v, valid)
+        kw = dict(alibi=al, key_positions=kpos, kv_len=kv_len)
+        got = decode_attention(*args, **kw)
+        ref = reference_decode_attention(*args, **kw)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"decode_attention {case}: non-finite "
+                                 "output")
+        err = check(f"decode_attention {case} {dtype}", got, ref, TOL[dtype])
+        live = int(valid[:, :kv_len].sum())
+        item = q.element_size()
+        nbytes = (2 * live * K * D + 2 * B * N * D) * item \
+            + 4 * B * kv_len * (2 if kpos is not None else 1)
+        b_ms, b_by = bound_ms(nbytes, 4.0 * live * N * D,
+                              BF16_FLOPS if dtype != torch.float32
+                              else FP32_FLOPS)
+        keep = (valid != 0) & (torch.arange(T, device=dev) < kv_len)[None]
+        results.append(dict(
+            case=case, B=B, T=T, N=N, K=K, D=D, lens=lens, kv_len=kv_len,
+            live_keys=live, alibi=use_alibi, dtype=str(dtype),
+            max_abs_err=err, tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+            ms=time_ms(lambda: decode_attention(*args, **kw)),
+            plain_ms=time_ms(lambda: reference_decode_attention(*args, **kw)),
+            library_ms=(time_ms(sdpa_call(q[:, None], k, v,
+                                          keep[:, None, None]))
+                        if al is None else None),
+            bound_ms=b_ms, bound_by=b_by))
+    return results
+
+
 # ---------------------------------------------------------------------------
 # serve llama-7b at full width
 # ---------------------------------------------------------------------------
@@ -347,6 +504,8 @@ def serve_requests(srv):
 
 
 def serve_phase():
+    """The 8-request scenario; returns (launch counts, the phase's JSON,
+    the server, which the generate phase reuses)."""
     srv, init_s = make_server()
     V = srv.engine.model.config.vocab_size
     reset_launch_counts()
@@ -356,8 +515,8 @@ def serve_phase():
     for i, out in enumerate(outs):
         if len(out) != 32 or not ((out >= 0) & (out < V)).all():
             raise AssertionError(f"serve: request {i} returned {out}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in SERVE_KERNELS:
+        if counts[name] <= 0:
             raise AssertionError(f"serve: kernel {name} never launched")
     if srv.sched.prefix_hits < 1 or srv._cow_copies < 1:
         raise AssertionError("serve: prefix cache / copy-on-write did not run")
@@ -374,7 +533,7 @@ def serve_phase():
         ttft_ms_median=float(np.median(ttft)),
         prefix_hits=srv.sched.prefix_hits, cow_copies=srv._cow_copies,
         launches=counts,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), srv
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +588,138 @@ def e2e_phase(dev):
                 tol=E2E_TOL, logits_absmax=scale)
 
 
+# ---------------------------------------------------------------------------
+# generate with llama-7b at full width, and dense parity at reduced depth
+# ---------------------------------------------------------------------------
+
+
+GEN_LENS = [500, 64, 287, 133, 411, 350, 96, 222]
+GEN_NEW = 32
+
+
+def generate_prompts(V: int):
+    """8 right-padded prompts of 64..500 tokens (pads are token 0) and their
+    (B, S) attention mask."""
+    rng = np.random.default_rng(1)
+    S = max(GEN_LENS)
+    ids = rng.integers(0, V, (len(GEN_LENS), S))
+    mask = (np.arange(S)[None] < np.asarray(GEN_LENS)[:, None]).astype(
+        np.int32)
+    return ids * mask, mask
+
+
+def generate_call(eng, ids, mask):
+    """One ``generate`` with launch counts zeroed just before it and read
+    just after. Returns (tokens, ttft s, wall s, counts)."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, ttft = eng.generate(ids, attention_mask=mask,
+                             max_new_tokens=GEN_NEW, return_ttft=True)
+    toks = out.cpu().numpy()
+    return toks, ttft, time.perf_counter() - t0, launch_counts()
+
+
+def generate_phase(srv):
+    """``generate`` on the serving engine's llama-7b weights after the
+    serving arena is released; two calls, the second reusing the arena."""
+    srv.close()
+    torch.cuda.empty_cache()
+    eng = srv.engine
+    V = eng.model.config.vocab_size
+    ids, mask = generate_prompts(V)
+    lengths = torch.tensor(GEN_LENS, device=eng.device)
+    prefill = eng._prefill
+    seen = []
+
+    def observed_prefill(*args):
+        logits = prefill(*args)
+        seen.append(logits[torch.arange(len(GEN_LENS), device=eng.device),
+                           lengths - 1])
+        return logits
+
+    eng._prefill = observed_prefill
+    torch.cuda.reset_peak_memory_stats()
+    calls, tokens = [], []
+    arena = None
+    for _ in range(2):
+        toks, ttft, wall, counts = generate_call(eng, ids, mask)
+        tokens.append(toks)
+        if toks.shape != (len(GEN_LENS), GEN_NEW) or not (
+                (toks >= 0) & (toks < V)).all():
+            raise AssertionError(f"generate: bad tokens {toks}")
+        if not bool(torch.isfinite(seen[-1]).all()):
+            raise AssertionError("generate: non-finite prefill logits")
+        for name in GENERATE_KERNELS:
+            if counts[name] <= 0:
+                raise AssertionError(f"generate: kernel {name} never "
+                                     "launched")
+        k_arena = eng._arena[len(GEN_LENS)]["k"]
+        if arena is not None and k_arena is not arena:
+            raise AssertionError("generate: the arena was not reused")
+        arena = k_arena
+        calls.append(dict(
+            ttft_ms=ttft * 1e3, wall_s=wall,
+            decode_tokens_per_s=len(GEN_LENS) * (GEN_NEW - 1) / (wall - ttft),
+            launches={n: counts[n] for n in GENERATE_KERNELS}))
+    eng._prefill = prefill
+    cfg = eng.model.config
+    return calls[0]["launches"], dict(
+        phase="generate", model="llama-7b", dtype="bfloat16",
+        prompt_lens=GEN_LENS, new_tokens=GEN_NEW,
+        max_out_tokens=eng.config.max_out_tokens,
+        arena_gb=cache_memory_bytes(cfg, len(GEN_LENS),
+                                    eng.config.max_out_tokens,
+                                    eng.config.dtype) / 1e9,
+        calls=calls, same_tokens=bool(np.array_equal(*tokens)),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def e2e_generate_phase(dev):
+    """Dense prefill + 8 decode steps at llama-7b widths, 2 layers, fp32:
+    the kernel path against ``plain=True`` on two copies of one arena."""
+    cfg = transformer_config("llama-7b", dtype=torch.float32, num_layers=2,
+                             max_seq_len=512)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    params = init_params(gen, cfg)
+    lens, S_pad, T = [200, 77], 256, 512
+    B, S = len(lens), max(lens)
+    lengths = torch.tensor(lens, device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lengths[:, None]).int()
+    ids = torch.zeros(B, S_pad, dtype=torch.long, device=dev)
+    ids[:, :S] = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device=dev) * mask
+    valid = torch.zeros(B, T, dtype=torch.int32, device=dev)
+    valid[:, :S] = mask
+    arena = init_cache(cfg, B, T, torch.float32, dev)
+    arena["k"].fill_(STALE)             # slots outside valid: large, finite
+    arena["v"].fill_(-STALE)
+    arenas = [arena, {k: v.clone() for k, v in arena.items()}]
+    rows = torch.arange(B, device=dev)
+    outs = [forward(params, ids, cfg, cache=arenas[i], attention_mask=valid,
+                    start_pos=0, plain=bool(i))[0][rows, lengths - 1]
+            for i in range(2)]
+    errs = [max_err(outs[0], outs[1])]
+    for t in range(8):
+        tok = outs[1].argmax(dim=-1)
+        valid[:, S + t] = 1
+        pos = (lengths + t)[:, None]
+        outs = [forward(params, tok[:, None], cfg, cache=arenas[i],
+                        attention_mask=valid, start_pos=S + t, positions=pos,
+                        plain=bool(i))[0][:, -1] for i in range(2)]
+        for o in outs:
+            if not bool(torch.isfinite(o).all()):
+                raise AssertionError("e2e_generate: non-finite logits")
+        errs.append(max_err(outs[0], outs[1]))
+    if not max(errs) <= E2E_TOL:
+        raise AssertionError(f"e2e_generate: logits max abs error "
+                             f"{max(errs)} > {E2E_TOL}")
+    return dict(phase="e2e_generate_parity", model="llama-7b", layers=2,
+                dtype="float32", prompt_lens=lens, padded=S_pad, arena=T,
+                decode_steps=8, max_abs_err=max(errs), per_step=errs,
+                tol=E2E_TOL, logits_absmax=float(outs[1].abs().max()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — nothing was run",
@@ -454,26 +745,36 @@ def main() -> int:
     gen.manual_seed(0)
     cases = {"fused_layer_norm": norm_cases(dev, gen),
              "paged_decode_attention": decode_cases(dev, gen),
-             "paged_prefill_attention": prefill_cases(dev, gen)}
+             "paged_prefill_attention": prefill_cases(dev, gen),
+             "flash_attention": flash_cases(dev, gen),
+             "decode_attention": decode_dense_cases(dev, gen)}
     emit(dict(phase="kernels", card=smi, cases=cases))
+    torch.cuda.empty_cache()
 
-    counts, serve = serve_phase()
+    counts, serve, srv = serve_phase()
     emit(dict(serve, card=smi))
+    gen_counts, generate = generate_phase(srv)
+    del srv
+    emit(dict(generate, card=smi))
     torch.cuda.empty_cache()
     emit(dict(e2e_phase(dev), card=smi))
+    emit(dict(e2e_generate_phase(dev), card=smi))
 
-    # the serving path's shapes: norm at the prefill chunk's 256 rows
-    # (RMSNorm, bf16), decode over the ragged 8 rows, prefill at start 256
+    # the main paths' shapes: norm at the prefill chunk's 256 rows (RMSNorm,
+    # bf16), paged decode over the ragged 8 rows, paged prefill at start
+    # 256, flash at generate's static prefill, dense decode over 8 rows
     pick = {"fused_layer_norm": lambda c: c["rows"] == 256 and c["rms"],
             "paged_decode_attention": lambda c: True,
-            "paged_prefill_attention": lambda c: c["start"] == 256}
+            "paged_prefill_attention": lambda c: c["start"] == 256,
+            "flash_attention": lambda c: c["case"] == "prefill",
+            "decode_attention": lambda c: c["case"] == "decode"}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         bf16 = [c for c in cases[name] if c["dtype"] == str(torch.bfloat16)]
         main_case = next(c for c in bf16 if pick[name](c))
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name],
+            launches=counts.get(name, 0) + gen_counts.get(name, 0),
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

@@ -7,7 +7,9 @@ a ported path becomes a CUDA kernel under ``csrc/``, built with ``nvcc`` for
 ``sm_90a`` at first use (``ops/registry.py``).
 
 Ported so far: serving over the paged KV arena (``init_serving``), with the
-fused norm and the paged decode / chunked-prefill attention kernels.
+fused norm and the paged decode / chunked-prefill attention kernels; and
+offline generation over a dense KV arena (``init_inference(...).generate``),
+with the flash-attention forward and the dense decode attention kernels.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 

@@ -1,5 +1,7 @@
 from .engine import InferenceConfig, InferenceEngine, init_inference  # noqa: F401
-from .kv_cache import init_paged_cache, paged_cache_memory_bytes  # noqa: F401
+from .kv_cache import (cache_memory_bytes, init_cache,  # noqa: F401
+                       init_paged_cache, paged_cache_memory_bytes)
 
 __all__ = ["InferenceConfig", "InferenceEngine", "init_inference",
-           "init_paged_cache", "paged_cache_memory_bytes"]
+           "cache_memory_bytes", "init_cache", "init_paged_cache",
+           "paged_cache_memory_bytes"]

@@ -1,24 +1,39 @@
 """InferenceEngine — counterpart of ``deepspeed_tpu/inference/engine.py``.
 
-This slice carries what the serving layer needs from the engine: the model,
-its parameters in the inference dtype, and the device they live on.
-``generate()`` with its dense cache belongs to the next slice (it runs the
-``decode_attention`` and flash-attention kernels, not ported yet).
+The engine owns the model, its parameters in the inference dtype, the device
+they live on, and one dense KV arena reused across ``generate()`` calls. It
+serves two callers: offline generation (``generate``, ``forward``) and the
+serving layer (``serving/api.py``), which reads ``model``, ``params``,
+``config`` and ``device``.
+
+``generate`` follows JAX ``InferenceEngine._generate``: the prompt is padded
+to a bucket and prefilled in one static-prefill forward (the flash kernel);
+the write cursor is then rewound to the true width and every further token
+is one decode forward (the decode kernel) on per-row positions. JAX compiles
+the decode loop into one ``lax.scan``; here it is a Python loop that runs
+all ``max_new_tokens - 1`` steps without reading anything back from the
+device (end-of-sequence is a device-side ``done`` mask), so the host never
+waits on the card inside the loop.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"`` (as the
 tests do); asking for CUDA where there is none raises — there is no silent
-CPU fallback.
+CPU fallback. Left out of this port (JAX has them): tensor / expert
+parallel meshes, quantized dtypes, observability spans and the tpuaudit
+program registration.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, Optional, Union
 
 import torch
 
+from . import kv_cache
 from ..models.core import Model, cast_floating, param_count, tree_map
 from ..models.presets import _SIZES, create_model
+from ..models.transformer import forward as model_forward
 from ..utils.logging import log_dist
 
 _DTYPE_NAMES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -40,12 +55,15 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
 
 @dataclasses.dataclass
 class InferenceConfig:
-    """Inference config subset: the compute/arena dtype (bf16, fp16 or fp32)
-    and the per-sequence token budget."""
+    """Inference config subset: the compute/arena dtype (bf16, fp16 or fp32),
+    the per-sequence token budget (the dense arena's length), the random
+    init seed, and the prompt-length bucket of ``generate``."""
 
     dtype: Any = torch.bfloat16
     max_out_tokens: int = 1024
     seed: int = 0
+    prompt_bucket: int = 64   # prompts pad up to a multiple of this (JAX
+    #   bounds its compiled prefill programs so; kept for identical padding)
 
     def __post_init__(self):
         if isinstance(self.dtype, str):
@@ -56,10 +74,50 @@ class InferenceConfig:
             self.dtype = _DTYPE_NAMES[self.dtype]
         if self.dtype not in (torch.bfloat16, torch.float16, torch.float32):
             raise NotImplementedError(f"inference dtype {self.dtype}")
+        if self.prompt_bucket < 1:
+            raise ValueError(f"prompt_bucket must be >= 1, got "
+                             f"{self.prompt_bucket}")
+
+
+def _bucket(n: int, mult: int = 64) -> int:
+    """Prompt-length bucket: ``n`` rounded up to a multiple of ``mult``."""
+    return max(mult, ((n + mult - 1) // mult) * mult)
+
+
+def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
+            temperature: float, top_k: int, top_p: float = 1.0
+            ) -> torch.Tensor:
+    """Greedy / temperature / top-k / top-p sampling (JAX ``_sample``), the
+    one rule for the first token and every decode step. Greedy is an fp32
+    argmax (the first index on ties); otherwise a Gumbel-max draw from
+    ``generator``, so nothing is read back to the host."""
+    logits = logits.float()
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / temperature
+    neg = torch.full_like(logits, float("-inf"))
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, neg, logits)
+    if top_p < 1.0:
+        # nucleus: keep the smallest prefix of descending-prob tokens whose
+        # cumulative mass reaches top_p (the top-1 token always survives)
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        keep[..., 0] = True
+        cutoff = torch.where(keep, sorted_logits,
+                             torch.full_like(sorted_logits, float("inf"))
+                             ).min(dim=-1, keepdim=True).values
+        logits = torch.where(logits >= cutoff, logits, neg)
+    gumbel = -torch.log(torch.empty_like(logits).exponential_(
+        generator=generator))
+    return torch.argmax(logits + gumbel, dim=-1)
 
 
 class InferenceEngine:
-    """Owns the model, its params (in ``config.dtype``) and the device."""
+    """Owns the model, its params (in ``config.dtype``), the device and the
+    dense KV arena of ``generate``."""
 
     def __init__(self, model: Model, config: InferenceConfig,
                  params: Optional[Dict[str, Any]] = None,
@@ -76,15 +134,137 @@ class InferenceEngine:
             params = model.init(gen)
         self.params = tree_map(lambda t: t.to(self.device),
                                cast_floating(params, config.dtype))
+        # batch size -> dense arena, kept between generate() calls
+        self._arena: Dict[int, Dict[str, torch.Tensor]] = {}
         log_dist(f"inference engine ready: "
                  f"{param_count(self.params) / 1e6:.1f}M params, "
                  f"dtype={config.dtype}, device={self.device}")
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "InferenceEngine.generate() is not ported yet (it needs the "
-            "decode_attention and flash-attention kernels); serve through "
-            "init_serving / ServingEngine")
+    def _tensor(self, a, dtype: torch.dtype) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device, dtype)
+
+    # -- plain forward -------------------------------------------------------
+    def forward(self, input_ids, attention_mask=None) -> torch.Tensor:
+        """Full-sequence logits (B, S, V), no cache; ``attention_mask``
+        (B, S) is key padding."""
+        ids = self._tensor(input_ids, torch.long)
+        mask = (None if attention_mask is None
+                else self._tensor(attention_mask, torch.int32))
+        logits, _ = model_forward(self.params, ids, self.model.config,
+                                  attention_mask=mask)
+        return logits
+
+    __call__ = forward
+
+    # -- generate ------------------------------------------------------------
+    def _prefill(self, ids: torch.Tensor, valid: torch.Tensor,
+                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Static prefill from position 0: logits (B, S_pad, V)."""
+        logits, _ = model_forward(self.params, ids, self.model.config,
+                                  cache=cache, attention_mask=valid,
+                                  start_pos=0)
+        return logits
+
+    def _decode(self, tok: torch.Tensor, cache: Dict[str, torch.Tensor],
+                valid: torch.Tensor, idx: int, pos: torch.Tensor,
+                kpos: Optional[torch.Tensor]) -> torch.Tensor:
+        """One decode step at arena column ``idx``: logits (B, V)."""
+        logits, _ = model_forward(self.params, tok[:, None],
+                                  self.model.config, cache=cache,
+                                  attention_mask=valid, start_pos=idx,
+                                  positions=pos[:, None],
+                                  key_positions=kpos)
+        return logits[:, -1]
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def generate(self, input_ids, attention_mask=None,
+                 max_new_tokens: int = 32, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 1.0,
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 return_ttft: bool = False):
+        """Prompt ids (B, S) -> generated ids (B, max_new_tokens), a tensor
+        on the engine's device.
+
+        Ragged prompts: pass ``attention_mask`` (B, S); prompts are treated
+        as right-padded. Decoded tokens take each row's TRUE next positions
+        (len_b, len_b + 1, ...), and alibi models bias keys by their true
+        per-row positions, so a ragged batch generates what each prompt
+        generates alone. After ``eos_token_id`` a row keeps emitting it.
+        ``return_ttft``: also return the wall seconds of prefill plus
+        first-token sampling (ending in a device sync)."""
+        cfg = self.model.config
+        dev = self.device
+        ids = torch.as_tensor(input_ids).cpu().long()
+        if ids.dim() != 2:
+            raise ValueError(f"input_ids must be (B, S), got "
+                             f"{tuple(ids.shape)}")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got "
+                             f"{max_new_tokens}")
+        B, S = ids.shape
+        S_pad = _bucket(S, self.config.prompt_bucket)
+        T_max = self.config.max_out_tokens
+        if S_pad + max_new_tokens > T_max:
+            raise ValueError(
+                f"prompt ({S_pad} padded) + max_new_tokens ({max_new_tokens})"
+                f" exceeds max_out_tokens={T_max} — raise InferenceConfig."
+                "max_out_tokens")
+        mask = (torch.ones(B, S, dtype=torch.int32) if attention_mask is None
+                else torch.as_tensor(attention_mask).cpu().int())
+        lengths_host = mask.sum(dim=-1)
+        ragged = attention_mask is not None and bool(
+            (lengths_host != S).any())
+        ids_pad = torch.zeros(B, S_pad, dtype=torch.long)
+        ids_pad[:, :S] = ids
+        # valid-key mask over the whole arena, prompt part filled
+        valid = torch.zeros(B, T_max, dtype=torch.int32)
+        valid[:, :S] = mask
+        ids_pad, valid = ids_pad.to(dev), valid.to(dev)
+        lengths = lengths_host.to(dev)
+        # one arena, reused while the batch size stays (JAX's single
+        # workspace: another batch size frees it); stale keys stay masked
+        # by `valid` and are overwritten as prefill and decode proceed
+        cache = self._arena.pop(B, None)
+        self._arena.clear()
+        if cache is None:
+            cache = kv_cache.init_cache(cfg, B, T_max, self.config.dtype, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+
+        t0 = time.perf_counter()
+        logits = self._prefill(ids_pad, valid, cache)
+        last = logits[torch.arange(B, device=dev), lengths - 1]
+        tok = _sample(last, gen, temperature, top_k, top_p)
+        self._sync()
+        ttft = time.perf_counter() - t0
+
+        out = [tok]
+        # the decode cursor rewinds from S_pad to S: decoded tokens take
+        # arena columns S, S + 1, ... over prefill's padding keys
+        kpos = None
+        if ragged and cfg.position == "alibi":
+            col = torch.arange(T_max, dtype=torch.float32, device=dev)[None]
+            shift = (S - lengths.float())[:, None]
+            kpos = col - shift * (col >= S).float()
+        pos = lengths.long()
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        for t in range(max_new_tokens - 1):
+            valid[:, S + t] = 1
+            nxt = _sample(self._decode(tok, cache, valid, S + t, pos, kpos),
+                          gen, temperature, top_k, top_p)
+            if eos_token_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, eos_token_id),
+                                  nxt)
+                done = done | (nxt == eos_token_id)
+            out.append(nxt)
+            tok, pos = nxt, pos + 1
+        self._arena[B] = cache
+        tokens = torch.stack(out, dim=1)
+        return (tokens, ttft) if return_ttft else tokens
 
 
 def init_inference(model=None, config: Optional[InferenceConfig] = None,

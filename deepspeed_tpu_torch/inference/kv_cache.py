@@ -1,8 +1,20 @@
-"""Paged KV arena (the serving layer's cache).
+"""KV caches: the dense arena of ``generate()`` and the paged serving arena.
 
-Counterpart of the paged half of ``deepspeed_tpu/inference/kv_cache.py``: the
-time axis is carved into fixed-size blocks shared by every in-flight request
-(vLLM's PagedAttention block tables, Kwon et al. SOSP '23):
+Counterpart of ``deepspeed_tpu/inference/kv_cache.py``.
+
+Dense (``init_cache``): one contiguous arena per batch,
+
+    {"k": (L, B, T_MAX, KV_HEADS, HEAD_DIM),
+     "v": (L, B, T_MAX, KV_HEADS, HEAD_DIM)}
+
+written in place from a write cursor. JAX carries that cursor in the arena
+as a traced ``index`` array; the port keeps it as a host int held by the
+engine (``InferenceEngine.generate``) and passed to ``forward`` as
+``start_pos``, because eager PyTorch needs no traced cursor.
+
+Paged (``init_paged_cache``): the time axis is carved into fixed-size
+blocks shared by every in-flight request (vLLM's PagedAttention block
+tables, Kwon et al. SOSP '23):
 
     {"k": (L, NUM_BLOCKS, BLOCK, KV_HEADS, HEAD_DIM),
      "v": (L, NUM_BLOCKS, BLOCK, KV_HEADS, HEAD_DIM)}
@@ -19,6 +31,24 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+
+def init_cache(cfg, batch_size: int, max_seq_len: int, dtype: torch.dtype,
+               device) -> Dict[str, torch.Tensor]:
+    """Allocate the dense arena for ``cfg`` (a TransformerConfig), zeroed.
+    The write cursor is the caller's host int (see the module docstring)."""
+    shape = (cfg.num_layers, batch_size, max_seq_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_memory_bytes(cfg, batch_size: int, max_seq_len: int,
+                       dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dense arena footprint in bytes."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (2 * cfg.num_layers * batch_size * max_seq_len
+            * cfg.num_kv_heads * cfg.head_dim * itemsize)
 
 
 def blocks_for_tokens(n_tokens: int, block_size: int) -> int:

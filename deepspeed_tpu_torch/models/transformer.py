@@ -1,5 +1,6 @@
-"""Decoder-only transformer (GPT-2 / Llama / BLOOM families), paged serving
-forward.
+"""Decoder-only transformer (GPT-2 / Llama / BLOOM families): the paged
+serving forward, the dense-cache forward of ``generate()`` and the
+cache-less forward.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py``: one functional
 decoder covers the families through config switches —
@@ -8,36 +9,52 @@ decoder covers the families through config switches —
   Llama family : RMSNorm, RoPE, SwiGLU MLP, GQA (n_kv_heads < n_heads)
   BLOOM family : ALiBi, LayerNorm after the embedding
 
-This slice of the port carries the PAGED forward the serving layer runs
-(JAX ``forward`` with ``block_table``, :1115 and :1271-1300): the KV cache is
-the shared block arena ``{"k","v": (L, NUM_BLOCKS, BLOCK, K, D)}`` and each
-row reaches its keys through a block table. Parameters keep the JAX tree
-layout (layer leaves stacked on a leading layer axis); the layer loop is a
-Python loop over views of those stacks where JAX scans.
+``forward`` takes the JAX ``forward``'s three cache modes:
 
-Kernels route by the tensor's device: ``_norm`` calls ``fused_layer_norm``
-and the paged read calls ``paged_decode_attention`` (S == 1) or
-``paged_prefill_attention`` (chunked prefill), which launch their CUDA
-kernels on a CUDA tensor and run their plain versions on a CPU tensor.
-``forward(..., plain=True)`` calls the plain versions on any device — the
-reference the kernel path is held against. ``paged_impl='gather'`` keeps
-the dense ``arena[block_table]`` view as the A/B baseline on both devices.
+* PAGED (``block_table`` given; JAX :1115 and :1271-1300): the KV cache is
+  the shared block arena ``{"k","v": (L, NUM_BLOCKS, BLOCK, K, D)}`` and
+  each row reaches its keys through a block table;
+* DENSE (``cache`` without ``block_table``; JAX :930-1000): the arena
+  ``{"k","v": (L, B, T_MAX, K, D)}`` is written at the host cursor
+  ``start_pos``. One token (S == 1) is a decode step over the ``(B, T)``
+  validity mask; ``start_pos == 0`` with S > 1 is the static prefill, the
+  flash kernel over the whole arena with 0-based causality; any other
+  ``start_pos`` takes the plain attention with an explicit (B, S, T) mask;
+* CACHE-LESS (no ``cache``; JAX :1010-1015): causal flash attention over
+  the sequence with an optional (B, S) key-padding mask.
+
+Parameters keep the JAX tree layout (layer leaves stacked on a leading
+layer axis); the layer loop is a Python loop over views of those stacks
+where JAX scans.
+
+Kernels route by the tensor's device: ``_norm`` calls ``fused_layer_norm``,
+the paged read calls ``paged_decode_attention`` (S == 1) or
+``paged_prefill_attention`` (chunked prefill), the dense decode calls
+``decode_attention`` and the static prefill and cache-less forward call
+``flash_attention``; each launches its CUDA kernel on a CUDA tensor and runs
+its plain version on a CPU tensor. ``forward(..., plain=True)`` calls the
+plain versions on any device — the reference the kernel path is held
+against. ``paged_impl='gather'`` keeps the dense ``arena[block_table]``
+view as the A/B baseline on both devices.
 
 Out of scope here (they raise): MoE, quantized weights, sliding windows and
-custom attention scales, post-LN / bidirectional encoders, token types, and
-the cache-less or dense-cache forward (training and ``generate()`` are
-later slices).
+custom attention scales, post-LN / bidirectional encoders, token types.
+Dropout, progressive layer drop, random-LTD and ring / sequence-parallel
+attention are training features with no counterpart in this forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from functools import lru_cache, partial
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..ops.decode_attention import decode_attention, reference_decode_attention
+from ..ops.flash_attention import flash_attention, reference_flash_attention
 from ..ops.normalization import fused_layer_norm, reference_layer_norm
 from ..ops.paged_decode_attention import (paged_decode_attention,
                                           paged_prefill_attention,
@@ -238,14 +255,24 @@ def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
     return torch.tensor(slopes, dtype=torch.float32, device=device)
 
 
+@lru_cache(maxsize=None)
+def _alibi_table(n_heads: int, device: torch.device) -> torch.Tensor:
+    """``alibi_slopes`` on ``device``, built once and only read: copying the
+    slopes from the host on every forward would wait for the stream."""
+    return alibi_slopes(n_heads, device=device)
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          mask: torch.Tensor,
+                          mask: Optional[torch.Tensor], causal: bool = True,
                           alibi: Optional[torch.Tensor] = None,
+                          key_positions: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """Plain attention over a dense view (the ``paged_impl='gather'``
-    baseline). q (B, S, N, D); k/v (B, T, K, D) with GQA broadcast; mask
-    (B, S, T) — 1 where the key is visible. Softmax in fp32; alibi adds
-    slope[n] * key column."""
+    """Plain attention over a dense view (JAX ``dot_product_attention``).
+    q (B, S, N, D); k/v (B, T, K, D) with GQA broadcast; ``mask`` (B, T)
+    key padding or (B, S, T) — 1 where the key is visible. ``causal`` is
+    END-aligned: query s sits at position T - S + s. Softmax in fp32;
+    alibi adds slope[n] * key position (``key_positions`` (B, T), default
+    the column index)."""
     B, S, N, D = q.shape
     T, K = k.shape[1], k.shape[2]
     if K != N:
@@ -254,11 +281,18 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = D ** -0.5 if scale is None else scale
     scores = torch.einsum("bsnd,btnd->bnst", q, k).float() * scale
     if alibi is not None:
-        kpos = torch.arange(T, dtype=torch.float32, device=q.device)
-        scores = scores + alibi[None, :, None, None] * kpos
+        kpos = (torch.arange(T, dtype=torch.float32, device=q.device)[None]
+                if key_positions is None else key_positions.float())
+        scores = scores + alibi[None, :, None, None] * kpos[:, None, None, :]
     neg = torch.finfo(torch.float32).min
-    scores = torch.where(mask[:, None].bool(), scores,
-                         torch.full_like(scores, neg))
+    if causal:
+        q_pos = torch.arange(S, device=q.device)[:, None] + (T - S)
+        keep = torch.arange(T, device=q.device)[None, :] <= q_pos
+        scores = torch.where(keep[None, None], scores,
+                             torch.full_like(scores, neg))
+    if mask is not None:
+        m = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None]
+        scores = torch.where(m.bool(), scores, torch.full_like(scores, neg))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bnst,btnd->bsnd", probs, v)
 
@@ -328,7 +362,8 @@ def _paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         resident = col[None, :] <= pos.max(dim=1).values[:, None]
         vv = torch.where(resident[:, :, None, None], vv, torch.zeros_like(vv))
         full = col[None, None, :] <= pos[:, :, None]
-        return dot_product_attention(q, kk, vv, full, alibi=alibi)
+        return dot_product_attention(q, kk, vv, full, causal=False,
+                                     alibi=alibi)
     if plain:
         return reference_paged_attention(q, ck, cv, bt, pos, alibi=alibi)
     if step.lengths is not None:
@@ -340,14 +375,90 @@ def _paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return reference_paged_attention(q, ck, cv, bt, pos, alibi=alibi)
 
 
+@dataclasses.dataclass
+class _DenseStep:
+    """Per-forward bookkeeping of the dense and cache-less modes, shared by
+    every layer. ``mode``: 'none' (no cache), 'decode' (S == 1), 'prefill'
+    (static prefill from position 0) or 'general' (any other start)."""
+
+    mode: str
+    start: int                           # the write cursor
+    mask: Optional[torch.Tensor]         # (B, S) | (B, T) int32 | (B, S, T)
+    kv_len: Optional[int]                # decode: columns < start + 1 live
+    key_positions: Optional[torch.Tensor]
+
+
+def _dense_step(S: int, B: int, cache: Optional[Dict[str, torch.Tensor]],
+                attention_mask: Optional[torch.Tensor], start_pos: int,
+                key_positions: Optional[torch.Tensor],
+                device) -> _DenseStep:
+    if cache is None:
+        return _DenseStep("none", 0, attention_mask, None, None)
+    T = cache["k"].shape[2]
+    start = int(start_pos)
+    if start < 0 or start + S > T:
+        raise ValueError(f"dense cache write [{start}, {start + S}) outside "
+                         f"the arena's {T} columns")
+    if attention_mask is not None and attention_mask.shape != (B, T):
+        raise ValueError(f"attention_mask must be ({B}, {T}) over the arena "
+                         f"with a dense cache, got "
+                         f"{tuple(attention_mask.shape)}")
+    if S == 1:
+        # valid * (col <= start) is valid over the columns < start + 1: the
+        # kernel gets kv_len instead of a second mask
+        valid = (attention_mask if attention_mask is not None
+                 else torch.ones(B, T, dtype=torch.int32, device=device))
+        return _DenseStep("decode", start, valid.int(), start + 1,
+                          key_positions)
+    col = torch.arange(T, device=device)
+    if start == 0:
+        valid = (attention_mask if attention_mask is not None
+                 else (col < S).int()[None].expand(B, T))
+        return _DenseStep("prefill", 0, valid.int(), None, None)
+    q_pos = start + torch.arange(S, device=device)
+    full = (col[None, :] <= q_pos[:, None])[None].expand(B, S, T)
+    if attention_mask is not None:
+        full = full & (attention_mask != 0)[:, None, :]
+    return _DenseStep("general", start, full, None, key_positions)
+
+
+def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     layer_cache: Optional[Dict[str, torch.Tensor]],
+                     step: _DenseStep, alibi: Optional[torch.Tensor],
+                     plain: bool) -> torch.Tensor:
+    """Write this step's K/V into the dense arena at the cursor (in place;
+    JAX updates it with ``dynamic_update_slice``), then attend."""
+    flash = reference_flash_attention if plain else flash_attention
+    if layer_cache is None:
+        return flash(q, k.contiguous(), v.contiguous(), step.mask,
+                     causal=True, alibi=alibi)
+    ck, cv = layer_cache["k"], layer_cache["v"]
+    S = q.shape[1]
+    ck[:, step.start:step.start + S] = k
+    cv[:, step.start:step.start + S] = v
+    if step.mode == "decode":
+        decode = reference_decode_attention if plain else decode_attention
+        return decode(q[:, 0], ck, cv, step.mask, alibi=alibi,
+                      key_positions=step.key_positions,
+                      kv_len=step.kv_len)[:, None]
+    if step.mode == "prefill":
+        # queries sit at columns 0..S-1, so the kernel's 0-based causality
+        # over the arena is exact; the (B, T) mask hides padding and
+        # unwritten (stale) columns
+        return flash(q, ck, cv, step.mask, causal=True, alibi=alibi)
+    return dot_product_attention(q, ck, cv, step.mask, causal=False,
+                                 alibi=alibi,
+                                 key_positions=step.key_positions)
+
+
 def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
                    layer: Dict[str, Any],
                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                   layer_cache: Dict[str, torch.Tensor], step: _PagedStep,
-                   paged_impl: str, alibi: Optional[torch.Tensor],
+                   attend: Callable[..., torch.Tensor],
                    plain: bool) -> torch.Tensor:
-    """One pre-LN decoder block over the paged arena. ``rope``: the
-    (cos, sin) tables of this step's positions, shared by every layer."""
+    """One pre-LN decoder block. ``rope``: the (cos, sin) tables of this
+    step's positions, shared by every layer; ``attend(q, k, v)``: the
+    layer's attention in the forward's cache mode."""
     B, S, H = x.shape
     N, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn_p = layer["attn"]
@@ -375,8 +486,7 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
         else:
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
-    attn = _paged_attention(q.contiguous(), k, v, layer_cache, step,
-                            paged_impl, alibi, plain)
+    attn = attend(q.contiguous(), k, v)
     attn_out = attn.reshape(B, S, N * D) @ attn_p["wo"]
     if "bo" in attn_p:
         attn_out = attn_out + attn_p["bo"]
@@ -418,32 +528,50 @@ def _layer_views(layers: Dict[str, Any], num_layers: int
 
 @torch.no_grad()
 def forward(params: Dict[str, Any], input_ids: torch.Tensor,
-            cfg: TransformerConfig, cache: Dict[str, torch.Tensor],
-            positions: torch.Tensor, block_table: torch.Tensor,
+            cfg: TransformerConfig,
+            cache: Optional[Dict[str, torch.Tensor]] = None,
+            positions: Optional[torch.Tensor] = None,
+            block_table: Optional[torch.Tensor] = None,
             paged_write_mask: Optional[torch.Tensor] = None,
             paged_impl: str = "auto", paged_chunk: bool = False,
-            plain: bool = False
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Token ids (B, S) -> (logits (B, S, V), cache) over the paged arena
-    ``cache = {"k","v": (L, NUM_BLOCKS, BLOCK, K, D)}``, which is written in
-    place. ``positions`` (B, S): per-row absolute positions (-1 marks a
-    chunk-padding query); ``block_table`` (B, MAX_BLOCKS) int32;
+            plain: bool = False,
+            attention_mask: Optional[torch.Tensor] = None,
+            start_pos: int = 0,
+            key_positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Token ids (B, S) -> (logits (B, S, V), cache); the cache, if any, is
+    written in place. ``plain`` runs the plain versions of the norm and
+    attention kernels on any device.
+
+    PAGED (``block_table`` (B, MAX_BLOCKS) int32 given): ``cache = {"k","v":
+    (L, NUM_BLOCKS, BLOCK, K, D)}``; ``positions`` (B, S) per-row absolute
+    positions (-1 marks a chunk-padding query) are required;
     ``paged_write_mask`` (B, S) sends masked-off tokens' writes to scratch
     block 0; ``paged_chunk`` asserts the chunked-prefill contract
     (``positions[b] = start_b + arange(S)`` over the valid prefix), which
     lets S > 1 take the paged prefill kernel; ``paged_impl='gather'`` reads
-    the dense ``arena[block_table]`` view instead; ``plain`` runs the plain
-    versions of the norm and attention kernels on any device."""
+    the dense ``arena[block_table]`` view instead.
+
+    DENSE (``cache = {"k","v": (L, B, T, K, D)}`` without a block table):
+    the tokens are written at columns ``start_pos .. start_pos + S - 1``
+    (a host int); ``attention_mask`` (B, T) marks the valid columns;
+    ``key_positions`` (B, T) are the keys' true positions for alibi in
+    decode. CACHE-LESS (no ``cache``): ``attention_mask`` (B, S) is key
+    padding. In both, ``positions`` ((S,) shared or (B, S) per row)
+    defaults to ``start_pos + arange(S)``."""
     check_servable(cfg)
     if paged_impl not in ("auto", "gather"):
         raise ValueError(f"paged_impl must be 'auto' or 'gather', "
                          f"got '{paged_impl}'")
-    if cache is None or block_table is None or positions is None \
-            or positions.dim() != 2:
-        raise NotImplementedError(
-            "the port's forward runs the paged serving path only: it needs "
-            "cache=, block_table= and (B, S) positions (the cache-less and "
-            "dense-cache forward wait for the training/generate slices)")
+    B, S = input_ids.shape
+    paged = block_table is not None
+    if paged and (cache is None or positions is None
+                  or positions.dim() != 2):
+        raise ValueError("paged mode (block_table) requires cache= and "
+                         "explicit (B, S) positions")
+    dev = input_ids.device
+    if positions is None:
+        positions = torch.arange(S, device=dev) + int(start_pos)
     x = params["embed"]["tokens"][input_ids].to(cfg.dtype)
     if cfg.position == "learned":
         x = x + params["pos"][positions.long()].to(cfg.dtype)
@@ -451,17 +579,27 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
         x = _norm(x, params["embed_norm"]["scale"],
                   params["embed_norm"].get("bias"), "layernorm",
                   cfg.norm_eps, plain)
-    step = _paged_step(block_table, positions, cache["k"].shape[2],
-                       paged_write_mask, paged_chunk)
-    alibi = (alibi_slopes(cfg.num_heads, device=x.device)
+    alibi = (_alibi_table(cfg.num_heads, x.device)
              if cfg.position == "alibi" else None)
-    rope = (rope_table(step.positions, cfg.rotary_dim or cfg.head_dim,
+    if paged:
+        step = _paged_step(block_table, positions, cache["k"].shape[2],
+                           paged_write_mask, paged_chunk)
+        positions = step.positions
+        attention = partial(_paged_attention, step=step,
+                            paged_impl=paged_impl, alibi=alibi, plain=plain)
+    else:
+        step = _dense_step(S, B, cache, attention_mask, start_pos,
+                           key_positions, dev)
+        attention = partial(_dense_attention, step=step, alibi=alibi,
+                            plain=plain)
+    rope = (rope_table(positions, cfg.rotary_dim or cfg.head_dim,
                        cfg.rope_theta) if cfg.position == "rope" else None)
     for li, layer in enumerate(_layer_views(params["layers"],
                                             cfg.num_layers)):
+        lc = (None if cache is None
+              else {"k": cache["k"][li], "v": cache["v"][li]})
         x = _layer_forward(cfg, x, layer, rope,
-                           {"k": cache["k"][li], "v": cache["v"][li]}, step,
-                           paged_impl, alibi, plain)
+                           partial(attention, layer_cache=lc), plain)
     return head_logits(params, x, cfg, plain), cache
 
 

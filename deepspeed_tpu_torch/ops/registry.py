@@ -41,6 +41,8 @@ KERNELS: Dict[str, str] = {
     "fused_layer_norm": "layer_norm",
     "paged_decode_attention": "paged_attention",
     "paged_prefill_attention": "paged_attention",
+    "flash_attention": "flash_attention",
+    "decode_attention": "decode_attention",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -136,8 +138,8 @@ def check_launch(name: str, err: int) -> None:
 
 def op_report() -> str:
     """Kernel / source / launches / library-built table."""
-    lines = [f"{'kernel':<28}{'source':<24}{'launches':<10}built", "-" * 68]
+    lines = [f"{'kernel':<28}{'source':<28}{'launches':<10}built", "-" * 72]
     for name, src in KERNELS.items():
-        lines.append(f"{name:<28}{'csrc/' + src + '.cu':<24}"
+        lines.append(f"{name:<28}{'csrc/' + src + '.cu':<28}"
                      f"{_launches[name]:<10}{'yes' if src in _libs else 'no'}")
     return "\n".join(lines)

@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""Where the serving time goes on the GPU, for the PyTorch / CUDA port.
+"""Where the serving and generate time goes on the GPU, for the PyTorch /
+CUDA port.
 
-Runs ``chip_smoke.py``'s serving scenario (llama-7b at full width, bf16,
-seeded random weights, 8 greedy requests of 32 new tokens) under
-``torch.profiler`` and prints one JSON line:
+Runs ``chip_smoke.py``'s scenarios on llama-7b at full width (bf16, seeded
+random weights) under ``torch.profiler``: ``serve`` (8 greedy requests of 32
+new tokens through the ``ServingEngine``) and ``generate`` (one
+``InferenceEngine.generate`` of 8 right-padded prompts of 64..500 tokens, 32
+greedy new tokens, after one unprofiled warm-up call). Prints one JSON line
+per scenario:
 
 * ``wall_ms`` — host wall time of the profiled scenario (ends in a sync;
   the profiler's own host-side cost is inside it);
 * ``device_busy_ms`` / ``device_idle_share`` — the union of GPU kernel and
   copy intervals, and the share of the window the device sat idle;
-* ``by_group_ms`` — device time of cuBLAS/CUTLASS GEMMs, the port's three
+* ``by_group_ms`` — device time of cuBLAS/CUTLASS GEMMs, the port's
   kernels, and everything else;
 * ``top_kernels`` — the 12 kernels with the most device time;
-* ``launches_per_iteration`` — GPU launches per serving iteration.
+* ``launches_per_iteration`` — GPU launches per serving iteration, or per
+  forward (the prefill and each decode step) for ``generate``.
 
-    python3 scripts/profile_torch_serving.py [--trace PATH]
+    python3 scripts/profile_torch_serving.py [--scenario serve|generate|both]
+                                             [--trace PATH]
 
-``--trace`` also writes the Chrome trace. Needs one NVIDIA GPU; exits 1
-without one and when the profiler records no device activity.
+``--trace`` also writes the Chrome trace (of the last scenario). Needs one
+NVIDIA GPU; exits 1 without one and when the profiler records no device
+activity.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 PORT_KERNELS = ("ln_fwd_kernel", "paged_decode_kernel", "paged_prefill_kernel",
-                "paged_prefill_mma_kernel")
+                "paged_prefill_mma_kernel", "flash_fwd_kernel",
+                "flash_fwd_mma_kernel", "decode_kernel")
 
 
 def group(name: str) -> str:
@@ -60,22 +68,12 @@ def union_ms(intervals) -> float:
     return total / 1e3
 
 
-def main(argv) -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_serving: no CUDA device", file=sys.stderr)
-        return 1
-    import chip_smoke
-
-    trace = argv[argv.index("--trace") + 1] if "--trace" in argv else None
-    srv, _ = chip_smoke.make_server()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        handles, _, steps, wall = chip_smoke.serve_requests(srv)
+def breakdown(prof, wall_s: float, steps: int) -> dict:
+    """Device time by group and by kernel, busy / idle share of the
+    window; None when the profiler saw no device activity."""
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        print("profile_torch_serving: the profiler recorded no device "
-              "activity (device time not measured)", file=sys.stderr)
-        return 1
+        return None
     by_group = defaultdict(float)
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
@@ -85,18 +83,64 @@ def main(argv) -> int:
         by_name[e.name][1] += 1
     busy = union_ms((e.time_range.start, e.time_range.end) for e in dev)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy,
+                device_idle_share=1.0 - busy / (wall_s * 1e3),
+                by_group_ms=dict(by_group), device_events=len(dev),
+                launches_per_iteration=len(dev) / steps,
+                top_kernels=[dict(name=n[:120], ms=v[0], calls=v[1])
+                             for n, v in top])
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_serving: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+
+    trace = argv[argv.index("--trace") + 1] if "--trace" in argv else None
+    scenario = (argv[argv.index("--scenario") + 1] if "--scenario" in argv
+                else "serve")
+    if scenario not in ("serve", "generate", "both"):
+        print(f"profile_torch_serving: unknown scenario {scenario}",
+              file=sys.stderr)
+        return 1
+    smi = chip_smoke.nvidia_smi()
+    srv, _ = chip_smoke.make_server()
+    results = []
+    if scenario in ("serve", "both"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            handles, _, steps, wall = chip_smoke.serve_requests(srv)
+        out = breakdown(prof, wall, steps)
+        if out is None:
+            print("profile_torch_serving: the profiler recorded no device "
+                  "activity (device time not measured)", file=sys.stderr)
+            return 1
+        results.append(dict(
+            card=smi, scenario="chip_smoke serve: llama-7b bf16, 8 requests",
+            iterations=steps, tokens=sum(len(h.tokens) for h in handles),
+            **out))
+    if scenario in ("generate", "both"):
+        srv.close()
+        eng = srv.engine
+        ids, mask = chip_smoke.generate_prompts(eng.model.config.vocab_size)
+        chip_smoke.generate_call(eng, ids, mask)          # warm-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            toks, ttft, wall, _ = chip_smoke.generate_call(eng, ids, mask)
+        out = breakdown(prof, wall, chip_smoke.GEN_NEW)
+        if out is None:
+            print("profile_torch_serving: the profiler recorded no device "
+                  "activity (device time not measured)", file=sys.stderr)
+            return 1
+        results.append(dict(
+            card=smi, scenario="chip_smoke generate: llama-7b bf16, 8 "
+            "prompts of 64..500 tokens, 32 new", forwards=chip_smoke.GEN_NEW,
+            tokens=int(toks.size), ttft_ms=ttft * 1e3, **out))
     if trace:
         prof.export_chrome_trace(trace)
-    smi = chip_smoke.nvidia_smi()
-    print(json.dumps(dict(
-        card=smi, scenario="chip_smoke serve: llama-7b bf16, 8 requests",
-        iterations=steps, tokens=sum(len(h.tokens) for h in handles),
-        wall_ms=wall * 1e3, device_busy_ms=busy,
-        device_idle_share=1.0 - busy / (wall * 1e3),
-        by_group_ms=dict(by_group),
-        device_events=len(dev), launches_per_iteration=len(dev) / steps,
-        top_kernels=[dict(name=n[:120], ms=v[0], calls=v[1])
-                     for n, v in top])), flush=True)
+    for r in results:
+        print(json.dumps(r), flush=True)
     return 0
 
 

@@ -3,7 +3,11 @@
 Every test here needs an NVIDIA GPU and skips without one (a CUDA kernel
 has no CPU mode; the plain versions are held against the JAX package by
 ``test_torch_normalization.py`` and ``test_torch_paged_attention.py``).
-The file imports no JAX, so it also runs where JAX is not installed:
+Dense attention (``flash_attention``, ``decode_attention``) runs at small
+shapes and at the shapes of llama-7b's ``generate`` (B 8, 32 heads, D 128,
+a 1024-column arena), with alibi, GQA, ragged masks with holes, and arena
+slots outside every mask holding large finite values. The file imports no
+JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
@@ -18,9 +22,12 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
-from deepspeed_tpu_torch.ops import (fused_layer_norm, launch_counts,
+from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
+                                     fused_layer_norm, launch_counts,
                                      paged_decode_attention,
                                      paged_prefill_attention,
+                                     reference_decode_attention,
+                                     reference_flash_attention,
                                      reference_layer_norm,
                                      reference_paged_attention)
 
@@ -181,3 +188,188 @@ def test_paged_rejects_misaligned_rows(dev):
     with pytest.raises(ValueError, match="aligned"):
         paged_decode_attention(q, kp, kp, bt,
                                torch.ones(2, dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# dense attention: flash forward and decode over a (B, T, K, D) cache
+# ---------------------------------------------------------------------------
+
+STALE = 1e4      # arena slots outside every mask: large and finite
+
+
+def attn_params(shapes, flags):
+    """shape x flags x dtype cases, without fp32 alibi over an arena longer
+    than 512 columns: there the bias slope * column reaches ~860, where one
+    fp32 ulp (6e-5) exceeds the 2e-5 tolerance and both versions round the
+    score differently. That combination is held in bf16 / fp16 at the path
+    shape and in fp32 at the small shapes."""
+    return [(*shape, *flag, dtype, atol) for shape in shapes
+            for flag in flags for dtype, atol in ATTN
+            # shape[-4] is T in (B, S, T, N, K, D) and (B, T, N, K, D)
+            if not (dtype == torch.float32 and shape[-4] > 512
+                    and flag[-1] not in (False, "none"))]
+
+
+def dense_mask(B, T, seed, lo=1):
+    """(B, T) int32: right padding at lengths in [lo, T], plus holes;
+    column 0 always valid."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, T + 1, B)
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.int32)
+    mask[:, 1::7] = 0
+    mask[:, 0] = 1
+    return mask
+
+
+def dense_kv(B, T, K, D, mask, seed):
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(B, T, K, D)).astype(np.float32)
+    v = rng.normal(size=(B, T, K, D)).astype(np.float32)
+    k[mask == 0] = STALE
+    v[mask == 0] = -STALE
+    return k, v
+
+
+# (B, S, T, N, K, D): small shapes over the MMA head sizes and the CUDA-core
+# fallback (D 48), ragged edges (S, T not multiples of 64), GQA; then the
+# static prefill of llama-7b's generate (S 512 over a 1024-column arena)
+FLASH_SHAPES = [(2, 16, 16, 4, 4, 32), (2, 12, 40, 4, 2, 32),
+                (2, 37, 37, 8, 2, 64), (1, 70, 130, 8, 2, 128),
+                (2, 65, 65, 4, 1, 16), (2, 20, 33, 4, 2, 48),
+                (8, 512, 1024, 32, 32, 128)]
+
+
+@pytest.mark.parametrize("B,S,T,N,K,D,causal,use_alibi,dtype,atol", attn_params(
+    FLASH_SHAPES, [(c, a) for c in (True, False) for a in (False, True)]))
+def test_flash_matches_plain(dev, B, S, T, N, K, D, causal, use_alibi,
+                             dtype, atol):
+    rng = np.random.default_rng(S * T + N)
+    mask = dense_mask(B, T, seed=T, lo=max(1, T // 4))
+    k, v = dense_kv(B, T, K, D, mask, seed=D)
+    q = rng.normal(size=(B, S, N, D))
+    al = alibi_slopes(N, device=dev) if use_alibi else None
+    args = (t(q, dev, dtype), t(k, dev, dtype), t(v, dev, dtype),
+            t(mask, dev))
+    before = launch_counts()["flash_attention"]
+    got, lse = flash_attention(*args, causal=causal, alibi=al,
+                               return_lse=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    ref, ref_lse = reference_flash_attention(*args, causal=causal, alibi=al,
+                                             return_lse=True)
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(lse, ref_lse, atol=atol, rtol=atol)
+
+
+def test_flash_cacheless_without_mask(dev):
+    B, S, N, K, D = 2, 100, 8, 4, 128
+    rng = np.random.default_rng(0)
+    q, k, v = (t(rng.normal(size=shape), dev, torch.bfloat16) for shape in
+               ((B, S, N, D), (B, S, K, D), (B, S, K, D)))
+    got = flash_attention(q, k, v)
+    ref = reference_flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_empty_rows_give_zeros(dev, dtype):
+    B, S, T, N, D = 1, 8, 70, 2, 64
+    rng = np.random.default_rng(1)
+    mask = np.zeros((B, T), np.int32)
+    mask[0, 3:60] = 1                 # query rows 0..2 see no key
+    q, k, v = (t(rng.normal(size=shape), dev, dtype) for shape in
+               ((B, S, N, D), (B, T, N, D), (B, T, N, D)))
+    got, lse = flash_attention(q, k, v, t(mask, dev), return_lse=True)
+    torch.cuda.synchronize()
+    assert (got[0, :3] == 0).all() and torch.isinf(lse[0, :, :3]).all()
+    assert torch.isfinite(got).all() and torch.isfinite(lse[0, :, 3:]).all()
+
+
+def test_flash_rejects_bad_operands(dev):
+    q = torch.zeros(2, 8, 4, 32, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(2, 16, 2, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # dtype mismatch
+        flash_attention(q, k.float(), k.float())
+    with pytest.raises(ValueError):                     # device mismatch
+        flash_attention(q, k.cpu(), k.cpu())
+    with pytest.raises(ValueError):                     # not contiguous
+        flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(ValueError):                     # mask shape
+        flash_attention(q, k, k, torch.ones(2, 8, device=dev))
+    with pytest.raises(ValueError):                     # 3 query heads / 2
+        flash_attention(q[:, :, :3].contiguous(), k, k)
+    base = torch.zeros(2 * 8 * 4 * 32 + 1, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(base[1:].view(2, 8, 4, 32), k, k)
+
+
+# (B, T, N, K, D): small shapes over the vector-load paths (16-bit D 64 /
+# 128) and the lane-per-dim paths, GQA up to 8 query heads per KV head; then
+# llama-7b's decode step over the 1024-column arena
+DECODE_SHAPES = [(3, 37, 4, 4, 32), (3, 64, 8, 2, 64), (2, 129, 8, 1, 128),
+                 (2, 50, 32, 4, 128), (3, 20, 4, 2, 48),
+                 (8, 1024, 32, 32, 128)]
+
+
+@pytest.mark.parametrize("B,T,N,K,D,bounded,alibi_mode,dtype,atol",
+                         attn_params(DECODE_SHAPES,
+                                     [(b, a) for b in (False, True)
+                                      for a in ("none", "column",
+                                                "positions")]))
+def test_decode_dense_matches_plain(dev, B, T, N, K, D, bounded, alibi_mode,
+                                    dtype, atol):
+    rng = np.random.default_rng(T * N + D)
+    valid = dense_mask(B, T, seed=T)
+    kv_len = None
+    if bounded:                        # the engine's cursor + 1
+        kv_len = int(valid.sum(-1).max()) - 2 if T > 8 else T
+        valid[:, kv_len:] = 0
+        valid[:, 0] = 1
+    k, v = dense_kv(B, T, K, D, valid, seed=N)
+    q = rng.normal(size=(B, N, D))
+    kpos = np.sort(rng.uniform(0, 2 * T, (B, T)), axis=1).astype(np.float32)
+    al = alibi_slopes(N, device=dev) if alibi_mode != "none" else None
+    kp = t(kpos, dev) if alibi_mode == "positions" else None
+    args = (t(q, dev, dtype), t(k, dev, dtype), t(v, dev, dtype),
+            t(valid, dev))
+    before = launch_counts()["decode_attention"]
+    got = decode_attention(*args, alibi=al, key_positions=kp, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention"] == before + 1
+    ref = reference_decode_attention(*args, alibi=al, key_positions=kp,
+                                     kv_len=kv_len)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+
+
+def test_decode_dense_empty_row_gives_zeros(dev):
+    B, T, N, D = 2, 40, 4, 128
+    rng = np.random.default_rng(2)
+    valid = np.ones((B, T), np.int32)
+    valid[1] = 0
+    q, k, v = (t(rng.normal(size=shape), dev, torch.bfloat16) for shape in
+               ((B, N, D), (B, T, N, D), (B, T, N, D)))
+    got = decode_attention(q, k, v, t(valid, dev))
+    torch.cuda.synchronize()
+    assert (got[1] == 0).all() and torch.isfinite(got).all()
+
+
+def test_decode_dense_rejects_bad_operands(dev):
+    q = torch.zeros(2, 4, 32, device=dev)
+    kc = torch.zeros(2, 16, 2, 32, device=dev)
+    valid = torch.ones(2, 16, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                     # dtype mismatch
+        decode_attention(q.half(), kc, kc, valid)
+    with pytest.raises(ValueError):                     # device mismatch
+        decode_attention(q, kc.cpu(), kc.cpu(), valid)
+    with pytest.raises(ValueError):                     # not contiguous
+        decode_attention(q, kc.transpose(1, 2).contiguous().transpose(1, 2),
+                         kc, valid)
+    with pytest.raises(ValueError):                     # valid shape
+        decode_attention(q, kc, kc, valid[:, :8])
+    with pytest.raises(ValueError):                     # 16 heads per KV head
+        decode_attention(torch.zeros(2, 32, 32, device=dev), kc, kc, valid)
