@@ -43,16 +43,32 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    through the kernel path and through the plain versions, over an arena
    whose slots outside ``valid`` hold large finite values; last-position
    logits must agree.
+8. ``train`` — once the llama-7b phases have released their memory,
+   ``initialize`` trains OPT-1.3B at full size (H 2048, 24 layers, 32 heads
+   of 64, FFN 8192, vocab 50272; seeded random bf16 weights) with the
+   ``bench_zero.py`` config (bf16, AdamW lr 1e-4, micro batch 4, seq 1024,
+   gas 1, ZeRO stage 0): one warm-up step, then 5 ``train_batch`` steps on
+   one fixed seeded token batch. Every loss must be finite and the last
+   below the first; launch counts are zeroed before the 5 steps and each of
+   the path's five kernels must have run its expected count per step.
+   Prints step ms, tokens/s, MFU and peak memory.
+9. ``e2e_train_parity`` — OPT-1.3B widths at 2 layers, fp32: 3 optimizer
+   steps through the kernel path and through the plain path (a model whose
+   ``loss_fn`` runs ``forward(..., plain=True)``, and a
+   ``MixedPrecisionOptimizer(..., plain=True)``) on the card from the same
+   weights and batch; per-step losses, and leaf for leaf the first step's
+   grads and the final params, must agree.
 
 Then one ``{"kernels": [...]}`` line (``launches``: each kernel's count over
-the serve run plus the first generate call), the nvidia-smi line, and as
-the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
+the serve run, the first generate call and the 5 timed train steps), the
+nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the exit code is non-zero; without a CUDA device it exits 1 and prints no
 result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -61,22 +77,31 @@ import time
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import initialize
 from deepspeed_tpu_torch.inference.kv_cache import (cache_memory_bytes,
                                                     init_cache,
                                                     init_paged_cache)
+from deepspeed_tpu_torch.models import Model, create_model, param_count
+from deepspeed_tpu_torch.models.core import tree_leaves
 from deepspeed_tpu_torch.models.presets import transformer_config
 from deepspeed_tpu_torch.models.transformer import (alibi_slopes, forward,
                                                     init_params)
-from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
-                                     fused_layer_norm, launch_counts,
+from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
+                                     flash_attention, flash_attention_bwd_dkv,
+                                     flash_attention_bwd_dq,
+                                     flash_attention_bwd_magnitude,
+                                     fused_adam_flat, fused_layer_norm,
+                                     launch_counts, reference_adam_flat,
                                      paged_decode_attention,
                                      paged_prefill_attention,
                                      reference_decode_attention,
                                      reference_flash_attention,
+                                     reference_flash_attention_bwd,
                                      reference_layer_norm,
                                      reference_paged_attention,
                                      reset_launch_counts)
 from deepspeed_tpu_torch.ops import registry
+from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
 from deepspeed_tpu_torch.serving import ServingConfig, init_serving
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -89,6 +114,39 @@ FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 # intermediates
 TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-5, 2e-5)}
 E2E_TOL = 2e-4     # fp32 logits of |x| <= ~6 after 2 layers
+# the flash backward's 16-bit kernels round P and dS once to the input type
+# before their products: their error against the plain version is at most
+# that rounding (2^-9 in bf16; twice it here) times the sum of the terms'
+# magnitudes (``flash_attention_bwd_magnitude``), on top of TOL
+BWD_ROUND = {torch.bfloat16: 2.0 ** -8, torch.float32: 0.0}
+# fused Adam against its plain version: the same fp32 arithmetic, which the
+# compiler may contract into FMAs. Each of m, v and the update lr * u is held
+# within ADAM_RTOL of the sum of its terms' magnitudes (a few fp32 ulps
+# each; a sum that cancels keeps the error of its terms), so small moments
+# are held as tightly as large ones; the new params also within two ulps of
+# their own rounding (ADAM_P_ROUND * |p|). The bf16 working copy may then
+# round one bf16 ulp apart.
+ADAM_RTOL = 1e-5
+ADAM_P_ROUND = 2.0 ** -22
+ADAM_COPY_TOL = (0.0, 2.0 ** -7)
+# 2-layer fp32 training, kernel path vs plain path, both fp32 but summing
+# in other orders (~1e-6 relative per op). OPT's ReLU turns that into
+# whole-term differences wherever a pre-activation sits within rounding of
+# 0, and Adam's normalised update turns a gradient's relative difference
+# into the same relative difference of its step. Measures, each the worst
+# leaf: the first step's gradient as ||dg|| / ||g|| per leaf, and the
+# params after 3 steps as ||dp|| / ||p_3 - p_0|| per leaf (the difference
+# of the two trajectories against how far the leaf moved); losses
+# relative. A leaf whose plain gradient is zero up to rounding (at most
+# ZERO_GRAD times the largest gradient element: a few fp32 ulps of it) is
+# left out of both, since its gradient and its Adam steps are rounding
+# noise: OPT's attention key bias, whose gradient is zero because softmax
+# does not change when one bias is added to every key. Observed on an H100
+# 80GB HBM3 (700 W): losses 3.0e-5, worst gradient leaf 3.4e-4
+# (layers.mlp.w_up), worst update leaf 2.1e-2 (layers.attn.bo); bk's
+# gradient is at most 9e-10 against a largest element of 5.7e-2.
+ZERO_GRAD = 1e-6
+E2E_TRAIN_TOL = {"loss_rel": 1e-4, "grad_rel": 1e-3, "update_rel": 3e-2}
 
 SOURCES = {
     "fused_layer_norm": ("deepspeed_tpu_torch/csrc/layer_norm.cu",
@@ -101,10 +159,22 @@ SOURCES = {
                         "deepspeed_tpu/ops/flash_attention.py:135"),
     "decode_attention": ("deepspeed_tpu_torch/csrc/decode_attention.cu",
                          "deepspeed_tpu/ops/decode_attention.py:161"),
+    "flash_attention_bwd_dq": ("deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "deepspeed_tpu/ops/flash_attention.py:286"),
+    "flash_attention_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "deepspeed_tpu/ops/flash_attention.py:311"),
+    "fused_adam": ("deepspeed_tpu_torch/csrc/fused_adam.cu",
+                   "deepspeed_tpu/ops/fused_adam.py:72"),
 }
 SERVE_KERNELS = ("fused_layer_norm", "paged_decode_attention",
                  "paged_prefill_attention")
 GENERATE_KERNELS = ("fused_layer_norm", "flash_attention", "decode_attention")
+# the train path's kernels and their launches per step of OPT-1.3B (24
+# layers: one flash forward and one dq / dkv backward each; two norms each
+# plus the final norm; one Adam launch for the whole model)
+TRAIN_KERNELS = {"flash_attention": 24, "flash_attention_bwd_dq": 24,
+                 "flash_attention_bwd_dkv": 24, "fused_layer_norm": 49,
+                 "fused_adam": 1}
 STALE = 1e4        # dense arena slots outside every mask: large and finite
 
 
@@ -436,6 +506,217 @@ def decode_dense_cases(dev, gen):
     return results
 
 
+def time_eager_ms(fn, iters: int = 10) -> float:
+    """Device time per call of ``fn`` between two CUDA events, without a
+    CUDA graph (for library calls that cannot be captured: autograd, an
+    optimizer step); their host cost is small beside their device time."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_bwd(name: str, got, ref, mag, dtype) -> float:
+    """Hold a flash-backward output to its plain version within TOL plus
+    the 16-bit rounding bound; returns the max abs error."""
+    atol, rtol = TOL[dtype]
+    diff = (got.float() - ref.float()).abs()
+    bound = atol + rtol * ref.float().abs() + BWD_ROUND[dtype] * mag
+    if not bool((diff <= bound).all()):       # also catches NaN
+        raise AssertionError(f"{name}: max abs error {float(diff.max())} "
+                             f"outside atol {atol} + rtol {rtol} * |plain| "
+                             f"+ {BWD_ROUND[dtype]} * magnitude")
+    return float(diff.max())
+
+
+def flash_bwd_cases(dev, gen):
+    """The flash backward's dq and dkv kernels at OPT-1.3B's training shape
+    (B 4, S = T 1024, 32 heads of 64, causal, no mask) in bf16 and fp32;
+    then GQA (K 8) and alibi with right-padded masks with holes, whose
+    masked keys hold STALE. Inputs o / lse are the plain forward's; the
+    yardstick is autograd of ``scaled_dot_product_attention`` (the backward
+    alone) with the same causality and mask."""
+    D = 64
+    specs = [("train", torch.bfloat16, 4, 1024, 32, 32, False, False),
+             ("train", torch.float32, 4, 1024, 32, 32, False, False),
+             ("gqa_mask", torch.bfloat16, 4, 512, 32, 8, True, False),
+             ("alibi_mask", torch.bfloat16, 2, 512, 32, 32, True, True)]
+    out = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    for case, dtype, B, S, N, K, masked, use_alibi in specs:
+        T = S
+        if masked:
+            lens = [S - 97 * b for b in range(B)]
+            q, k, v, mask = dense_operands(dev, gen, B, S, T, N, K, D, lens,
+                                           dtype)
+        else:
+            q, k, v = (torch.randn(B, S, n, D, generator=gen, device=dev
+                                   ).to(dtype) for n in (N, K, K))
+            mask = None
+        do = torch.randn(B, S, N, D, generator=gen, device=dev).to(dtype)
+        al = alibi_slopes(N, device=dev) if use_alibi else None
+        o, lse = reference_flash_attention(q, k, v, mask, True, None, al,
+                                           return_lse=True)
+        delta = attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, mask, True, None, al)
+        got = (flash_attention_bwd_dq(*args),
+               *flash_attention_bwd_dkv(*args))
+        refs = reference_flash_attention_bwd(q, k, v, o, lse, do, mask,
+                                             True, None, al)
+        mags = flash_attention_bwd_magnitude(q, k, v, o, lse, do, mask,
+                                             True, None, al)
+        errs = [check_bwd(f"flash_attention_bwd {case} {dtype} {part}",
+                          g, r, m, dtype)
+                for part, g, r, m in zip(("dq", "dk", "dv"), got, refs, mags)]
+        if mask is not None:
+            dead = mask == 0
+            if bool((got[1][dead] != 0).any() | (got[2][dead] != 0).any()):
+                raise AssertionError(f"flash_attention_bwd {case}: a masked "
+                                     "key got a gradient")
+        del refs, mags
+        # the work these inputs need: the causal pairs of visible keys
+        seen = (mask if mask is not None
+                else torch.ones(B, T, dtype=torch.int32, device=dev)).long()
+        pairs = int(torch.cumsum(seen, dim=1).sum()) * N
+        item = q.element_size()
+        io = (2 * B * S * N * D + 2 * B * T * K * D) * item + 8 * B * N * S \
+            + (4 * B * T if mask is not None else 0)
+        peak = BF16_FLOPS if dtype != torch.float32 else FP32_FLOPS
+        b_dq = bound_ms(io + B * S * N * D * item, 6.0 * pairs * D, peak)
+        b_dkv = bound_ms(io + 2 * B * T * K * D * item, 8.0 * pairs * D, peak)
+        plain = time_ms(lambda: reference_flash_attention_bwd(
+            q, k, v, o, lse, do, mask, True, None, al), iters=2, reps=3)
+        library = None
+        if al is None:
+            G = N // K
+            lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k.repeat_interleave(G, dim=2),
+                                    v.repeat_interleave(G, dim=2)))
+            if mask is None:
+                lo = torch.nn.functional.scaled_dot_product_attention(
+                    lq, lk, lv, is_causal=True)
+            else:
+                keep = ((torch.arange(T, device=dev)[None, :]
+                         <= torch.arange(S, device=dev)[:, None])[None]
+                        & (mask != 0)[:, None, :])[:, None]
+                lo = torch.nn.functional.scaled_dot_product_attention(
+                    lq, lk, lv, attn_mask=keep)
+            ldo = do.transpose(1, 2)
+            library = time_eager_ms(lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), ldo, retain_graph=True))
+            del lo
+        common = dict(case=case, B=B, S=S, T=T, N=N, K=K, D=D, causal=True,
+                      masked=masked, alibi=use_alibi, dtype=str(dtype),
+                      tol=dict(zip(("atol", "rtol"), TOL[dtype]),
+                               round=BWD_ROUND[dtype]),
+                      plain_ms=plain, library_ms=library)
+        out["flash_attention_bwd_dq"].append(dict(
+            common, max_abs_err=errs[0],
+            ms=time_ms(lambda: flash_attention_bwd_dq(*args)),
+            bound_ms=b_dq[0], bound_by=b_dq[1]))
+        out["flash_attention_bwd_dkv"].append(dict(
+            common, max_abs_err=max(errs[1:]),
+            ms=time_ms(lambda: flash_attention_bwd_dkv(*args)),
+            bound_ms=b_dkv[0], bound_by=b_dkv[1]))
+        del q, k, v, do, o, lse, delta, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_adam(case: str, old, got, ref, g, scale, kw) -> float:
+    """Hold the kernel's m, v and update (``got``) to the plain version's
+    (``ref``), both from the buffers ``old`` = (p, m, v), each within
+    ADAM_RTOL of its terms' magnitudes (see ADAM_RTOL); returns the max abs
+    error over p, m and v."""
+    p0, m0, v0 = old
+    b1, b2, step = kw["beta1"], kw["beta2"], kw["step"]
+    gs = g.float() * scale
+    m_mag = b1 * m0.abs() + (1 - b1) * gs.abs()
+    v_mag = b2 * v0 + (1 - b2) * gs * gs
+    u_mag = kw["lr"] * (m_mag / (1 - b1 ** step)
+                        / (torch.sqrt(ref[2] / (1 - b2 ** step)) + kw["eps"])
+                        + kw["weight_decay"] * p0.abs())
+    # both params start at p0: got_p - ref_p is the difference of the updates
+    for name, a, b, bound in (
+            ("m", got[1], ref[1], ADAM_RTOL * m_mag),
+            ("v", got[2], ref[2], ADAM_RTOL * v_mag),
+            ("update", got[0], ref[0],
+             ADAM_P_ROUND * ref[0].abs() + ADAM_RTOL * u_mag)):
+        diff = (a - b).abs()
+        if not bool((diff <= bound).all()):      # also catches NaN
+            worst = int(torch.argmax(diff - bound))
+            raise AssertionError(
+                f"fused_adam {case} {name}: error {float(diff[worst])} "
+                f"above its bound {float(bound[worst])} at element {worst}")
+    return max(max_err(a, b) for a, b in zip(got, ref))
+
+
+def adam_cases(dev, gen):
+    """Fused Adam on a flat buffer of 64 Mi elements: the train path's
+    update (fp32 master / moments, bf16 grads, bf16 working copy written,
+    the clip coefficient as a device scalar), then fp32 grads without a
+    copy. AdamW, lr 1e-4, weight decay 0.01, bias correction at step 10.
+    The second moments span 1e-16..1 (log-uniform), so some updates are
+    ~lr-sized and depend on eps and the bias corrections, others are
+    dominated by the weight decay. The yardstick is
+    ``torch.optim.AdamW(fused=True)``'s step on the same sizes (fp32
+    grads: it takes the param's dtype)."""
+    n = 64 * 2 ** 20
+    kw = dict(step=10, lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=0.01, adam_w_mode=True)
+    results = []
+    for case, gdt, copy in (("train", torch.bfloat16, True),
+                            ("fp32", torch.float32, False)):
+        p = torch.randn(n, generator=gen, device=dev)
+        m = 1e-5 * torch.randn(n, generator=gen, device=dev)
+        v = torch.pow(10.0, -16 * torch.rand(n, generator=gen, device=dev))
+        g = (1e-5 * torch.randn(n, generator=gen, device=dev)).to(gdt)
+        scale = torch.tensor([0.37], device=dev)
+        bufs = [[x.clone() for x in (p, m, v)] for _ in range(2)]
+        copies = ([torch.empty(n, dtype=torch.bfloat16, device=dev)
+                   for _ in range(2)] if copy else [None, None])
+        fused_adam_flat(*bufs[0][:1], g, *bufs[0][1:], param_copy=copies[0],
+                        grad_scale=scale, **kw)
+        reference_adam_flat(*bufs[1][:1], g, *bufs[1][1:],
+                            param_copy=copies[1], grad_scale=scale, **kw)
+        err = check_adam(case, (p, m, v), bufs[0], bufs[1], g, scale, kw)
+        if copy:
+            check(f"fused_adam {case} copy", copies[0], copies[1],
+                  ADAM_COPY_TOL)
+        nbytes = n * (12 + g.element_size() + 12 + (2 if copy else 0))
+        b_ms, b_by = bound_ms(nbytes, 16.0 * n, FP32_FLOPS)
+        kp, km, kv = bufs[0]
+        ms = time_ms(lambda: fused_adam_flat(kp, g, km, kv,
+                                             param_copy=copies[0],
+                                             grad_scale=scale, **kw),
+                     iters=5, reps=4)
+        pp, pm, pv = bufs[1]
+        plain = time_ms(lambda: reference_adam_flat(
+            pp, g, pm, pv, param_copy=copies[1], grad_scale=scale, **kw),
+            iters=2, reps=3)
+        del bufs, copies
+        param = torch.nn.Parameter(p)
+        param.grad = g.float()
+        opt = torch.optim.AdamW([param], lr=1e-4, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=0.01, fused=True)
+        library = time_eager_ms(opt.step)
+        del opt, param
+        results.append(dict(
+            case=case, n=n, grad_dtype=str(gdt), param_copy=copy,
+            dtype=str(gdt), max_abs_err=err,
+            tol=dict(rtol_of_terms=ADAM_RTOL, p_round=ADAM_P_ROUND),
+            ms=ms, plain_ms=plain,
+            library_ms=library, bound_ms=b_ms, bound_by=b_by))
+        torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # serve llama-7b at full width
 # ---------------------------------------------------------------------------
@@ -720,6 +1001,166 @@ def e2e_generate_phase(dev):
                 tol=E2E_TOL, logits_absmax=float(outs[1].abs().max()))
 
 
+# ---------------------------------------------------------------------------
+# train OPT-1.3B at full size, and training parity at reduced depth
+# ---------------------------------------------------------------------------
+
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 5
+# bench_zero.py's config at ZeRO stage 0 (no offload, no remat)
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_B,
+                "gradient_accumulation_steps": 1, "steps_per_print": 1000,
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+                "bf16": {"enabled": True},
+                "zero_optimization": {"stage": 0}}
+
+
+def make_trainer(dev):
+    """OPT-1.3B at full size under TRAIN_CONFIG, and one fixed seeded
+    (1, TRAIN_B, TRAIN_S) token batch on the card. Returns (engine, batch,
+    seconds ``initialize`` took)."""
+    model = create_model("opt-1.3b", dtype=torch.bfloat16,
+                         max_seq_len=TRAIN_S)
+    cfg = model.config
+    if (cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.head_dim,
+            cfg.ffn_hidden_size, cfg.vocab_size) != (2048, 24, 32, 64, 8192,
+                                                     50272):
+        raise AssertionError(f"train: OPT-1.3B widths changed: {cfg}")
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=model, config=TRAIN_CONFIG)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    ids = torch.randint(0, cfg.vocab_size, (1, TRAIN_B, TRAIN_S),
+                        generator=gen, device=dev)
+    return engine, {"input_ids": ids}, init_s
+
+
+def train_phase(dev):
+    """OPT-1.3B at full size: a warm-up step, then TRAIN_STEPS timed steps
+    on one fixed batch, launch counts zeroed just before them."""
+    engine, batch, init_s = make_trainer(dev)
+    cfg = engine.model.config
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch=batch)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(engine.train_batch(batch=batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} not finite and "
+                             "falling")
+    for name, per_step in TRAIN_KERNELS.items():
+        want = per_step * TRAIN_STEPS
+        if counts[name] < want or (name != "fused_adam"
+                                   and counts[name] != want):
+            raise AssertionError(f"train: kernel {name} launched "
+                                 f"{counts[name]} times, expected {want}")
+    n_params = param_count(engine.params)
+    tokens = TRAIN_B * TRAIN_S
+    step_s = wall / TRAIN_STEPS
+    flops = (6 * n_params + 12 * cfg.num_layers * cfg.hidden_size
+             * TRAIN_S) * tokens
+    out = dict(
+        phase="train", model="opt-1.3b", dtype="bfloat16",
+        config=TRAIN_CONFIG, params=n_params, init_s=init_s,
+        warmup_s=warm_s, steps=TRAIN_STEPS, losses=losses,
+        step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+        mfu=flops / step_s / BF16_FLOPS,
+        launches={n: counts[n] for n in TRAIN_KERNELS},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del engine
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+E2E_TRAIN_STEPS = 3
+
+
+def leaf_names(tree, prefix: str = ""):
+    """Dotted names of ``tree``'s leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}{k}.")]
+    return [] if tree is None else [prefix[:-1]]
+
+
+def e2e_train_phase(dev):
+    """OPT-1.3B widths at 2 layers, fp32, AdamW with weight decay and
+    clipping: 3 steps through the kernel path and through the plain path
+    from the same seeded weights and one batch with a right-padded mask.
+    The first step runs staged (forward / backward / step) to read its
+    grads."""
+    model = create_model("opt-1.3b", dtype=torch.float32, num_layers=2,
+                         max_seq_len=256)
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": 1, "steps_per_print": 1000,
+           "gradient_clipping": 1.0,
+           "optimizer": {"type": "adamw",
+                         "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+    plain_loss = model.loss_fn
+    plain_model = Model(init=model.init, config=model.config, name=model.name,
+                        loss_fn=lambda p, b: plain_loss(p, b, plain=True))
+    plain_opt = MixedPrecisionOptimizer(1e-4, grad_clip=1.0,
+                                        weight_decay=0.01, plain=True)
+    engines = [initialize(model=model, config=cfg)[0],
+               initialize(model=plain_model, config=cfg,
+                          optimizer=plain_opt)[0]]
+    names = leaf_names(engines[0].params)
+    start = [t.detach().clone() for t in tree_leaves(engines[0].params)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    ids = torch.randint(0, model.config.vocab_size, (2, 256), generator=gen,
+                        device=dev)
+    mask = torch.ones(2, 256, dtype=torch.int32, device=dev)
+    mask[1, 200:] = 0
+    batch = {"input_ids": ids, "attention_mask": mask}
+    losses, grads = [[], []], []
+    for i, eng in enumerate(engines):
+        losses[i].append(float(eng.forward(batch).detach()))
+        eng.backward()
+        grads.append([g.clone() for g in tree_leaves(eng.opt_state.grads)])
+        eng.step()
+        for _ in range(E2E_TRAIN_STEPS - 1):
+            losses[i].append(float(eng.train_batch(
+                batch={k: x[None] for k, x in batch.items()})))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    largest = max(float(g.abs().max()) for g in grads[1])
+    params = [[t.detach() for t in tree_leaves(e.params)] for e in engines]
+    grad_rel, update_rel, zero = {}, {}, []
+    for i, name in enumerate(names):
+        if float(grads[1][i].abs().max()) <= ZERO_GRAD * largest:
+            zero.append(name)
+            continue
+        grad_rel[name] = float((grads[0][i] - grads[1][i]).norm()
+                               / grads[1][i].norm())
+        update_rel[name] = float((params[0][i] - params[1][i]).norm()
+                                 / (params[1][i] - start[i]).norm())
+    grad_err, update_err = max(grad_rel.values()), max(update_rel.values())
+    out = dict(phase="e2e_train_parity", model="opt-1.3b", layers=2,
+               dtype="float32", batch=[2, 256], steps=E2E_TRAIN_STEPS,
+               losses=losses, loss_rel_err=loss_err, grad_rel_err=grad_err,
+               update_rel_err=update_err, zero_grad_leaves=zero,
+               grad_rel_by_leaf=grad_rel, update_rel_by_leaf=update_rel,
+               tol=E2E_TRAIN_TOL)
+    if not (loss_err <= E2E_TRAIN_TOL["loss_rel"]
+            and grad_err <= E2E_TRAIN_TOL["grad_rel"]
+            and update_err <= E2E_TRAIN_TOL["update_rel"]):
+        raise AssertionError(f"e2e_train: kernel and plain paths differ: "
+                             f"{out}")
+    del engines
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — nothing was run",
@@ -747,7 +1188,9 @@ def main() -> int:
              "paged_decode_attention": decode_cases(dev, gen),
              "paged_prefill_attention": prefill_cases(dev, gen),
              "flash_attention": flash_cases(dev, gen),
-             "decode_attention": decode_dense_cases(dev, gen)}
+             "decode_attention": decode_dense_cases(dev, gen),
+             **flash_bwd_cases(dev, gen),
+             "fused_adam": adam_cases(dev, gen)}
     emit(dict(phase="kernels", card=smi, cases=cases))
     torch.cuda.empty_cache()
 
@@ -759,22 +1202,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(dict(e2e_phase(dev), card=smi))
     emit(dict(e2e_generate_phase(dev), card=smi))
+    gc.collect()                  # the llama-7b engine's last references
+    torch.cuda.empty_cache()
+    train_counts, train = train_phase(dev)
+    emit(dict(train, card=smi))
+    emit(dict(e2e_train_phase(dev), card=smi))
 
     # the main paths' shapes: norm at the prefill chunk's 256 rows (RMSNorm,
     # bf16), paged decode over the ragged 8 rows, paged prefill at start
-    # 256, flash at generate's static prefill, dense decode over 8 rows
+    # 256, flash at generate's static prefill, dense decode over 8 rows, the
+    # flash backward and Adam at OPT-1.3B's training shape
     pick = {"fused_layer_norm": lambda c: c["rows"] == 256 and c["rms"],
             "paged_decode_attention": lambda c: True,
             "paged_prefill_attention": lambda c: c["start"] == 256,
             "flash_attention": lambda c: c["case"] == "prefill",
-            "decode_attention": lambda c: c["case"] == "decode"}
+            "decode_attention": lambda c: c["case"] == "decode",
+            "flash_attention_bwd_dq": lambda c: c["case"] == "train",
+            "flash_attention_bwd_dkv": lambda c: c["case"] == "train",
+            "fused_adam": lambda c: c["case"] == "train"}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         bf16 = [c for c in cases[name] if c["dtype"] == str(torch.bfloat16)]
         main_case = next(c for c in bf16 if pick[name](c))
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts.get(name, 0) + gen_counts.get(name, 0),
+            launches=(counts.get(name, 0) + gen_counts.get(name, 0)
+                      + train_counts.get(name, 0)),
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

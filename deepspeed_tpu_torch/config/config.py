@@ -1,16 +1,352 @@
-"""Serving config subset of ``deepspeed_tpu/config/config.py``.
+"""Config subset of ``deepspeed_tpu/config/config.py``.
 
-The port's first slice serves; it carries ``ServingConfig`` (:672) and
-``SpeculativeConfig`` (:632) with their validation unchanged. The port's
-engine accepts only ``speculative.mode == 'off'`` (see
-``serving/api.ServingEngine``).
+Serving: ``ServingConfig`` (:672) and ``SpeculativeConfig`` (:632) with
+their validation unchanged; the port's engine accepts only
+``speculative.mode == 'off'`` (see ``serving/api.ServingEngine``).
+
+Training: the precision, optimizer, scheduler, ZeRO and parallel sections
+(:25-190) and the root ``Config`` with its batch triad (:1062-1192), copied
+with their validation. The JAX package's other root sections
+(observability, monitor, compression, curriculum and the like) are accepted
+as raw mappings so that a JAX config loads, and ``Config.check_ported``
+raises ``NotImplementedError`` naming each one a config sets, as it does for
+offload and for a parallel degree above 1. An unknown key raises
+``ConfigError`` naming it, as in JAX.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional, Union
 
 from .base import ConfigError, ConfigModel
+
+# ---------------------------------------------------------------------------
+# precision
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class FP16Config(ConfigModel):
+    """Reference: ``runtime/fp16`` config section (runtime/config.py FP16 keys)."""
+
+    enabled: bool = False
+    auto_cast: bool = False
+    loss_scale: float = 0.0  # 0 => dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+
+    @property
+    def dynamic_loss_scale(self) -> bool:
+        return self.loss_scale == 0.0
+
+
+@dataclass
+class BF16Config(ConfigModel):
+    """Mirrors the reference ``bf16`` section."""
+
+    enabled: bool = False
+
+
+# ---------------------------------------------------------------------------
+# optimizer / scheduler
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class OptimizerConfig(ConfigModel):
+    """Reference: ``optimizer`` JSON section (runtime/config.py get_optimizer_params)."""
+
+    type: str = "adamw"
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    def validate(self) -> None:
+        known = {"adam", "adamw", "lamb", "adagrad", "sgd", "lion",
+                 "onebitadam", "onebitlamb", "zerooneadam", "fusedadam", "cpuadam"}
+        if self.type.lower() not in known:
+            raise ConfigError(f"unknown optimizer type '{self.type}' (known: {sorted(known)})")
+
+
+@dataclass
+class SchedulerConfig(ConfigModel):
+    """Reference: ``scheduler`` JSON section → runtime/lr_schedules.py."""
+
+    type: str = "WarmupLR"
+    params: Dict[str, Any] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class OffloadParamConfig(ConfigModel):
+    """Reference: runtime/zero/offload_config.py (DeepSpeedZeroOffloadParamConfig)."""
+
+    device: str = "none"  # none | cpu | nvme
+    nvme_path: str = "/local_nvme"
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+
+    def validate(self) -> None:
+        if self.device not in ("none", "cpu", "nvme"):
+            raise ConfigError(f"offload_param.device must be none|cpu|nvme, got {self.device}")
+
+
+@dataclass
+class OffloadOptimizerConfig(ConfigModel):
+    """Reference: runtime/zero/offload_config.py (DeepSpeedZeroOffloadOptimizerConfig)."""
+
+    device: str = "none"
+    nvme_path: str = "/local_nvme"
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = 1.0
+
+    def validate(self) -> None:
+        if self.device not in ("none", "cpu", "nvme"):
+            raise ConfigError(f"offload_optimizer.device must be none|cpu|nvme, got {self.device}")
+
+
+@dataclass
+class ZeroConfig(ConfigModel):
+    """Reference: runtime/zero/config.py:76 (DeepSpeedZeroConfig).
+
+    The stages shard optimizer state (1), gradients (2) and parameters (3)
+    over the data-parallel group. On one device there is no such group and
+    every stage does the same math (the port trains at world size 1 only).
+    Bucket / overlap knobs are accepted for config compatibility."""
+
+    stage: int = 0
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = 500_000_000
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = 500_000_000
+    overlap_comm: bool = False
+    load_from_fp32_weights: bool = True
+    elastic_checkpoint: bool = False
+    offload_param: OffloadParamConfig = field(default_factory=OffloadParamConfig)
+    offload_optimizer: OffloadOptimizerConfig = field(default_factory=OffloadOptimizerConfig)
+    sub_group_size: int = 1_000_000_000
+    stage3_max_live_parameters: int = 1_000_000_000
+    stage3_max_reuse_distance: int = 1_000_000_000
+    stage3_prefetch_bucket_size: int = 50_000_000
+    stage3_param_persistence_threshold: int = 100_000
+    stage3_gather_16bit_weights_on_model_save: bool = False
+    ignore_unused_parameters: bool = True
+    round_robin_gradients: bool = False
+    zero_hpz_partition_size: int = 1
+    zero_quantized_weights: bool = False
+
+    DEPRECATED = {
+        "stage3_gather_fp16_weights_on_model_save": (
+            "stage3_gather_16bit_weights_on_model_save", "renamed in reference v0.6"),
+        "cpu_offload": (None, "use offload_optimizer.device=cpu"),
+        "cpu_offload_params": (None, "use offload_param.device=cpu"),
+    }
+
+    def validate(self) -> None:
+        if not 0 <= self.stage <= 3:
+            raise ConfigError(f"zero_optimization.stage must be in [0,3], got {self.stage}")
+
+
+# ---------------------------------------------------------------------------
+# parallel topology
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ParallelConfig(ConfigModel):
+    """Mesh-axis degrees (JAX ``ParallelConfig``). 0 means "infer from world
+    size"; the port trains on one device, so every degree above 1 raises in
+    ``Config.check_ported``."""
+
+    data_parallel_size: int = 0
+    tensor_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    sequence_parallel_size: int = 1
+    expert_parallel_size: int = 1
+    sequence_parallel_impl: str = "ulysses"
+
+    def validate(self) -> None:
+        for name in ("tensor_parallel_size", "pipeline_parallel_size",
+                     "sequence_parallel_size", "expert_parallel_size"):
+            if getattr(self, name) < 1:
+                raise ConfigError(f"{name} must be >= 1")
+        if self.sequence_parallel_impl not in ("ulysses", "ring"):
+            raise ConfigError("sequence_parallel_impl must be 'ulysses' or "
+                              f"'ring', got '{self.sequence_parallel_impl}'")
+
+
+# ---------------------------------------------------------------------------
+# root config
+# ---------------------------------------------------------------------------
+
+# root sections of the JAX config the port has no counterpart for yet
+UNPORTED_SECTIONS = (
+    "activation_checkpointing", "comms_logger", "flops_profiler", "monitor",
+    "observability", "resilience", "rlhf", "elasticity",
+    "curriculum_learning", "progressive_layer_drop", "data_efficiency",
+    "compression_training", "aio", "checkpoint", "compile_cache",
+    "tensorboard", "wandb", "csv_monitor")
+
+
+@dataclass
+class Config(ConfigModel):
+    """Root config — the training subset of JAX ``Config`` (:1062)."""
+
+    train_batch_size: int = 0
+    train_micro_batch_size_per_gpu: int = 0
+    gradient_accumulation_steps: int = 0
+
+    steps_per_print: int = 10
+    wall_clock_breakdown: bool = False
+    dump_state: bool = False
+    prescale_gradients: bool = False
+    gradient_predivide_factor: float = 1.0
+    gradient_clipping: float = 0.0
+    disable_allgather: bool = False
+    communication_data_type: Optional[str] = None
+    seed: int = 1234
+
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    scheduler: Optional[SchedulerConfig] = None
+    fp16: FP16Config = field(default_factory=FP16Config)
+    bf16: BF16Config = field(default_factory=BF16Config)
+    zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+
+    # JAX sections without a port: kept as given, refused by check_ported
+    activation_checkpointing: Optional[Dict[str, Any]] = None
+    comms_logger: Optional[Dict[str, Any]] = None
+    flops_profiler: Optional[Dict[str, Any]] = None
+    monitor: Optional[Dict[str, Any]] = None
+    observability: Optional[Dict[str, Any]] = None
+    resilience: Optional[Dict[str, Any]] = None
+    rlhf: Optional[Dict[str, Any]] = None
+    elasticity: Optional[Dict[str, Any]] = None
+    curriculum_learning: Optional[Dict[str, Any]] = None
+    progressive_layer_drop: Optional[Dict[str, Any]] = None
+    data_efficiency: Optional[Dict[str, Any]] = None
+    compression_training: Optional[Dict[str, Any]] = None
+    aio: Optional[Dict[str, Any]] = None
+    checkpoint: Optional[Dict[str, Any]] = None
+    compile_cache: Optional[Dict[str, Any]] = None
+    tensorboard: Optional[Dict[str, Any]] = None
+    wandb: Optional[Dict[str, Any]] = None
+    csv_monitor: Optional[Dict[str, Any]] = None
+
+    DEPRECATED = {
+        "train_micro_batch_size": ("train_micro_batch_size_per_gpu", "renamed"),
+        "gradient_accumulation_dtype": (None, "grad accumulation is fp32"),
+    }
+
+    # -- batch triad ------------------------------------------------------
+    def resolve_batch_sizes(self, dp_world_size: int) -> "Config":
+        """Resolve (train_batch_size, micro_batch, grad_accum) given the data-
+        parallel world size. Mirrors reference runtime/config.py:888
+        ``_set_batch_related_parameters``: any two determine the third; one
+        given infers the rest with grad_accum=1; none → error."""
+        tb, mb, ga = self.train_batch_size, self.train_micro_batch_size_per_gpu, self.gradient_accumulation_steps
+        if tb and mb and ga:
+            if tb != mb * ga * dp_world_size:
+                raise ConfigError(
+                    f"train_batch_size ({tb}) != micro_batch ({mb}) * grad_accum ({ga}) "
+                    f"* dp_world ({dp_world_size})")
+        elif tb and mb:
+            ga, rem = divmod(tb, mb * dp_world_size)
+            if rem or ga < 1:
+                raise ConfigError(
+                    f"train_batch_size {tb} not divisible by micro_batch {mb} * dp {dp_world_size}")
+        elif tb and ga:
+            mb, rem = divmod(tb, ga * dp_world_size)
+            if rem or mb < 1:
+                raise ConfigError(
+                    f"train_batch_size {tb} not divisible by grad_accum {ga} * dp {dp_world_size}")
+        elif mb and ga:
+            tb = mb * ga * dp_world_size
+        elif tb:
+            mb, rem = divmod(tb, dp_world_size)
+            if rem:
+                raise ConfigError(f"train_batch_size {tb} not divisible by dp world {dp_world_size}")
+            ga = 1
+        elif mb:
+            ga = 1
+            tb = mb * dp_world_size
+        else:
+            raise ConfigError(
+                "one of train_batch_size / train_micro_batch_size_per_gpu must be set")
+        return self.replace(train_batch_size=tb, train_micro_batch_size_per_gpu=mb,
+                            gradient_accumulation_steps=ga)
+
+    def validate(self) -> None:
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ConfigError("fp16 and bf16 cannot both be enabled")
+        if self.gradient_clipping < 0:
+            raise ConfigError("gradient_clipping must be >= 0")
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` naming every setting of this config
+        that the port does not run yet: a JAX-only root section, offload,
+        or a parallel degree above 1 (the port trains on one device)."""
+        missing = [f"config section '{name}'" for name in UNPORTED_SECTIONS
+                   if getattr(self, name) is not None]
+        zero = self.zero_optimization
+        for name in ("offload_param", "offload_optimizer"):
+            if getattr(zero, name).device != "none":
+                missing.append(f"zero_optimization.{name} (offload)")
+        par = self.parallel
+        for name in ("data_parallel_size", "tensor_parallel_size",
+                     "pipeline_parallel_size", "sequence_parallel_size",
+                     "expert_parallel_size"):
+            if getattr(par, name) > 1:
+                missing.append(f"parallel.{name}={getattr(par, name)} "
+                               "(the port trains on one device)")
+        if missing:
+            raise NotImplementedError(
+                "not ported to deepspeed_tpu_torch yet: " + "; ".join(missing))
+
+    # -- convenience ------------------------------------------------------
+    @property
+    def precision_dtype(self) -> str:
+        if self.bf16.enabled:
+            return "bfloat16"
+        if self.fp16.enabled:
+            return "float16"
+        return "float32"
+
+    @property
+    def zero_stage(self) -> int:
+        return self.zero_optimization.stage
+
+
+def load_config(config: Union[str, Mapping[str, Any], Config, None]) -> Config:
+    """Accept a path, a dict, an existing Config, or None (defaults)."""
+    if config is None:
+        return Config()
+    if isinstance(config, Config):
+        return config
+    if isinstance(config, str):
+        with open(config) as fh:
+            config = json.load(fh)
+    if not isinstance(config, Mapping):
+        raise ConfigError(f"config must be a path, dict, or Config — got {type(config)}")
+    return Config.from_dict(config)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
 
 
 @dataclass

@@ -144,6 +144,7 @@ class InferenceEngine:
         return torch.as_tensor(a).to(self.device, dtype)
 
     # -- plain forward -------------------------------------------------------
+    @torch.no_grad()
     def forward(self, input_ids, attention_mask=None) -> torch.Tensor:
         """Full-sequence logits (B, S, V), no cache; ``attention_mask``
         (B, S) is key padding."""

@@ -10,19 +10,23 @@ its sharding rules; the serving slice runs on one device and has none.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 
 
 @dataclasses.dataclass
 class Model:
-    """A model bundle: ``init(generator, device)`` -> params and its
-    config."""
+    """A model bundle: ``init(generator)`` -> params on the generator's
+    device, its config, and for training ``loss_fn(params, batch)`` -> the
+    scalar loss the engine differentiates, with ``eval_loss_fn`` its
+    eval-mode variant (JAX ``core.Model``)."""
 
     init: Callable[..., Any]
     config: Any = None
     name: str = "model"
+    loss_fn: Optional[Callable[..., Any]] = None
+    eval_loss_fn: Optional[Callable[..., Any]] = None
 
 
 def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:

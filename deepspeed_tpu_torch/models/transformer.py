@@ -37,10 +37,17 @@ plain versions on any device — the reference the kernel path is held
 against. ``paged_impl='gather'`` keeps the dense ``arena[block_table]``
 view as the A/B baseline on both devices.
 
+Training: the cache-less forward runs under autograd (the flash and norm
+wrappers carry their backward), and ``build_model`` bundles the JAX
+``loss_fn`` (``cross_entropy_loss`` over next-token labels). The layer
+views of the stacked leaves are taken with one ``unbind`` per leaf, whose
+backward is one ``stack``.
+
 Out of scope here (they raise): MoE, quantized weights, sliding windows and
-custom attention scales, post-LN / bidirectional encoders, token types.
-Dropout, progressive layer drop, random-LTD and ring / sequence-parallel
-attention are training features with no counterpart in this forward.
+custom attention scales, post-LN / bidirectional encoders, token types, and
+the training features dropout, rematerialisation, progressive layer drop,
+random-LTD and activation quantization (``TransformerConfig`` carries their
+fields, default off, so JAX configs load).
 """
 
 from __future__ import annotations
@@ -90,6 +97,17 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     moe_num_experts: int = 0
     dtype: torch.dtype = torch.float32
+    # JAX training features, default off; any of them on raises
+    # (check_servable) until the port has them
+    dropout: float = 0.0
+    dropout_enabled: bool = False
+    remat: bool = False
+    remat_policy: str = "full"
+    pld_enabled: bool = False
+    ltd_enabled: bool = False
+    ltd_layers: Optional[Tuple[int, ...]] = None
+    ltd_keep: int = 0
+    act_quant_bits: int = 0
 
     def __post_init__(self):
         if self.num_kv_heads is None:
@@ -125,6 +143,19 @@ def check_servable(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             "sliding-window / custom-scale attention (GPT-Neo family) is not "
             "served: the paged read path has no window operand")
+    training = {"dropout_enabled": cfg.dropout_enabled, "remat": cfg.remat,
+                "pld_enabled": cfg.pld_enabled,
+                "ltd_enabled": cfg.ltd_enabled,
+                "act_quant_bits": cfg.act_quant_bits}
+    on = sorted(name for name, value in training.items() if value)
+    if on:
+        raise NotImplementedError(
+            f"training features not ported yet: {', '.join(on)}")
+
+
+def eval_config(cfg: TransformerConfig) -> TransformerConfig:
+    """Config copy with the training regularisers off (JAX ``eval_config``)."""
+    return dataclasses.replace(cfg, dropout_enabled=False, ltd_keep=0)
 
 
 # ---------------------------------------------------------------------------
@@ -522,11 +553,14 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
 
 def _layer_views(layers: Dict[str, Any], num_layers: int
                  ) -> List[Dict[str, Any]]:
-    return [tree_map(lambda t, li=li: t[li], layers)
+    """Per-layer views of the stacked leaves, one ``unbind`` per leaf: its
+    backward is one ``stack``, where indexing ``t[li]`` would add a
+    zero-filled (L, ...) gradient into the leaf once per layer."""
+    parts = tree_map(lambda t: t.unbind(0), layers)
+    return [tree_map(lambda p, li=li: p[li], parts)
             for li in range(num_layers)]
 
 
-@torch.no_grad()
 def forward(params: Dict[str, Any], input_ids: torch.Tensor,
             cfg: TransformerConfig,
             cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -618,7 +652,46 @@ def head_logits(params: Dict[str, Any], x: torch.Tensor,
     return logits
 
 
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy in fp32 (JAX ``cross_entropy_loss``):
+    labels == -100 and positions where ``mask`` is 0 are ignored; the mean
+    is over the remaining positions."""
+    valid = labels != -100
+    if mask is not None:
+        valid = valid & (mask != 0)
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    token_loss = torch.where(valid, lse - picked, torch.zeros_like(lse))
+    return token_loss.sum() / valid.sum().clamp(min=1)
+
+
 def build_model(cfg: TransformerConfig, name: str = "transformer") -> Model:
-    """Bundle init with the config."""
+    """Bundle init, the training loss (JAX ``build_model``: labels default
+    to ``input_ids`` shifted left, the last position ignored) and its eval
+    variant. ``loss_fn(params, batch, plain=False)``; ``plain`` runs the
+    kernels' plain versions on any device."""
+
+    def make_loss(c: TransformerConfig):
+        def loss_fn(params, batch, plain: bool = False):
+            ids = batch["input_ids"]
+            mask = batch.get("attention_mask")
+            logits, _ = forward(params, ids, c, attention_mask=mask,
+                                plain=plain)
+            labels = batch.get("labels")
+            if labels is None:
+                labels = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1],
+                                                                -100)], 1)
+            return cross_entropy_loss(logits, labels, mask)
+
+        return loss_fn
+
+    def eval_loss_fn(params, batch, plain: bool = False):
+        with torch.no_grad():
+            return make_loss(eval_config(cfg))(params, batch, plain)
+
     return Model(init=lambda generator: init_params(generator, cfg),
-                 config=cfg, name=name)
+                 config=cfg, name=name, loss_fn=make_loss(cfg),
+                 eval_loss_fn=eval_loss_fn)

@@ -43,6 +43,9 @@ KERNELS: Dict[str, str] = {
     "paged_prefill_attention": "paged_attention",
     "flash_attention": "flash_attention",
     "decode_attention": "decode_attention",
+    "flash_attention_bwd_dq": "flash_attention_bwd",
+    "flash_attention_bwd_dkv": "flash_attention_bwd",
+    "fused_adam": "fused_adam",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -138,8 +141,8 @@ def check_launch(name: str, err: int) -> None:
 
 def op_report() -> str:
     """Kernel / source / launches / library-built table."""
-    lines = [f"{'kernel':<28}{'source':<28}{'launches':<10}built", "-" * 72]
+    lines = [f"{'kernel':<28}{'source':<32}{'launches':<10}built", "-" * 76]
     for name, src in KERNELS.items():
-        lines.append(f"{name:<28}{'csrc/' + src + '.cu':<28}"
+        lines.append(f"{name:<28}{'csrc/' + src + '.cu':<32}"
                      f"{_launches[name]:<10}{'yes' if src in _libs else 'no'}")
     return "\n".join(lines)

@@ -356,6 +356,7 @@ def build_prefill_program(cfg, paged_impl: str = "auto"):
     Returns (token (1,), last_logits (1, V) fp32): ``token`` samples the
     position ``n_valid - 1`` logits at output-token index 0.
     """
+    @torch.no_grad()
     def prefill_chunk(params, cache, block_table, chunk, start, n_valid,
                       temperature, top_k, top_p, seeds, base_seed):
         C = chunk.shape[1]
@@ -388,6 +389,7 @@ def build_decode_program(cfg, paged_impl: str = "auto"):
     token's position), tokens (R,) int64, temperature/top_k/top_p/seeds/steps
     (R,) host arrays, base_seed.
     Returns (next_token (R,), logits (R, V) fp32)."""
+    @torch.no_grad()
     def decode(params, cache, block_table, lengths, tokens, temperature,
                top_k, top_p, seeds, steps, base_seed):
         logits, _ = model_forward(params, tokens[:, None], cfg, cache=cache,

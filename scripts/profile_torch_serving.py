@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the serving and generate time goes on the GPU, for the PyTorch /
-CUDA port.
+"""Where the serving, generate and training time goes on the GPU, for the
+PyTorch / CUDA port.
 
-Runs ``chip_smoke.py``'s scenarios on llama-7b at full width (bf16, seeded
-random weights) under ``torch.profiler``: ``serve`` (8 greedy requests of 32
+Runs ``chip_smoke.py``'s scenarios under ``torch.profiler``: on llama-7b at
+full width (bf16, seeded random weights) ``serve`` (8 greedy requests of 32
 new tokens through the ``ServingEngine``) and ``generate`` (one
 ``InferenceEngine.generate`` of 8 right-padded prompts of 64..500 tokens, 32
-greedy new tokens, after one unprofiled warm-up call). Prints one JSON line
-per scenario:
+greedy new tokens, after one unprofiled warm-up call); and ``train``:
+OPT-1.3B at full size, 3 ``train_batch`` steps of ``chip_smoke``'s train
+phase (bf16, micro batch 4 x 1024 tokens) after one warm-up step. Prints one
+JSON line per scenario:
 
 * ``wall_ms`` — host wall time of the profiled scenario (ends in a sync;
   the profiler's own host-side cost is inside it);
@@ -16,11 +18,12 @@ per scenario:
 * ``by_group_ms`` — device time of cuBLAS/CUTLASS GEMMs, the port's
   kernels, and everything else;
 * ``top_kernels`` — the 12 kernels with the most device time;
-* ``launches_per_iteration`` — GPU launches per serving iteration, or per
-  forward (the prefill and each decode step) for ``generate``.
+* ``launches_per_iteration`` — GPU launches per serving iteration, per
+  forward (the prefill and each decode step) for ``generate``, per step
+  for ``train``.
 
-    python3 scripts/profile_torch_serving.py [--scenario serve|generate|both]
-                                             [--trace PATH]
+    python3 scripts/profile_torch_serving.py
+        [--scenario serve|generate|both|train] [--trace PATH]
 
 ``--trace`` also writes the Chrome trace (of the last scenario). Needs one
 NVIDIA GPU; exits 1 without one and when the profiler records no device
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import json
 import sys
+import time
 from collections import defaultdict
 from pathlib import Path
 
@@ -42,7 +46,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 PORT_KERNELS = ("ln_fwd_kernel", "paged_decode_kernel", "paged_prefill_kernel",
                 "paged_prefill_mma_kernel", "flash_fwd_kernel",
-                "flash_fwd_mma_kernel", "decode_kernel")
+                "flash_fwd_mma_kernel", "decode_kernel", "flash_bwd_dq",
+                "flash_bwd_dkv", "adam_kernel")
+TRAIN_STEPS = 3
 
 
 def group(name: str) -> str:
@@ -100,13 +106,15 @@ def main(argv) -> int:
     trace = argv[argv.index("--trace") + 1] if "--trace" in argv else None
     scenario = (argv[argv.index("--scenario") + 1] if "--scenario" in argv
                 else "serve")
-    if scenario not in ("serve", "generate", "both"):
+    if scenario not in ("serve", "generate", "both", "train"):
         print(f"profile_torch_serving: unknown scenario {scenario}",
               file=sys.stderr)
         return 1
     smi = chip_smoke.nvidia_smi()
-    srv, _ = chip_smoke.make_server()
     results = []
+    if scenario == "train":
+        return profile_train(smi, trace)
+    srv, _ = chip_smoke.make_server()
     if scenario in ("serve", "both"):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -141,6 +149,35 @@ def main(argv) -> int:
         prof.export_chrome_trace(trace)
     for r in results:
         print(json.dumps(r), flush=True)
+    return 0
+
+
+def profile_train(smi: str, trace) -> int:
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine, batch, _ = chip_smoke.make_trainer(torch.device("cuda"))
+    engine.train_batch(batch=batch)                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses = [engine.train_batch(batch=batch)
+                  for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = breakdown(prof, wall, TRAIN_STEPS)
+    if out is None:
+        print("profile_torch_serving: the profiler recorded no device "
+              "activity (device time not measured)", file=sys.stderr)
+        return 1
+    if trace:
+        prof.export_chrome_trace(trace)
+    print(json.dumps(dict(
+        card=smi, scenario="chip_smoke train: opt-1.3b bf16, micro batch "
+        f"{chip_smoke.TRAIN_B} x {chip_smoke.TRAIN_S} tokens, AdamW",
+        steps=TRAIN_STEPS, losses=[float(x) for x in losses],
+        step_ms=wall * 1e3 / TRAIN_STEPS, **out)), flush=True)
     return 0
 
 

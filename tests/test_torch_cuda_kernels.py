@@ -6,7 +6,10 @@ has no CPU mode; the plain versions are held against the JAX package by
 Dense attention (``flash_attention``, ``decode_attention``) runs at small
 shapes and at the shapes of llama-7b's ``generate`` (B 8, 32 heads, D 128,
 a 1024-column arena), with alibi, GQA, ragged masks with holes, and arena
-slots outside every mask holding large finite values. The file imports no
+slots outside every mask holding large finite values. The training kernels
+(the flash backward's dq and dkv, fused Adam) run at small shapes and at
+OPT-1.3B's training shape, and the norm and flash kernels under autograd
+are held against autograd through their plain versions. The file imports no
 JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
@@ -14,7 +17,9 @@ JAX, so it also runs where JAX is not installed:
 Tolerances: fp32 2e-5 (the same fp32 arithmetic in another order); bf16
 2e-2, fp16 4e-3 (norm) / 5e-3 (attention): one rounding of outputs of size
 ~1-4 in that type, plus the plain version's own low-precision
-intermediates.
+intermediates. The 16-bit flash backward adds twice one rounding of the
+type times the sum of its terms' magnitudes (``BWD_ROUND``); fused Adam
+1e-6 + 1e-5 relative (the same fp32 arithmetic, FMA-contracted).
 """
 
 import numpy as np
@@ -22,12 +27,18 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
-from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
+from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
+                                     flash_attention, flash_attention_bwd_dkv,
+                                     flash_attention_bwd_dq,
+                                     flash_attention_bwd_magnitude,
+                                     fused_adam_flat,
                                      fused_layer_norm, launch_counts,
                                      paged_decode_attention,
                                      paged_prefill_attention,
+                                     reference_adam_flat,
                                      reference_decode_attention,
                                      reference_flash_attention,
+                                     reference_flash_attention_bwd,
                                      reference_layer_norm,
                                      reference_paged_attention)
 
@@ -373,3 +384,164 @@ def test_decode_dense_rejects_bad_operands(dev):
         decode_attention(q, kc, kc, valid[:, :8])
     with pytest.raises(ValueError):                     # 16 heads per KV head
         decode_attention(torch.zeros(2, 32, 32, device=dev), kc, kc, valid)
+
+
+# ---------------------------------------------------------------------------
+# training kernels: flash backward (dq, dkv), fused Adam; the norm under
+# autograd
+# ---------------------------------------------------------------------------
+
+# (B, S, T, N, K, D): small shapes over the MMA head sizes and the CUDA-core
+# fallback (D 48), ragged edges, GQA up to 4 query heads per KV head, S != T;
+# then the training shape of OPT-1.3B (B 4, S = T 1024, 32 heads of 64)
+BWD_SHAPES = [(2, 16, 16, 4, 4, 32), (2, 37, 37, 8, 2, 64),
+              (1, 70, 130, 8, 2, 128), (2, 65, 65, 4, 1, 16),
+              (2, 20, 33, 4, 2, 48), (2, 100, 100, 8, 8, 64),
+              (4, 1024, 1024, 32, 32, 64)]
+# twice the relative rounding error of one round-to-nearest in the type
+# (2^-9 bf16, 2^-12 fp16); fp32 rounds nothing
+BWD_ROUND = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11,
+             torch.float32: 0.0}
+
+
+@pytest.mark.parametrize("B,S,T,N,K,D,causal,use_alibi,dtype,atol",
+                         attn_params(BWD_SHAPES,
+                                     [(c, a) for c in (True, False)
+                                      for a in (False, True)]))
+def test_flash_bwd_matches_plain(dev, B, S, T, N, K, D, causal, use_alibi,
+                                 dtype, atol):
+    rng = np.random.default_rng(S * T + N + D)
+    mask = dense_mask(B, T, seed=T + 1, lo=max(1, T // 2))
+    k, v = dense_kv(B, T, K, D, mask, seed=D + 1)
+    q = rng.normal(size=(B, S, N, D))
+    do = rng.normal(size=(B, S, N, D))
+    al = alibi_slopes(N, device=dev) if use_alibi else None
+    qt, kt, vt, dot = (t(a, dev, dtype) for a in (q, k, v, do))
+    m = t(mask, dev)
+    o, lse = reference_flash_attention(qt, kt, vt, m, causal, None, al,
+                                       return_lse=True)
+    delta = attention_delta(o, dot)
+    before = launch_counts()
+    dq = flash_attention_bwd_dq(qt, kt, vt, dot, lse, delta, m, causal,
+                                None, al)
+    dk, dv = flash_attention_bwd_dkv(qt, kt, vt, dot, lse, delta, m, causal,
+                                     None, al)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1
+    refs = reference_flash_attention_bwd(qt, kt, vt, o, lse, dot, m, causal,
+                                         None, al)
+    mags = flash_attention_bwd_magnitude(qt, kt, vt, o, lse, dot, m, causal,
+                                         None, al)
+    for got, ref, mag in zip((dq, dk, dv), refs, mags):
+        assert torch.isfinite(got).all()
+        # 16-bit: P and dS enter the tensor-core products rounded once to
+        # the input type (as in FA2), so a sum over up to T terms errs by up
+        # to that rounding times the sum of its terms' magnitudes (``mag``),
+        # which cancellation can leave far above the result itself
+        diff = (got.float() - ref.float()).abs()
+        bound = atol + atol * ref.float().abs() + BWD_ROUND[dtype] * mag
+        assert bool((diff <= bound).all()), float((diff - bound).max())
+    # masked keys get no gradient
+    dead = torch.from_numpy(mask == 0).to(dev)
+    assert (dk[dead] == 0).all() and (dv[dead] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,atol", LOW)
+def test_flash_autograd_matches_plain_autograd(dev, dtype, atol):
+    """Gradients through ``flash_attention`` (forward kernel with lse, then
+    the two backward kernels) equal autograd through the plain forward."""
+    B, S, N, K, D = 2, 77, 8, 2, 64
+    rng = np.random.default_rng(5)
+    mask = dense_mask(B, S, seed=3, lo=S // 2)
+    al = alibi_slopes(N, device=dev)
+    arrays = [rng.normal(size=(B, S, n, D)) for n in (N, K, K)]
+    do = t(rng.normal(size=(B, S, N, D)), dev, dtype)
+    grads = []
+    for fn in (flash_attention, reference_flash_attention):
+        leaves = [t(a, dev, dtype).requires_grad_() for a in arrays]
+        fn(*leaves, t(mask, dev), causal=True, alibi=al).backward(do)
+        grads.append([x.grad for x in leaves])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=atol)
+
+
+def test_flash_bwd_rejects_bad_operands(dev):
+    q = torch.zeros(2, 8, 4, 32, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(2, 8, 2, 32, device=dev, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 4, 8, device=dev)
+    with pytest.raises(ValueError):                     # dout dtype
+        flash_attention_bwd_dq(q, k, k, q.float(), lse, lse)
+    with pytest.raises(ValueError):                     # lse layout
+        flash_attention_bwd_dkv(q, k, k, q, lse.transpose(1, 2), lse)
+
+
+@pytest.mark.parametrize("n", [1, 4099, 1 << 20])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16,
+                                        torch.float16])
+@pytest.mark.parametrize("wd,adam_w", [(0.0, True), (0.01, True),
+                                       (0.01, False)])
+@pytest.mark.parametrize("extras", [False, True])
+def test_fused_adam_matches_plain(dev, n, grad_dtype, wd, adam_w, extras):
+    rng = np.random.default_rng(n)
+    p, m = (t(rng.normal(size=n), dev, torch.float32) for _ in range(2))
+    v = t(rng.uniform(0, 1, n), dev, torch.float32)
+    g = t(rng.normal(size=n), dev, grad_dtype)
+    kw = dict(step=3, lr=1e-2, weight_decay=wd, adam_w_mode=adam_w)
+    if extras:
+        kw.update(grad_scale=torch.tensor([0.37], device=dev),
+                  skip=torch.tensor([False], device=dev))
+    bufs = [[x.clone() for x in (p, m, v)] for _ in range(2)]
+    copies = [torch.empty(n, dtype=torch.bfloat16, device=dev)
+              for _ in range(2)] if extras else [None, None]
+    before = launch_counts()["fused_adam"]
+    fused_adam_flat(bufs[0][0], g, bufs[0][1], bufs[0][2],
+                    param_copy=copies[0], **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_adam"] == before + 1
+    reference_adam_flat(bufs[1][0], g, bufs[1][1], bufs[1][2],
+                        param_copy=copies[1], **kw)
+    for a, b in zip(bufs[0], bufs[1]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+    if extras:
+        torch.testing.assert_close(copies[0].float(), copies[1].float(),
+                                   atol=0, rtol=2 ** -7)
+
+
+def test_fused_adam_skip_and_unaligned(dev):
+    """A set skip flag writes nothing; views starting mid-vector take the
+    scalar path."""
+    base = torch.randn(4 * 1031 + 1, device=dev)
+    p, g, m, v = (base[1:].clone()[1:].view(-1) for _ in range(4))
+    v = v.abs()
+    snap = [x.clone() for x in (p, m, v)]
+    fused_adam_flat(p, g, m, v, 1, skip=torch.tensor([True], device=dev))
+    for a, b in zip((p, m, v), snap):
+        assert torch.equal(a, b)
+    ref = [x.clone() for x in snap]
+    fused_adam_flat(p, g, m, v, 1)
+    reference_adam_flat(ref[0], g, ref[1], ref[2], 1)
+    for a, b in zip((p, m, v), ref):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype,atol", LOW)
+def test_layer_norm_autograd_matches_plain(dev, rms, dtype, atol):
+    """Under autograd the norm kernel's gradient (the plain ``_fln_bwd``
+    transcription) equals autograd through the plain forward."""
+    rng = np.random.default_rng(11)
+    arrays = [rng.normal(0, 2.0, (33, 256)), rng.normal(1.0, 0.3, 256),
+              rng.normal(0, 0.3, 256)]
+    gy = t(rng.normal(size=(33, 256)), dev, dtype)
+    grads = []
+    for fn in (fused_layer_norm, reference_layer_norm):
+        leaves = [t(a, dev, dtype).requires_grad_() for a in arrays]
+        fn(leaves[0], leaves[1], None if rms else leaves[2], 1e-5,
+           rms).backward(gy)
+        grads.append([x.grad for x in leaves[:2 if rms else 3]])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=atol)

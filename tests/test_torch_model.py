@@ -201,7 +201,10 @@ class TestPortRules:
                 "deepspeed_tpu_torch.models.convert, "
                 "deepspeed_tpu_torch.inference, "
                 "deepspeed_tpu_torch.ops.flash_attention, "
-                "deepspeed_tpu_torch.ops.decode_attention; "
+                "deepspeed_tpu_torch.ops.decode_attention, "
+                "deepspeed_tpu_torch.ops.fused_adam, "
+                "deepspeed_tpu_torch.runtime, "
+                "deepspeed_tpu_torch.config; "
                 "bad = [m for m in sys.modules if m == 'jax' "
                 "or m.startswith('jax.') or m == 'deepspeed_tpu' "
                 "or m.startswith('deepspeed_tpu.')]; "
