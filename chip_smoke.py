@@ -18,7 +18,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    operations over the peak rate), and one PyTorch library call computing
    the same function where there is one (``scaled_dot_product_attention``
    with an explicit mask for the dense attention kernels; timed here only,
-   the port never calls it).
+   the port never calls it). The four quantized decode GEMMs run at
+   llama-7b's weight sites, 1 and 8 rows, int4 with one group and with
+   groups of 128.
 4. ``serve``   — ``init_serving("llama-7b")`` at full width (H 4096, 32
    layers, 32 heads, D 128, FFN 11008, vocab 32000; seeded random bf16
    weights) serves 8 greedy requests (prompts of 64..700 tokens, two sharing
@@ -43,7 +45,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    through the kernel path and through the plain versions, over an arena
    whose slots outside ``valid`` hold large finite values; last-position
    logits must agree.
-8. ``train`` — once the llama-7b phases have released their memory,
+8. ``quant_generate`` — ``init_inference("llama-7b", dtype=mode)`` from
+   the same seeded weights, quantized on load, in int8, w8a8 (over the
+   int8 tree), int4 and w4a8 (over the int4 tree), each generating as the
+   generate phase does, twice. Each call must launch its mode's GEMM
+   exactly 225 x 31 times (every weight site of every decode forward) and
+   the other three not at all. Prints TTFT, decode tokens/s, weight bytes
+   on the device and peak memory. ``quant_serve`` — the serve scenario
+   over the int8 tree; ``int8_matmul`` must run.
+9. ``e2e_quant_parity`` — the 2-layer fp32 dense check of phase 7 with
+   int8, int4 and int4 (groups of 128) weights: the decode steps through
+   the quantized GEMM kernels against ``plain=True``.
+10. ``train`` — once the llama-7b phases have released their memory,
    ``initialize`` trains OPT-1.3B at full size (H 2048, 24 layers, 32 heads
    of 64, FFN 8192, vocab 50272; seeded random bf16 weights) with the
    ``bench_zero.py`` config (bf16, AdamW lr 1e-4, micro batch 4, seq 1024,
@@ -52,7 +65,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    below the first; launch counts are zeroed before the 5 steps and each of
    the path's five kernels must have run its expected count per step.
    Prints step ms, tokens/s, MFU and peak memory.
-9. ``e2e_train_parity`` — OPT-1.3B widths at 2 layers, fp32: 3 optimizer
+11. ``e2e_train_parity`` — OPT-1.3B widths at 2 layers, fp32: 3 optimizer
    steps through the kernel path and through the plain path (a model whose
    ``loss_fn`` runs ``forward(..., plain=True)``, and a
    ``MixedPrecisionOptimizer(..., plain=True)``) on the card from the same
@@ -60,7 +73,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    grads and the final params, must agree.
 
 Then one ``{"kernels": [...]}`` line (``launches``: each kernel's count over
-the serve run, the first generate call and the 5 timed train steps), the
+the serve run, the first generate call, the first call of each quantized
+mode, the int8 serve run and the 5 timed train steps), the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the exit code is non-zero; without a CUDA device it exits 1 and prints no
 result.
@@ -78,14 +92,19 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch import initialize
+from deepspeed_tpu_torch.inference import init_inference
 from deepspeed_tpu_torch.inference.kv_cache import (cache_memory_bytes,
                                                     init_cache,
                                                     init_paged_cache)
-from deepspeed_tpu_torch.models import Model, create_model, param_count
+from deepspeed_tpu_torch.models import (Model, create_model, is_quantized,
+                                        param_count, tree_bytes)
 from deepspeed_tpu_torch.models.core import tree_leaves
 from deepspeed_tpu_torch.models.presets import transformer_config
-from deepspeed_tpu_torch.models.transformer import (alibi_slopes, forward,
-                                                    init_params)
+from deepspeed_tpu_torch.models.transformer import (_quantize_int8,
+                                                    alibi_slopes, forward,
+                                                    init_params,
+                                                    quantize_model_weights)
+from deepspeed_tpu_torch.ops import quant_matmul
 from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
                                      flash_attention, flash_attention_bwd_dkv,
                                      flash_attention_bwd_dq,
@@ -106,6 +125,7 @@ from deepspeed_tpu_torch.serving import ServingConfig, init_serving
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # dense tensor-core peak, bf16
+INT8_OPS = 1979e12                 # dense tensor-core peak, int8
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 
 # (atol, rtol): |kernel - plain| <= atol + rtol * |plain| elementwise. fp32:
@@ -165,7 +185,24 @@ SOURCES = {
                                 "deepspeed_tpu/ops/flash_attention.py:311"),
     "fused_adam": ("deepspeed_tpu_torch/csrc/fused_adam.cu",
                    "deepspeed_tpu/ops/fused_adam.py:72"),
+    "int8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
+                    "deepspeed_tpu/ops/quant_matmul.py:79"),
+    "int8_a8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
+                       "deepspeed_tpu/ops/quant_matmul.py:167"),
+    "int4_a8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
+                       "deepspeed_tpu/ops/quant_matmul.py:250"),
+    "int4_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
+                    "deepspeed_tpu/ops/quant_matmul.py:394"),
 }
+# the quantized inference modes and the decode GEMM each one runs
+QUANT_MODES = {"int8": "int8_matmul", "w8a8": "int8_a8_matmul",
+               "int4": "int4_matmul", "w4a8": "int4_a8_matmul"}
+# llama-7b's widths (H, layers, heads, D, FFN, vocab) and its decode weight
+# sites (K, N)
+LLAMA_7B = (4096, 32, 32, 128, 11008, 32000)
+QUANT_SITES = {"qkvo": (4096, 4096), "gate_up": (4096, 11008),
+               "down": (11008, 4096), "lm_head": (4096, 32000)}
+INT_MM_ROWS = 17    # torch._int_mm takes more than 16 rows
 SERVE_KERNELS = ("fused_layer_norm", "paged_decode_attention",
                  "paged_prefill_attention")
 GENERATE_KERNELS = ("fused_layer_norm", "flash_attention", "decode_attention")
@@ -717,27 +754,114 @@ def adam_cases(dev, gen):
     return results
 
 
+def int_mm_ms(dev, K: int, w8: torch.Tensor):
+    """The a8 yardstick: one ``torch._int_mm`` (s8 x s8 -> s32 on cuBLASLt)
+    of INT_MM_ROWS activation rows, its smallest M, by the (K, N) int8
+    weight, stored column-major as cuBLASLt's int8 GEMMs take it; None
+    where this PyTorch has no such call for these operands."""
+    xq = torch.randint(-127, 128, (INT_MM_ROWS, K), dtype=torch.int8,
+                       device=dev)
+    w8 = w8.t().contiguous().t()
+    try:
+        torch._int_mm(xq, w8)
+    except (AttributeError, RuntimeError):
+        return None
+    return time_ms(lambda: torch._int_mm(xq, w8))
+
+
+def quant_cases(dev, gen):
+    """The four quantized decode GEMMs at llama-7b's decode sites (K, N),
+    M 1 and 8 activation rows in bf16 and fp32, int4 with one group (G 1)
+    and with groups of 128 rows, on weights drawn N(0, 0.02) with one
+    all-zero column and quantized as the engine does. Yardsticks (timed
+    here only): the bf16 ``torch.matmul`` of the dense weight for the
+    weight-only kernels, ``torch._int_mm`` of INT_MM_ROWS rows by the int8
+    (for int4: unpacked to int8) weight for the a8 ones."""
+    out = {name: [] for name in QUANT_MODES.values()}
+    for site, (K, N) in QUANT_SITES.items():
+        w = 0.02 * torch.randn(K, N, generator=gen, device=dev)
+        w[:, 1] = 0.0
+        q8 = _quantize_int8(w)
+        packs = {G: quant_matmul.quantize_int4(w, None if G == 1 else 128)
+                 for G in (1, K // 128)}
+        dense = w.to(torch.bfloat16)
+        del w
+        lib8 = int_mm_ms(dev, K, q8["q8"])
+        lib4 = int_mm_ms(dev, K, quant_matmul._unpack_nibbles(
+            packs[1][0]).to(torch.int8))
+        for name in QUANT_MODES.values():
+            int4, a8 = name.startswith("int4"), "_a8" in name
+            fn = getattr(quant_matmul, name)
+            ref = getattr(quant_matmul, "reference_" + name)
+            for G in (packs if int4 else (1,)):
+                q, s = packs[G] if int4 else (q8["q8"], q8["s"])
+                for M in (1, 8):
+                    for dtype in (torch.bfloat16, torch.float32):
+                        x = torch.randn(M, K, generator=gen,
+                                        device=dev).to(dtype)
+                        got, want = fn(x, q, s), ref(x, q, s)
+                        if got.dtype != dtype or got.shape != (M, N):
+                            raise AssertionError(f"{name}: output "
+                                                 f"{got.dtype} {got.shape}")
+                        err = check(f"{name} {site} M={M} G={G} {dtype}",
+                                    got, want, TOL[dtype])
+                        item = x.element_size()
+                        nbytes = (q.numel() + 4 * s.numel()
+                                  + (M * K + M * N) * item)
+                        peak = (INT8_OPS if a8 else BF16_FLOPS
+                                if dtype == torch.bfloat16 else FP32_FLOPS)
+                        b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, peak)
+                        library = None
+                        if dtype == torch.bfloat16:
+                            library = (lib4 if int4 else lib8) if a8 else \
+                                time_ms(lambda: torch.matmul(x, dense))
+                        out[name].append(dict(
+                            site=site, M=M, K=K, N=N, G=G, dtype=str(dtype),
+                            max_abs_err=err,
+                            tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+                            ms=time_ms(lambda: fn(x, q, s)),
+                            plain_ms=time_ms(lambda: ref(x, q, s), iters=4,
+                                             reps=3),
+                            library_ms=library,
+                            library=("torch._int_mm, 17 rows" if a8
+                                     else "torch.matmul, bf16 dense"),
+                            bound_ms=b_ms, bound_by=b_by))
+        del q8, packs, dense
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # serve llama-7b at full width
 # ---------------------------------------------------------------------------
 
 
-def make_server():
-    """llama-7b at full width in bf16 with seeded random weights, every
-    sampled logits row checked finite, one short warm-up request served.
-    Returns (server, seconds to build it)."""
+def check_llama_7b(cfg) -> None:
+    if (cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.head_dim,
+            cfg.ffn_hidden_size, cfg.vocab_size) != LLAMA_7B:
+        raise AssertionError(f"llama-7b widths changed: {cfg}")
+
+
+def per_forward(cfg) -> int:
+    """Weight-site GEMMs of one forward: q, k, v, o, gate, up and down in
+    each layer, and an untied lm_head (225 for llama-7b)."""
+    return 7 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+
+
+def make_server(dtype=torch.bfloat16, params=None):
+    """llama-7b at full width in ``dtype`` (bf16, or a quantized mode) with
+    seeded random weights (or ``params``), every sampled logits row checked
+    finite, one short warm-up request served. Returns (server, seconds to
+    build it)."""
     scfg = ServingConfig(block_size=16, max_seqs=8, max_model_len=1024,
                          prefill_chunk=256)
     t0 = time.perf_counter()
-    srv = init_serving("llama-7b", serving_config=scfg, dtype=torch.bfloat16,
-                       seed=0)
+    srv = init_serving("llama-7b", serving_config=scfg, dtype=dtype,
+                       seed=0, params=params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = srv.engine.model.config
-    if (cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.head_dim,
-            cfg.ffn_hidden_size, cfg.vocab_size) != (4096, 32, 32, 128,
-                                                     11008, 32000):
-        raise AssertionError(f"serve: llama-7b widths changed: {cfg}")
+    check_llama_7b(cfg)
     prefill, decode = srv._prefill, srv._decode
 
     def checked_prefill(*args):
@@ -784,10 +908,13 @@ def serve_requests(srv):
     return handles, prompts, steps, time.perf_counter() - t0
 
 
-def serve_phase():
-    """The 8-request scenario; returns (launch counts, the phase's JSON,
-    the server, which the generate phase reuses)."""
-    srv, init_s = make_server()
+def serve_phase(mode=None, params=None):
+    """The 8-request scenario, in bf16 or in a quantized ``mode`` (whose
+    decode GEMM must then run, in whole decode forwards, and no other
+    quantized GEMM); returns (launch counts, the phase's JSON, the server,
+    which the generate phase reuses)."""
+    phase = "quant_serve" if mode else "serve"
+    srv, init_s = make_server(mode or torch.bfloat16, params)
     V = srv.engine.model.config.vocab_size
     reset_launch_counts()
     handles, prompts, steps, wall = serve_requests(srv)
@@ -795,16 +922,23 @@ def serve_phase():
     outs = [h.result() for h in handles]
     for i, out in enumerate(outs):
         if len(out) != 32 or not ((out >= 0) & (out < V)).all():
-            raise AssertionError(f"serve: request {i} returned {out}")
-    for name in SERVE_KERNELS:
+            raise AssertionError(f"{phase}: request {i} returned {out}")
+    for name in SERVE_KERNELS + ((QUANT_MODES[mode],) if mode else ()):
         if counts[name] <= 0:
-            raise AssertionError(f"serve: kernel {name} never launched")
+            raise AssertionError(f"{phase}: kernel {name} never launched")
+    for name in QUANT_MODES.values():
+        want_zero = mode is None or name != QUANT_MODES[mode]
+        if (want_zero and counts[name]) or counts[name] % per_forward(
+                srv.engine.model.config):
+            raise AssertionError(f"{phase}: kernel {name} launched "
+                                 f"{counts[name]} times")
     if srv.sched.prefix_hits < 1 or srv._cow_copies < 1:
-        raise AssertionError("serve: prefix cache / copy-on-write did not run")
+        raise AssertionError(f"{phase}: prefix cache / copy-on-write did "
+                             "not run")
     ttft = [h.ttft_s * 1e3 for h in handles]
     tokens = sum(len(o) for o in outs)
     return counts, dict(
-        phase="serve", model="llama-7b", dtype="bfloat16",
+        phase=phase, model="llama-7b", dtype=mode or "bfloat16",
         config=dict(block_size=16, max_seqs=8, max_model_len=1024,
                     prefill_chunk=256),
         prompt_lens=[len(p) for p in prompts], new_tokens=32,
@@ -902,7 +1036,9 @@ def generate_call(eng, ids, mask):
 
 def generate_phase(srv):
     """``generate`` on the serving engine's llama-7b weights after the
-    serving arena is released; two calls, the second reusing the arena."""
+    serving arena is released; two calls, the second reusing the arena.
+    Returns (the first call's launch counts, its tokens, the phase's
+    JSON)."""
     srv.close()
     torch.cuda.empty_cache()
     eng = srv.engine
@@ -944,7 +1080,7 @@ def generate_phase(srv):
             launches={n: counts[n] for n in GENERATE_KERNELS}))
     eng._prefill = prefill
     cfg = eng.model.config
-    return calls[0]["launches"], dict(
+    return calls[0]["launches"], tokens[0], dict(
         phase="generate", model="llama-7b", dtype="bfloat16",
         prompt_lens=GEN_LENS, new_tokens=GEN_NEW,
         max_out_tokens=eng.config.max_out_tokens,
@@ -955,14 +1091,12 @@ def generate_phase(srv):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def e2e_generate_phase(dev):
-    """Dense prefill + 8 decode steps at llama-7b widths, 2 layers, fp32:
-    the kernel path against ``plain=True`` on two copies of one arena."""
-    cfg = transformer_config("llama-7b", dtype=torch.float32, num_layers=2,
-                             max_seq_len=512)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    params = init_params(gen, cfg)
+def dense_parity(params, cfg, dev, gen, phase: str):
+    """The static prefill of 2 prompts (200 and 77 tokens, padded to 256)
+    and 8 greedy decode steps over a 512-column arena whose slots outside
+    ``valid`` hold large finite values, through the kernel path and through
+    ``plain=True`` on two copies of the arena. Returns (each step's max abs
+    logits error, the last logits)."""
     lens, S_pad, T = [200, 77], 256, 512
     B, S = len(lens), max(lens)
     lengths = torch.tensor(lens, device=dev)
@@ -990,15 +1124,170 @@ def e2e_generate_phase(dev):
                         plain=bool(i))[0][:, -1] for i in range(2)]
         for o in outs:
             if not bool(torch.isfinite(o).all()):
-                raise AssertionError("e2e_generate: non-finite logits")
+                raise AssertionError(f"{phase}: non-finite logits")
         errs.append(max_err(outs[0], outs[1]))
     if not max(errs) <= E2E_TOL:
-        raise AssertionError(f"e2e_generate: logits max abs error "
-                             f"{max(errs)} > {E2E_TOL}")
+        raise AssertionError(f"{phase}: logits max abs error {max(errs)} > "
+                             f"{E2E_TOL}")
+    return errs, outs[1]
+
+
+def e2e_generate_phase(dev):
+    """Dense prefill + 8 decode steps at llama-7b widths, 2 layers, fp32:
+    the kernel path against ``plain=True`` on two copies of one arena."""
+    cfg = transformer_config("llama-7b", dtype=torch.float32, num_layers=2,
+                             max_seq_len=512)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    params = init_params(gen, cfg)
+    errs, last = dense_parity(params, cfg, dev, gen, "e2e_generate")
     return dict(phase="e2e_generate_parity", model="llama-7b", layers=2,
-                dtype="float32", prompt_lens=lens, padded=S_pad, arena=T,
-                decode_steps=8, max_abs_err=max(errs), per_step=errs,
-                tol=E2E_TOL, logits_absmax=float(outs[1].abs().max()))
+                dtype="float32", prompt_lens=[200, 77], padded=256,
+                arena=512, decode_steps=8, max_abs_err=max(errs),
+                per_step=errs, tol=E2E_TOL,
+                logits_absmax=float(last.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# quantized llama-7b: generate in four modes, serve in int8, 2-layer parity
+# ---------------------------------------------------------------------------
+
+
+def quantized_bytes(tree) -> int:
+    """Bytes of the quantized weight sites (values and scales)."""
+    if is_quantized(tree):
+        return tree_bytes(tree)
+    if isinstance(tree, dict):
+        return sum(quantized_bytes(v) for v in tree.values())
+    return 0
+
+
+def quant_generate(mode: str, params, ids, mask, bf16_tokens):
+    """``init_inference("llama-7b", dtype=mode)`` at full width (from seeded
+    random bf16 weights, quantized leaf by leaf, or over ``params``, an
+    already quantized tree), then ``generate`` as the generate phase does,
+    twice. Each call must launch the mode's GEMM at every weight site of
+    every decode forward (225 x 31) and no other quantized
+    GEMM, and flash / decode attention and the norm once per layer (and
+    norm) of each forward. Returns (the first call's launch counts, the
+    phase's JSON, the engine)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = init_inference("llama-7b", dtype=mode, seed=0, params=params,
+                         max_out_tokens=1024)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    cfg = eng.model.config
+    check_llama_7b(cfg)
+    L, V = cfg.num_layers, cfg.vocab_size
+    want = {name: 0 for name in QUANT_MODES.values()}
+    want.update({QUANT_MODES[mode]: per_forward(cfg) * (GEN_NEW - 1),
+                 "flash_attention": L,
+                 "decode_attention": L * (GEN_NEW - 1),
+                 "fused_layer_norm": (2 * L + 1) * GEN_NEW})
+    decode = eng._decode
+    seen = []
+
+    def observed_decode(*args):
+        logits = decode(*args)
+        seen.append(logits)
+        return logits
+
+    eng._decode = observed_decode
+    torch.cuda.reset_peak_memory_stats()
+    calls, first = [], None
+    for _ in range(2):
+        seen.clear()
+        toks, ttft, wall, counts = generate_call(eng, ids, mask)
+        if toks.shape != (len(GEN_LENS), GEN_NEW) or not (
+                (toks >= 0) & (toks < V)).all():
+            raise AssertionError(f"quant_generate {mode}: bad tokens {toks}")
+        if not all(bool(torch.isfinite(x).all()) for x in seen):
+            raise AssertionError(f"quant_generate {mode}: non-finite decode "
+                                 "logits")
+        got = {name: counts[name] for name in want}
+        if got != want:
+            raise AssertionError(f"quant_generate {mode}: launches {got}, "
+                                 f"expected {want}")
+        first = counts if first is None else first
+        calls.append(dict(
+            ttft_ms=ttft * 1e3, wall_s=wall,
+            decode_tokens_per_s=len(GEN_LENS) * (GEN_NEW - 1) / (wall - ttft),
+            launches=got, tokens_equal_to_bf16=float((toks == bf16_tokens
+                                                      ).mean())))
+    del eng._decode        # the bound method again: no reference cycle
+    return first, dict(
+        phase="quant_generate", model="llama-7b", mode=mode,
+        compute_dtype=str(eng.config.dtype), prompt_lens=GEN_LENS,
+        new_tokens=GEN_NEW, init_s=init_s, init_peak_mem_gb=init_peak,
+        weights_gb=tree_bytes(eng.params) / 1e9,
+        quantized_weights_gb=quantized_bytes(eng.params) / 1e9,
+        calls=calls, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), \
+        eng
+
+
+def quant_phases(smi, bf16_tokens):
+    """quant_generate in int8, then in w8a8 over the int8 tree, quant_serve
+    over the int8 tree; then quant_generate in int4, then in w4a8 over the
+    int4 tree. Emits each phase's line; returns the summed launch counts of
+    the first generate call of each mode and of the serve run."""
+    ids, mask = generate_prompts(LLAMA_7B[-1])
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for modes in (("int8", "w8a8"), ("int4", "w4a8")):
+        params = None
+        for mode in modes:
+            counts, out, eng = quant_generate(mode, params, ids, mask,
+                                              bf16_tokens)
+            emit(dict(out, card=smi))
+            add(counts)
+            params = eng.params
+            del eng
+            torch.cuda.empty_cache()      # its arena, before the next load
+        if modes[0] == "int8":
+            counts, out, srv = serve_phase("int8", params)
+            srv.close()
+            del srv
+            emit(dict(out, card=smi))
+            add(counts)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def e2e_quant_phase(dev):
+    """llama-7b widths at 2 layers, fp32 compute, weights int8, int4 (one
+    group) and int4 in groups of 128: the dense prefill (dequantized in
+    both paths: 2 x 256 rows) and 8 decode steps of 2 rows, through the
+    quantized GEMM kernels and through ``plain=True``."""
+    cfg = transformer_config("llama-7b", dtype=torch.float32, num_layers=2,
+                             max_seq_len=512)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    dense = init_params(gen, cfg)
+    cases = []
+    for bits, groups in ((8, None), (4, None), (4, 128)):
+        params = quantize_model_weights(dense, bits=bits, group_size=groups)
+        kernel = "int8_matmul" if bits == 8 else "int4_matmul"
+        reset_launch_counts()
+        errs, last = dense_parity(params, cfg, dev, gen,
+                                  f"e2e_quant int{bits} groups {groups}")
+        if launch_counts()[kernel] != 8 * per_forward(cfg):
+            raise AssertionError(f"e2e_quant: {kernel} launched "
+                                 f"{launch_counts()[kernel]} times, "
+                                 f"expected {8 * per_forward(cfg)}")
+        cases.append(dict(bits=bits, groups=groups, max_abs_err=max(errs),
+                          per_step=errs,
+                          logits_absmax=float(last.abs().max())))
+    return dict(phase="e2e_quant_parity", model="llama-7b", layers=2,
+                dtype="float32", prompt_lens=[200, 77], padded=256,
+                arena=512, decode_steps=8, tol=E2E_TOL, cases=cases)
 
 
 # ---------------------------------------------------------------------------
@@ -1190,19 +1479,23 @@ def main() -> int:
              "flash_attention": flash_cases(dev, gen),
              "decode_attention": decode_dense_cases(dev, gen),
              **flash_bwd_cases(dev, gen),
-             "fused_adam": adam_cases(dev, gen)}
+             "fused_adam": adam_cases(dev, gen),
+             **quant_cases(dev, gen)}
     emit(dict(phase="kernels", card=smi, cases=cases))
     torch.cuda.empty_cache()
 
     counts, serve, srv = serve_phase()
     emit(dict(serve, card=smi))
-    gen_counts, generate = generate_phase(srv)
+    gen_counts, bf16_tokens, generate = generate_phase(srv)
     del srv
     emit(dict(generate, card=smi))
+    gc.collect()                  # the llama-7b engine's last references
     torch.cuda.empty_cache()
     emit(dict(e2e_phase(dev), card=smi))
     emit(dict(e2e_generate_phase(dev), card=smi))
-    gc.collect()                  # the llama-7b engine's last references
+    quant_counts = quant_phases(smi, bf16_tokens)
+    emit(dict(e2e_quant_phase(dev), card=smi))
+    gc.collect()
     torch.cuda.empty_cache()
     train_counts, train = train_phase(dev)
     emit(dict(train, card=smi))
@@ -1211,8 +1504,12 @@ def main() -> int:
     # the main paths' shapes: norm at the prefill chunk's 256 rows (RMSNorm,
     # bf16), paged decode over the ragged 8 rows, paged prefill at start
     # 256, flash at generate's static prefill, dense decode over 8 rows, the
-    # flash backward and Adam at OPT-1.3B's training shape
-    pick = {"fused_layer_norm": lambda c: c["rows"] == 256 and c["rms"],
+    # flash backward and Adam at OPT-1.3B's training shape, the quantized
+    # GEMMs at the 8-row decode of llama-7b's gate / up site (int4: G 1)
+    quant_main = lambda c: (c["site"] == "gate_up"  # noqa: E731
+                            and c["M"] == 8 and c["G"] == 1)
+    pick = {**{name: quant_main for name in QUANT_MODES.values()},
+            "fused_layer_norm": lambda c: c["rows"] == 256 and c["rms"],
             "paged_decode_attention": lambda c: True,
             "paged_prefill_attention": lambda c: c["start"] == 256,
             "flash_attention": lambda c: c["case"] == "prefill",
@@ -1227,6 +1524,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=(counts.get(name, 0) + gen_counts.get(name, 0)
+                      + quant_counts.get(name, 0)
                       + train_counts.get(name, 0)),
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],

@@ -11,8 +11,11 @@ fused norm and the paged decode / chunked-prefill attention kernels; offline
 generation over a dense KV arena (``init_inference(...).generate``), with
 the flash-attention forward and the dense decode attention kernels; and
 single-device training (``initialize(...)`` -> ``engine.train_batch``), with
-the flash-attention backward (dq, dkv) and fused Adam kernels. Entry points
-run on CUDA unless the caller passes ``device="cpu"``.
+the flash-attention backward (dq, dkv) and fused Adam kernels; and
+quantized inference (``init_inference(..., dtype="int8" | "int4" | "w8a8" |
+"w4a8")``, which ``init_serving`` takes too), with the four quantized decode
+GEMM kernels. Entry points run on CUDA unless the caller passes
+``device="cpu"``.
 """
 
 from .inference import InferenceConfig, InferenceEngine, init_inference  # noqa: F401

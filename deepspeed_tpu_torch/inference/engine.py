@@ -18,27 +18,40 @@ waits on the card inside the loop.
 The engine runs on CUDA unless the caller passes ``device="cpu"`` (as the
 tests do); asking for CUDA where there is none raises — there is no silent
 CPU fallback. Left out of this port (JAX has them): tensor / expert
-parallel meshes, quantized dtypes, observability spans and the tpuaudit
-program registration.
+parallel meshes, observability spans and the tpuaudit program registration.
+
+Quantized inference (JAX's ``dtype="int8" | "int4" | "w8a8" | "w4a8"``, or
+``quantize_bits`` with a float dtype): the weights are cast to the compute
+dtype, then the matmul weights are quantized leaf by leaf
+(``transformer.quantize_model_weights``), then placed on the device. The
+decode-shaped weight sites take the quantized GEMM kernels; prefill and every
+call over more than 8 tokens dequantize (``transformer._qeinsum``). W8A8 /
+W4A8 change only the kernel route: its activation rows are quantized too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Any, Dict, Optional, Union
 
 import torch
 
 from . import kv_cache
-from ..models.core import Model, cast_floating, param_count, tree_map
+from ..models.core import (Model, cast_floating, is_quantized, param_count,
+                           tree_bytes, tree_map)
 from ..models.presets import _SIZES, create_model
 from ..models.transformer import forward as model_forward
+from ..models.transformer import quantize_model_weights
 from ..utils.logging import log_dist
 
 _DTYPE_NAMES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
                 "fp16": torch.float16, "float16": torch.float16,
                 "fp32": torch.float32, "float32": torch.float32}
+# quantized modes: (weight bits, activation rows quantized); compute in bf16
+_QUANT_MODES = {"int8": (8, False), "int4": (4, False), "w8a8": (8, True),
+                "w4a8": (4, True)}
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -55,28 +68,52 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
 
 @dataclasses.dataclass
 class InferenceConfig:
-    """Inference config subset: the compute/arena dtype (bf16, fp16 or fp32),
-    the per-sequence token budget (the dense arena's length), the random
-    init seed, and the prompt-length bucket of ``generate``."""
+    """Inference config subset: the compute/arena dtype (bf16, fp16 or fp32,
+    or a quantized mode), the per-sequence token budget (the dense arena's
+    length), the random init seed, the prompt-length bucket of ``generate``
+    and weight-only quantization (JAX's fields and normalisation)."""
 
     dtype: Any = torch.bfloat16
     max_out_tokens: int = 1024
     seed: int = 0
     prompt_bucket: int = 64   # prompts pad up to a multiple of this (JAX
     #   bounds its compiled prefill programs so; kept for identical padding)
+    quantize_bits: Optional[int] = None   # 8: int8 per output channel; 4:
+    #   nibble-packed int4 per (group, channel). dtype='int8'/'int4' sets it
+    quantize_groups: Optional[int] = None  # int4 group size along K (None:
+    #   one group per output channel)
+    quantize_activations: bool = False     # W8A8 / W4A8: decode-shaped
+    #   sites quantize their activation rows too. dtype='w8a8'/'w4a8' sets it
 
     def __post_init__(self):
-        if isinstance(self.dtype, str):
+        # a quantized mode is storage, not a compute dtype: it computes in
+        # bf16 (a string dtype must never reach cast_floating)
+        mode = "int8" if self.dtype is torch.int8 else self.dtype
+        if isinstance(mode, str) and mode in _QUANT_MODES:
+            self.quantize_bits, a8 = _QUANT_MODES[mode]
+            self.quantize_activations = self.quantize_activations or a8
+            self.dtype = torch.bfloat16
+        elif isinstance(self.dtype, str):
             if self.dtype not in _DTYPE_NAMES:
-                raise NotImplementedError(
-                    f"inference dtype '{self.dtype}': the port serves "
-                    "bf16/fp16/fp32 (quantized inference is a later slice)")
+                raise ValueError(
+                    f"unknown inference dtype '{self.dtype}' (use bf16/fp16/"
+                    "fp32, or 'int8'/'int4'/'w8a8'/'w4a8' for quantized "
+                    "weights)")
             self.dtype = _DTYPE_NAMES[self.dtype]
         if self.dtype not in (torch.bfloat16, torch.float16, torch.float32):
             raise NotImplementedError(f"inference dtype {self.dtype}")
+        if self.quantize_bits not in (None, 4, 8):
+            raise NotImplementedError(
+                f"quantize_bits={self.quantize_bits}: 8 (per-channel) and "
+                "4 (nibble-packed, groupwise) are supported")
+        if self.quantize_groups is not None and self.quantize_bits != 4:
+            raise ValueError("quantize_groups applies to int4 only")
         if self.prompt_bucket < 1:
             raise ValueError(f"prompt_bucket must be >= 1, got "
                              f"{self.prompt_bucket}")
+        if self.quantize_activations and self.quantize_bits not in (4, 8):
+            raise ValueError("quantize_activations (W8A8/W4A8) requires "
+                             "int8 or int4 weights (dtype='w8a8'/'w4a8')")
 
 
 def _bucket(n: int, mult: int = 64) -> int:
@@ -128,17 +165,37 @@ class InferenceEngine:
         if model.config is None:
             raise ValueError("model.config is required for inference (the "
                              "KV-cache arena is sized from it)")
+        if (config.quantize_bits and config.dtype == torch.float16
+                and self.device.type == "cuda"):
+            raise NotImplementedError(
+                "quantized weights with fp16 compute: the quantized decode "
+                "kernels take bf16 or fp32 activations")
+        if config.quantize_activations:
+            _a8_gate_preview(config, model.config)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             params = model.init(gen)
-        self.params = tree_map(lambda t: t.to(self.device),
-                               cast_floating(params, config.dtype))
+        # cast (quantized sites keep their fp32 scales), quantize, place: the
+        # cast tree is this engine's own, so quantizing it in place frees
+        # each dense leaf of a random init as its quantized form lands
+        params = cast_floating(params, config.dtype)
+        if config.quantize_bits:
+            _check_quantized(params, config.quantize_bits)
+            params = quantize_model_weights(
+                params, bits=config.quantize_bits,
+                group_size=config.quantize_groups, donate=True)
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        del params
         # batch size -> dense arena, kept between generate() calls
         self._arena: Dict[int, Dict[str, torch.Tensor]] = {}
+        quant = (f", weights int{config.quantize_bits}"
+                 f"{' a8' if config.quantize_activations else ''}"
+                 if config.quantize_bits else "")
         log_dist(f"inference engine ready: "
                  f"{param_count(self.params) / 1e6:.1f}M params, "
-                 f"dtype={config.dtype}, device={self.device}")
+                 f"{tree_bytes(self.params) / 2 ** 30:.2f} GiB, "
+                 f"dtype={config.dtype}{quant}, device={self.device}")
 
     def _tensor(self, a, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, dtype)
@@ -268,6 +325,55 @@ class InferenceEngine:
         return (tokens, ttft) if return_ttft else tokens
 
 
+def _a8_gate_preview(config: InferenceConfig, cfg) -> None:
+    """W8A8 / W4A8 engage through the decode-kernel gate: warn about the
+    sites where it can never pass (they serve the weight-only path), and
+    set ``a8_decode`` on this engine's model config (JAX :190-225). JAX
+    also rejects tensor parallelism here; the port has none."""
+    mode = "w8a8" if config.quantize_bits == 8 else "w4a8"
+    wo = "int8" if config.quantize_bits == 8 else "int4"
+    # int8 sites need K, N % 128; int4 packs K/2, so its contraction dim
+    # must be % 256 (output dims stay % 128)
+    k_align = 128 if config.quantize_bits == 8 else 256
+    H = cfg.hidden_size
+    ND, F_, V = cfg.num_heads * cfg.head_dim, cfg.ffn_hidden_size, \
+        cfg.vocab_size
+    sites = {"attn qkv": (H, ND), "attn out": (ND, H), "mlp in": (H, F_),
+             "mlp out": (F_, H)}
+    if not cfg.tie_embeddings:
+        sites["lm_head"] = (H, V)
+    bad = [name for name, (kd, nd) in sites.items()
+           if kd % k_align or nd % 128]
+    if (config.quantize_bits == 4 and config.quantize_groups
+            and config.quantize_groups % 128):
+        bad = list(sites)
+    if bad:
+        groups = (f", groups {config.quantize_groups}"
+                  if config.quantize_groups else "")
+        log_dist(f"{mode}: the s8xs8 kernel gate will not engage for "
+                 f"site(s) {bad} (K-alignment {k_align}, N-alignment 128"
+                 f"{groups}) — those sites serve the weight-only {wo} path",
+                 level=logging.WARNING)
+    cfg.a8_decode = True
+
+
+def _check_quantized(params: Dict[str, Any], bits: int) -> None:
+    """Given params may be dense or already quantized, but not at other
+    bits than the config's."""
+    other = "q4" if bits == 8 else "q8"
+
+    def walk(node):
+        if is_quantized(node):
+            if other in node:
+                raise ValueError(f"params are quantized as {other}, the "
+                                 f"config asks for {bits} bits")
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+
+    walk(params)
+
+
 def init_inference(model=None, config: Optional[InferenceConfig] = None,
                    dtype=None, max_out_tokens: Optional[int] = None,
                    params: Optional[Dict[str, Any]] = None,
@@ -275,8 +381,10 @@ def init_inference(model=None, config: Optional[InferenceConfig] = None,
                    seed: Optional[int] = None,
                    **model_overrides) -> InferenceEngine:
     """Counterpart of ``deepspeed_tpu.init_inference``. ``model``: a
-    ``Model`` bundle or a preset name (e.g. "llama-7b"). Weights: ``params``
-    (the port's tree, e.g. from ``models.convert.params_from_jax``), else
+    ``Model`` bundle or a preset name (e.g. "llama-7b"). ``dtype``: bf16 /
+    fp16 / fp32 or a quantized mode, "int8", "int4", "w8a8", "w4a8".
+    Weights: ``params`` (the port's tree, dense or already quantized at the
+    config's bits, e.g. from ``models.convert.params_from_jax``), else
     random from ``seed``. Runs on CUDA unless ``device="cpu"``."""
     if isinstance(config, dict):
         config = InferenceConfig(**config)

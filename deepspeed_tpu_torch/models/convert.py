@@ -13,9 +13,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .core import tree_map
-
-_QUANTIZED_KEYS = ("q8", "q4")
+from .core import is_quantized, tree_map
 
 
 def _to_tensor(a: Any, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -34,15 +32,14 @@ def params_from_jax(np_params: Dict[str, Any], cfg, device="cpu",
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The JAX param pytree (numpy leaves, layer axis first) -> the port's
     params on ``device``; floating leaves cast to ``dtype`` (default
-    ``cfg.dtype``). Quantized leaves (``{"q8"|"q4", "s"}``) raise: the port
-    has no quantized path yet."""
+    ``cfg.dtype``). Quantized sites (``{"q8"|"q4", "s"}``) come over as
+    they are: int8 / uint8 values, fp32 scales."""
     dtype = cfg.dtype if dtype is None else dtype
 
     def walk(node):
+        if is_quantized(node):
+            return {k: _to_tensor(v, device, None) for k, v in node.items()}
         if isinstance(node, dict):
-            if any(k in node for k in _QUANTIZED_KEYS):
-                raise NotImplementedError(
-                    "quantized weights are not ported yet")
             return {k: walk(v) for k, v in node.items()}
         return _to_tensor(node, device, dtype)
 
@@ -51,7 +48,8 @@ def params_from_jax(np_params: Dict[str, Any], cfg, device="cpu",
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """Inverse of ``params_from_jax``: the port's params -> numpy leaves
-    (bfloat16 leaves widen exactly to float32, which JAX takes and casts)."""
+    (bfloat16 leaves widen exactly to float32, which JAX takes and casts;
+    quantized values and scales keep their dtypes)."""
     def leaf(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:

@@ -47,7 +47,23 @@ def param_count(params: Any) -> int:
     return sum(int(p.numel()) for p in tree_leaves(params))
 
 
+def tree_bytes(params: Any) -> int:
+    return sum(int(p.numel()) * p.element_size() for p in tree_leaves(params))
+
+
+QUANTIZED_KEYS = ("q8", "q4")
+
+
+def is_quantized(node: Any) -> bool:
+    """A weight-only-quantized site: ``{"q8"|"q4": ints, "s": fp32}``."""
+    return isinstance(node, dict) and any(k in node for k in QUANTIZED_KEYS)
+
+
 def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
-    """Cast floating leaves to ``dtype`` (precision plumbing)."""
-    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
-                    tree)
+    """Cast floating leaves to ``dtype`` (precision plumbing). A quantized
+    site is left as it is: its scales stay fp32."""
+    if is_quantized(tree):
+        return tree
+    if isinstance(tree, dict):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree

@@ -32,10 +32,13 @@ the paged read calls ``paged_decode_attention`` (S == 1) or
 ``paged_prefill_attention`` (chunked prefill), the dense decode calls
 ``decode_attention`` and the static prefill and cache-less forward call
 ``flash_attention``; each launches its CUDA kernel on a CUDA tensor and runs
-its plain version on a CPU tensor. ``forward(..., plain=True)`` calls the
-plain versions on any device — the reference the kernel path is held
-against. ``paged_impl='gather'`` keeps the dense ``arena[block_table]``
-view as the A/B baseline on both devices.
+its plain version on a CPU tensor. The weight sites go through ``_qeinsum``:
+a dense weight is a plain matmul; a weight-only-quantized one
+(``quantize_model_weights``) takes the quantized GEMM kernels on
+decode-shaped calls and a dequantized ``torch.matmul`` otherwise.
+``forward(..., plain=True)`` calls the plain versions on any device — the
+reference the kernel path is held against. ``paged_impl='gather'`` keeps
+the dense ``arena[block_table]`` view as the A/B baseline on both devices.
 
 Training: the cache-less forward runs under autograd (the flash and norm
 wrappers carry their backward), and ``build_model`` bundles the JAX
@@ -43,7 +46,7 @@ wrappers carry their backward), and ``build_model`` bundles the JAX
 views of the stacked leaves are taken with one ``unbind`` per leaf, whose
 backward is one ``stack``.
 
-Out of scope here (they raise): MoE, quantized weights, sliding windows and
+Out of scope here (they raise): MoE, sliding windows and
 custom attention scales, post-LN / bidirectional encoders, token types, and
 the training features dropout, rematerialisation, progressive layer drop,
 random-LTD and activation quantization (``TransformerConfig`` carries their
@@ -66,7 +69,13 @@ from ..ops.normalization import fused_layer_norm, reference_layer_norm
 from ..ops.paged_decode_attention import (paged_decode_attention,
                                           paged_prefill_attention,
                                           reference_paged_attention)
-from .core import Model, tree_map
+from ..ops.quant_matmul import (int4_a8_matmul, int4_matmul, int8_a8_matmul,
+                                int8_matmul, quantize_int4,
+                                reference_int4_a8_matmul,
+                                reference_int4_matmul,
+                                reference_int8_a8_matmul,
+                                reference_int8_matmul, unpack_int4)
+from .core import Model, is_quantized, tree_map
 
 
 @dataclasses.dataclass
@@ -108,6 +117,8 @@ class TransformerConfig:
     ltd_layers: Optional[Tuple[int, ...]] = None
     ltd_keep: int = 0
     act_quant_bits: int = 0
+    a8_decode: bool = False     # W8A8 / W4A8: decode-shaped quantized sites
+    #   quantize their activation rows (set by the inference engine)
 
     def __post_init__(self):
         if self.num_kv_heads is None:
@@ -291,6 +302,135 @@ def _alibi_table(n_heads: int, device: torch.device) -> torch.Tensor:
     """``alibi_slopes`` on ``device``, built once and only read: copying the
     slopes from the host on every forward would wait for the stream."""
     return alibi_slopes(n_heads, device=device)
+
+
+# ---------------------------------------------------------------------------
+# weight-only quantization (JAX :424-569)
+# ---------------------------------------------------------------------------
+
+
+def _quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-output-channel int8: JAX's ``_quant_math`` for 8 bits."""
+    w32 = w.float()
+    absmax = w32.abs().amax(dim=-2, keepdim=True)
+    s = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / 127.0)
+    q = torch.clamp(torch.round(w32 / s), -127.0, 127.0).to(torch.int8)
+    return {"q8": q, "s": s}
+
+
+def _quantize_stacked(w: torch.Tensor, quant: Callable[[torch.Tensor], Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """``quant`` of a 2-D site, or layer by layer of an (L, K, N) stack into
+    preallocated outputs (the same values: each layer's scales depend on
+    that layer alone), so only one layer's fp32 temporaries exist at once."""
+    if w.dim() == 2:
+        return quant(w)
+    first = quant(w[0])
+    out = {k: torch.empty((w.shape[0], *v.shape), dtype=v.dtype,
+                          device=v.device) for k, v in first.items()}
+    for li in range(w.shape[0]):
+        part = first if li == 0 else quant(w[li])
+        for k, v in part.items():
+            out[k][li] = v
+    return out
+
+
+def quantize_model_weights(params: Dict[str, Any], bits: int = 8,
+                           group_size: Optional[int] = None,
+                           donate: bool = False) -> Dict[str, Any]:
+    """Weight-only quantization (JAX ``quantize_model_weights``): the matmul
+    weights (attention q/k/v/o, the dense MLP, an untied ``lm_head``)
+    become ``{"q8": int8 (.., K, N), "s": fp32 (.., 1, N)}`` (8 bits, per
+    output channel) or ``{"q4": uint8 (.., K/2, N), "s": fp32 (.., G, N)}``
+    (4 bits, nibble-packed, ``group_size`` rows per group along K). The
+    embedding, biases and norms stay dense. Computed leaf by leaf on the
+    params' device; the values equal JAX's bit for bit (both round half to
+    even after a true division). ``donate``: update the given dicts in
+    place, so each dense leaf is released as its quantized form lands;
+    otherwise the input tree is left as it is. A site that is already
+    quantized is kept."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if bits == 4:
+        def quant(w):
+            q4, s = quantize_int4(w, group_size)
+            return {"q4": q4, "s": s}
+    else:
+        quant = _quantize_int8
+
+    def site(node: Dict[str, Any], name: str) -> None:
+        w = node[name]
+        if not is_quantized(w):
+            node[name] = _quantize_stacked(w, quant)
+
+    if not donate:
+        params = dict(params)
+        params["layers"] = dict(params["layers"])
+    layers = params["layers"]
+    if not donate:
+        layers["attn"] = dict(layers["attn"])
+        layers["mlp"] = dict(layers["mlp"])
+    for name in ("wq", "wk", "wv", "wo"):
+        site(layers["attn"], name)
+    if "router" not in layers:           # dense MLP only (MoE banks stay)
+        for name in ("w_up", "w_gate", "w_down"):
+            if name in layers["mlp"]:
+                site(layers["mlp"], name)
+    if "lm_head" in params:
+        site(params, "lm_head")
+    return params
+
+
+def _dense(w: Any, dtype: torch.dtype) -> torch.Tensor:
+    """A (possibly weight-only-quantized) weight as a dense tensor."""
+    if isinstance(w, dict) and "q8" in w:
+        return (w["q8"].float() * w["s"]).to(dtype)
+    if isinstance(w, dict) and "q4" in w:
+        return unpack_int4(w["q4"], w["s"], dtype)
+    return w
+
+
+def _qeinsum(x: torch.Tensor, w: Any, dtype: torch.dtype, a8: bool = False,
+             plain: bool = False) -> torch.Tensor:
+    """``x (B, S, K) @ w`` at a weight site, ``w`` dense or quantized
+    (JAX ``_qeinsum``, its gate verbatim). Decode-shaped calls (S * B <= 8)
+    on a 2-D quantized weight with aligned shapes take the quantized GEMM
+    (the a8 variant when ``a8``): its kernel on a CUDA tensor, its plain
+    version on a CPU tensor or with ``plain``. JAX also requires a
+    single-shard mesh there; the port has no tensor parallelism. Every other
+    call dequantizes and leaves the product to ``torch.matmul``, with JAX's
+    rounding: int8 scales cast to ``dtype`` and applied after the product,
+    int4 scales applied in fp32 before it."""
+    if isinstance(w, dict) and "q8" in w:
+        q8, s = w["q8"], w["s"]
+        B, S = x.shape[0], x.shape[1]
+        if (S * B <= 8 and q8.dim() == 2
+                and q8.shape[0] % 128 == 0 and q8.shape[1] % 128 == 0):
+            if a8:
+                fn = reference_int8_a8_matmul if plain else int8_a8_matmul
+            else:
+                fn = reference_int8_matmul if plain else int8_matmul
+            out = fn(x.reshape(B * S, -1), q8, s, out_dtype=dtype)
+            return out.reshape(*x.shape[:-1], q8.shape[1])
+        out = torch.matmul(x, q8.to(dtype))
+        return out * s[..., 0, :].to(dtype)
+    if isinstance(w, dict) and "q4" in w:
+        q4, s = w["q4"], w["s"]
+        B, S = x.shape[0], x.shape[1]
+        K2, N = q4.shape[-2:]
+        G = s.shape[-2]
+        gs = 2 * K2 // G
+        if (S * B <= 8 and q4.dim() == 2
+                and K2 % 128 == 0 and N % 128 == 0
+                and (G == 1 or gs % 128 == 0)):
+            if a8:
+                fn = reference_int4_a8_matmul if plain else int4_a8_matmul
+            else:
+                fn = reference_int4_matmul if plain else int4_matmul
+            out = fn(x.reshape(B * S, -1), q4, s, out_dtype=dtype)
+            return out.reshape(*x.shape[:-1], N)
+        return torch.matmul(x, unpack_int4(q4, s, dtype))
+    return x @ w
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -495,9 +635,10 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
     attn_p = layer["attn"]
     h = _norm(x, layer["ln1"]["scale"], layer["ln1"].get("bias"), cfg.norm,
               cfg.norm_eps, plain)
-    q = h @ attn_p["wq"]
-    k = h @ attn_p["wk"]
-    v = h @ attn_p["wv"]
+    qe = partial(_qeinsum, dtype=cfg.dtype, a8=cfg.a8_decode, plain=plain)
+    q = qe(h, attn_p["wq"])
+    k = qe(h, attn_p["wk"])
+    v = qe(h, attn_p["wv"])
     if "bq" in attn_p:
         q = q + attn_p["bq"]
         k = k + attn_p["bk"]
@@ -518,7 +659,7 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
     attn = attend(q.contiguous(), k, v)
-    attn_out = attn.reshape(B, S, N * D) @ attn_p["wo"]
+    attn_out = qe(attn.reshape(B, S, N * D), attn_p["wo"])
     if "bo" in attn_p:
         attn_out = attn_out + attn_p["bo"]
     if cfg.parallel_residual:
@@ -531,10 +672,10 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
                   cfg.norm, cfg.norm_eps, plain)
     mlp = layer["mlp"]
     if cfg.activation == "swiglu":
-        inner = F.silu(h @ mlp["w_gate"]) * (h @ mlp["w_up"])
-        mlp_out = inner @ mlp["w_down"]
+        inner = F.silu(qe(h, mlp["w_gate"])) * qe(h, mlp["w_up"])
+        mlp_out = qe(inner, mlp["w_down"])
     else:
-        inner = h @ mlp["w_up"] + mlp["b_up"]
+        inner = qe(h, mlp["w_up"]) + mlp["b_up"]
         if cfg.activation == "relu":
             inner = F.relu(inner)
         elif cfg.activation == "quick_gelu":
@@ -545,7 +686,7 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
             inner = F.gelu(inner, approximate="tanh")
         else:
             raise NotImplementedError(f"activation '{cfg.activation}'")
-        mlp_out = inner @ mlp["w_down"] + mlp["b_down"]
+        mlp_out = qe(inner, mlp["w_down"]) + mlp["b_down"]
     if cfg.parallel_residual:
         return x + attn_out + mlp_out
     return x + mlp_out
@@ -646,7 +787,8 @@ def head_logits(params: Dict[str, Any], x: torch.Tensor,
                   plain)
     if cfg.tie_embeddings:
         return x @ params["embed"]["tokens"].t()
-    logits = x @ params["lm_head"]
+    logits = _qeinsum(x, params["lm_head"], cfg.dtype, a8=cfg.a8_decode,
+                      plain=plain)
     if "lm_head_b" in params:
         logits = logits + params["lm_head_b"]
     return logits

@@ -12,6 +12,12 @@ from .normalization import (fused_layer_norm, layer_norm_bwd,  # noqa: F401
 from .paged_decode_attention import (paged_decode_attention,  # noqa: F401
                                      paged_prefill_attention,
                                      reference_paged_attention)
+from .quant_matmul import (int4_a8_matmul, int4_matmul,  # noqa: F401
+                           int8_a8_matmul, int8_matmul,
+                           quantize_activation_rows, quantize_int4,
+                           reference_int4_a8_matmul, reference_int4_matmul,
+                           reference_int8_a8_matmul, reference_int8_matmul,
+                           unpack_int4)
 from .registry import (launch_counts, op_report,  # noqa: F401
                        reset_launch_counts)
 
@@ -23,5 +29,9 @@ __all__ = ["decode_attention", "reference_decode_attention",
            "fused_adam_flat", "reference_adam_flat",
            "fused_layer_norm", "layer_norm_bwd", "reference_layer_norm",
            "paged_decode_attention", "paged_prefill_attention",
-           "reference_paged_attention", "launch_counts", "op_report",
+           "reference_paged_attention", "int4_a8_matmul", "int4_matmul",
+           "int8_a8_matmul", "int8_matmul", "quantize_activation_rows",
+           "quantize_int4", "reference_int4_a8_matmul",
+           "reference_int4_matmul", "reference_int8_a8_matmul",
+           "reference_int8_matmul", "unpack_int4", "launch_counts", "op_report",
            "reset_launch_counts"]

@@ -1,0 +1,242 @@
+"""Quantized decode GEMMs: weight-only int8 / int4 and W8A8 / W4A8.
+
+Counterpart of ``deepspeed_tpu/ops/quant_matmul.py``. Each of
+``int8_matmul``, ``int8_a8_matmul``, ``int4_matmul`` and ``int4_a8_matmul``
+launches its CUDA kernel (``csrc/quant_matmul.cu``) on a CUDA tensor and runs
+its plain version (``reference_*``, the JAX oracle's arithmetic) on a CPU
+tensor. The kernels take what the decode path gives them: x (M <= 8, K) in
+float32 or bfloat16, the output in x's dtype. Which call reaches them is
+decided by ``models.transformer._qeinsum`` (JAX's gate); a CUDA call the
+kernel does not take raises.
+
+Layouts (the JAX package's):
+
+* int8: ``q8`` (K, N) int8 and per-output-channel scales ``s`` (1, N) fp32,
+  w = q8 * s;
+* int4: ``q4`` (K/2, N) uint8, rows [0, K/2) in the LOW nibble and rows
+  [K/2, K) in the HIGH nibble (not interleaved), values in [-7, 7] as 4-bit
+  two's complement; scales ``s`` (G, N) fp32 per (group of K/G rows, output
+  channel).
+
+The a8 variants quantize each row of x on the fly (``quantize_activation_rows``:
+absmax / 127, round half to even, clip to +-127) and multiply in integers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import registry
+
+MAX_ROWS = 8              # activation rows the kernels take (decode-shaped)
+COL_TILE = 32             # output columns per thread block
+MAX_A8_SMEM = 192 * 1024  # the a8 kernels hold the quantized x in shared memory
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# quantizers and plain versions
+# ---------------------------------------------------------------------------
+
+
+def quantize_activation_rows(x: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, K) float -> (int8 values, (M, 1) fp32 per-row scales)."""
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=-1, keepdim=True)
+    s = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / 127.0)
+    q = torch.clamp(torch.round(x32 / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+def quantize_int4(w: torch.Tensor, group_size: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., K, N) float -> (q4 (..., K/2, N) uint8, s (..., G, N) fp32).
+    Symmetric, qmax 7; ``group_size`` groups along K (None: one group)."""
+    *lead, K, N = w.shape
+    if K % 2:
+        raise ValueError(f"int4 packing needs even K, got {K}")
+    gs = group_size or K
+    if K % gs or (group_size and (K // 2) % gs):
+        raise ValueError(f"group_size {gs} must divide K/2 ({K // 2})")
+    G = K // gs
+    w32 = w.float().reshape(*lead, G, gs, N)
+    absmax = w32.abs().amax(dim=-2)                        # (..., G, N)
+    s = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / 7.0)
+    q = torch.clamp(torch.round(w32 / s[..., None, :]), -7, 7).to(torch.int32)
+    q = q.reshape(*lead, K, N)
+    lo = q[..., :K // 2, :] & 0xF
+    hi = (q[..., K // 2:, :] & 0xF) << 4
+    return (lo | hi).to(torch.uint8), s
+
+
+def _unpack_nibbles(q4: torch.Tensor) -> torch.Tensor:
+    """(..., K/2, N) uint8 -> (..., K, N) int32 values in [-8, 7]."""
+    q = q4.to(torch.int32)
+    lo = ((q & 0xF) ^ 8) - 8            # sign-extend 4-bit two's complement
+    hi = ((q >> 4) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-2)
+
+
+def unpack_int4(q4: torch.Tensor, s: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Dense dequant: (..., K/2, N) uint8 + (..., G, N) scales -> (..., K,
+    N) in ``out_dtype`` (the scales applied in fp32)."""
+    w = _unpack_nibbles(q4).float()
+    *lead, K, N = w.shape
+    G = s.shape[-2]
+    w = w.reshape(*lead, G, K // G, N) * s[..., None, :].float()
+    return w.reshape(*lead, K, N).to(out_dtype)
+
+
+def reference_int8_matmul(x, q8, scale, out_dtype=None):
+    """Plain version: dense dequant, then the product in fp32."""
+    out_dtype = out_dtype or x.dtype
+    w = q8.float() * scale.float()
+    return (x.float() @ w).to(out_dtype)
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer product as fp32 (RN of the int32 sum, as JAX's
+    ``acc.astype(float32)``): float64 holds every partial sum exactly and
+    runs on both devices, where an int32 matmul does not."""
+    return (a.double() @ b.double()).float()
+
+
+def reference_int8_a8_matmul(x, q8, scale, out_dtype=None):
+    """Plain version: explicit activation quantization, integer product,
+    then ``acc * sx * s``."""
+    out_dtype = out_dtype or x.dtype
+    xq, sx = quantize_activation_rows(x)
+    acc = _int_matmul(xq, q8)
+    return (acc * sx * scale.float()).to(out_dtype)
+
+
+def reference_int4_a8_matmul(x, q4, scale, out_dtype=None):
+    """Plain version: activation quantization, per-group integer partial
+    products (exact in fp32 at these sizes), each scaled by its group's
+    scales, summed, then times ``sx``."""
+    out_dtype = out_dtype or x.dtype
+    xq, sx = quantize_activation_rows(x)
+    w = _unpack_nibbles(q4)                                 # (K, N)
+    K, N = w.shape
+    G = scale.shape[0]
+    accs = torch.einsum("mgk,gkn->mgn",
+                        xq.float().reshape(xq.shape[0], G, K // G),
+                        w.float().reshape(G, K // G, N))
+    out = (accs * scale.float()[None]).sum(dim=1)
+    return (out * sx).to(out_dtype)
+
+
+def reference_int4_matmul(x, q4, scale, out_dtype=None):
+    """Plain version: dense unpack and dequant, then the product in fp32."""
+    out_dtype = out_dtype or x.dtype
+    return (x.float() @ unpack_int4(q4, scale, torch.float32)).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _fn():
+    fn = registry.library("quant_matmul").dstt_quant_matmul
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+            out_dtype, int4: bool, a8: bool) -> torch.Tensor:
+    """Check the operands of a CUDA call and launch the kernel."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 2 or q.dim() != 2 or scale.dim() != 2:
+        raise ValueError(f"{name}: x, the weight and the scales must be 2-D; "
+                         f"got {tuple(x.shape)}, {tuple(q.shape)}, "
+                         f"{tuple(scale.shape)}")
+    M, K = x.shape
+    rows, N = q.shape
+    if not 1 <= M <= MAX_ROWS:
+        raise ValueError(f"{name}: the kernel takes 1..{MAX_ROWS} rows, got "
+                         f"{M}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    if out_dtype is not None and out_dtype != x.dtype:
+        raise ValueError(f"{name}: the kernel writes x's dtype {x.dtype}, "
+                         f"not {out_dtype}")
+    want = torch.uint8 if int4 else torch.int8
+    if q.dtype != want:
+        raise ValueError(f"{name}: weight must be {want}, got {q.dtype}")
+    if rows * (2 if int4 else 1) != K:
+        raise ValueError(f"{name}: x has K={K}, the weight {rows} "
+                         f"{'packed ' if int4 else ''}rows")
+    G = scale.shape[0]
+    if scale.dtype != torch.float32 or scale.shape[1] != N \
+            or (not int4 and G != 1) or G < 1 or K % G:
+        raise ValueError(f"{name}: scales must be float32 ({'G' if int4 else 1}"
+                         f", {N}) with G dividing K; got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+    gs = K // G
+    if N % COL_TILE or K % 8 or gs % 4 or (int4 and G > 1 and rows % gs):
+        raise ValueError(f"{name}: needs N % {COL_TILE} == 0, K % 8 == 0 and "
+                         f"groups of a multiple of 4 rows inside each nibble "
+                         f"plane; got K={K}, N={N}, G={G}")
+    if a8 and M * K > MAX_A8_SMEM:
+        raise ValueError(f"{name}: M * K = {M * K} exceeds the kernel's "
+                         f"{MAX_A8_SMEM} bytes of quantized activations")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous() if not x.is_contiguous() else x.clone()
+    for label, t in (("weight", q), ("scales", scale)):
+        if t.device != x.device:
+            raise ValueError(f"{name}: {label} on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            # the kernel reads 16-byte vectors of weight rows and scales
+            raise ValueError(f"{name}: {label} must be contiguous and start "
+                             "16-byte aligned")
+    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    err = _fn()(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                M, K, N, G, int(int4), int(a8), _DTYPES[x.dtype],
+                torch.cuda.current_stream(x.device).cuda_stream)
+    registry.check_launch(name, err)
+    return out
+
+
+def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
+                out_dtype=None) -> torch.Tensor:
+    """x (M, K) @ (q8 (K, N) int8 * scale (1, N)) -> (M, N)."""
+    if x.device.type == "cpu":
+        return reference_int8_matmul(x, q8, scale, out_dtype)
+    return _launch("int8_matmul", x, q8, scale, out_dtype, False, False)
+
+
+def int8_a8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
+                   out_dtype=None) -> torch.Tensor:
+    """W8A8: rows of x quantized to int8, s8 x s8 -> s32, then
+    ``acc * sx * scale``."""
+    if x.device.type == "cpu":
+        return reference_int8_a8_matmul(x, q8, scale, out_dtype)
+    return _launch("int8_a8_matmul", x, q8, scale, out_dtype, False, True)
+
+
+def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
+                out_dtype=None) -> torch.Tensor:
+    """x (M, K) @ unpack_int4(q4 (K/2, N), scale (G, N)) -> (M, N)."""
+    if x.device.type == "cpu":
+        return reference_int4_matmul(x, q4, scale, out_dtype)
+    return _launch("int4_matmul", x, q4, scale, out_dtype, True, False)
+
+
+def int4_a8_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
+                   out_dtype=None) -> torch.Tensor:
+    """W4A8: rows of x quantized to int8, times the unpacked int4 values in
+    integers, group partials scaled by ``scale``, then times ``sx``."""
+    if x.device.type == "cpu":
+        return reference_int4_a8_matmul(x, q4, scale, out_dtype)
+    return _launch("int4_a8_matmul", x, q4, scale, out_dtype, True, True)

@@ -46,6 +46,10 @@ KERNELS: Dict[str, str] = {
     "flash_attention_bwd_dq": "flash_attention_bwd",
     "flash_attention_bwd_dkv": "flash_attention_bwd",
     "fused_adam": "fused_adam",
+    "int8_matmul": "quant_matmul",
+    "int8_a8_matmul": "quant_matmul",
+    "int4_matmul": "quant_matmul",
+    "int4_a8_matmul": "quant_matmul",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}

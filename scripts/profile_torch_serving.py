@@ -3,10 +3,11 @@
 PyTorch / CUDA port.
 
 Runs ``chip_smoke.py``'s scenarios under ``torch.profiler``: on llama-7b at
-full width (bf16, seeded random weights) ``serve`` (8 greedy requests of 32
-new tokens through the ``ServingEngine``) and ``generate`` (one
-``InferenceEngine.generate`` of 8 right-padded prompts of 64..500 tokens, 32
-greedy new tokens, after one unprofiled warm-up call); and ``train``:
+full width (bf16, or with ``--dtype`` a quantized mode, from seeded random
+weights) ``serve`` (8 greedy requests of 32 new tokens through the
+``ServingEngine``) and ``generate`` (one ``InferenceEngine.generate`` of 8
+right-padded prompts of 64..500 tokens, 32 greedy new tokens, after one
+unprofiled warm-up call); and ``train``:
 OPT-1.3B at full size, 3 ``train_batch`` steps of ``chip_smoke``'s train
 phase (bf16, micro batch 4 x 1024 tokens) after one warm-up step. Prints one
 JSON line per scenario:
@@ -23,7 +24,8 @@ JSON line per scenario:
   for ``train``.
 
     python3 scripts/profile_torch_serving.py
-        [--scenario serve|generate|both|train] [--trace PATH]
+        [--scenario serve|generate|both|train]
+        [--dtype bf16|int8|int4|w8a8|w4a8] [--trace PATH]
 
 ``--trace`` also writes the Chrome trace (of the last scenario). Needs one
 NVIDIA GPU; exits 1 without one and when the profiler records no device
@@ -47,7 +49,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 PORT_KERNELS = ("ln_fwd_kernel", "paged_decode_kernel", "paged_prefill_kernel",
                 "paged_prefill_mma_kernel", "flash_fwd_kernel",
                 "flash_fwd_mma_kernel", "decode_kernel", "flash_bwd_dq",
-                "flash_bwd_dkv", "adam_kernel")
+                "flash_bwd_dkv", "adam_kernel", "quant_matmul_kernel")
 TRAIN_STEPS = 3
 
 
@@ -106,15 +108,21 @@ def main(argv) -> int:
     trace = argv[argv.index("--trace") + 1] if "--trace" in argv else None
     scenario = (argv[argv.index("--scenario") + 1] if "--scenario" in argv
                 else "serve")
+    dtype = argv[argv.index("--dtype") + 1] if "--dtype" in argv else "bf16"
     if scenario not in ("serve", "generate", "both", "train"):
         print(f"profile_torch_serving: unknown scenario {scenario}",
+              file=sys.stderr)
+        return 1
+    if dtype not in ("bf16", "int8", "int4", "w8a8", "w4a8"):
+        print(f"profile_torch_serving: unknown dtype {dtype}",
               file=sys.stderr)
         return 1
     smi = chip_smoke.nvidia_smi()
     results = []
     if scenario == "train":
         return profile_train(smi, trace)
-    srv, _ = chip_smoke.make_server()
+    srv, _ = chip_smoke.make_server(
+        torch.bfloat16 if dtype == "bf16" else dtype)
     if scenario in ("serve", "both"):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -125,7 +133,8 @@ def main(argv) -> int:
                   "activity (device time not measured)", file=sys.stderr)
             return 1
         results.append(dict(
-            card=smi, scenario="chip_smoke serve: llama-7b bf16, 8 requests",
+            card=smi, scenario=f"chip_smoke serve: llama-7b {dtype}, 8 "
+            "requests",
             iterations=steps, tokens=sum(len(h.tokens) for h in handles),
             **out))
     if scenario in ("generate", "both"):
@@ -142,7 +151,7 @@ def main(argv) -> int:
                   "activity (device time not measured)", file=sys.stderr)
             return 1
         results.append(dict(
-            card=smi, scenario="chip_smoke generate: llama-7b bf16, 8 "
+            card=smi, scenario=f"chip_smoke generate: llama-7b {dtype}, 8 "
             "prompts of 64..500 tokens, 32 new", forwards=chip_smoke.GEN_NEW,
             tokens=int(toks.size), ttft_ms=ttft * 1e3, **out))
     if trace:

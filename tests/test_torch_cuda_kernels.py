@@ -19,7 +19,10 @@ Tolerances: fp32 2e-5 (the same fp32 arithmetic in another order); bf16
 ~1-4 in that type, plus the plain version's own low-precision
 intermediates. The 16-bit flash backward adds twice one rounding of the
 type times the sum of its terms' magnitudes (``BWD_ROUND``); fused Adam
-1e-6 + 1e-5 relative (the same fp32 arithmetic, FMA-contracted).
+1e-6 + 1e-5 relative (the same fp32 arithmetic, FMA-contracted). The
+quantized decode GEMMs (int8 / int4, weight-only and a8) run at small shapes
+and at llama-7b's decode sites against the same fp32 / bf16 tolerances (the
+a8 integer parts are exact, so only the fp32 scaling differs).
 """
 
 import numpy as np
@@ -41,6 +44,8 @@ from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
                                      reference_flash_attention_bwd,
                                      reference_layer_norm,
                                      reference_paged_attention)
+from deepspeed_tpu_torch.ops import quant_matmul
+from deepspeed_tpu_torch.ops.quant_matmul import quantize_int4
 
 pytestmark = pytest.mark.cuda
 
@@ -545,3 +550,69 @@ def test_layer_norm_autograd_matches_plain(dev, rms, dtype, atol):
     for got, ref in zip(*grads):
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=atol)
+
+
+# ---------------------------------------------------------------------------
+# quantized decode GEMMs
+# ---------------------------------------------------------------------------
+
+QUANT = ("int8_matmul", "int8_a8_matmul", "int4_matmul", "int4_a8_matmul")
+# (K, N): small, and llama-7b's decode sites (q/k/v/o, gate/up, down, head)
+QSHAPES = [(256, 128), (384, 96), (4096, 4096), (4096, 11008),
+           (11008, 4096), (4096, 32000)]
+
+
+def quant_operands(dev, name, M, K, N, groups, dtype, seed):
+    """x (M, K) with a zero row, and the weight of ``name``'s layout."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1.0, (M, K)).astype(np.float32)
+    if M > 2:
+        x[2] = 0.0
+    w = t(rng.normal(0, 0.05, (K, N)).astype(np.float32), dev)
+    w[:, 1] = 0.0
+    if name.startswith("int8"):
+        absmax = w.abs().amax(dim=0, keepdim=True)
+        s = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+        q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    else:
+        q, s = quantize_int4(w, groups)
+    return t(x, dev, dtype), q, s
+
+
+@pytest.mark.parametrize("name", QUANT)
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("K,N", QSHAPES)
+@pytest.mark.parametrize("dtype,atol", LOW)
+def test_quant_matmul_matches_plain(dev, name, M, K, N, dtype, atol):
+    groups = [None] if name.startswith("int8") else [None, 128]
+    if K == 384 and not name.startswith("int8"):
+        groups = [None, 64]
+    for g in groups:
+        x, q, s = quant_operands(dev, name, M, K, N, g, dtype, M * K + N)
+        fn = getattr(quant_matmul, name)
+        before = launch_counts()[name]
+        got = fn(x, q, s)
+        torch.cuda.synchronize()
+        assert launch_counts()[name] == before + 1
+        ref = getattr(quant_matmul, "reference_" + name)(x, q, s)
+        assert got.dtype == dtype and got.shape == (M, N)
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=atol)
+
+
+def test_quant_matmul_rejects_bad_operands(dev):
+    x, q, s = quant_operands(dev, "int8_matmul", 2, 256, 128, None,
+                             torch.float32, 0)
+    with pytest.raises(ValueError):                   # 9 rows
+        quant_matmul.int8_matmul(x.repeat(5, 1)[:9], q, s)
+    with pytest.raises(ValueError):                   # fp16 x
+        quant_matmul.int8_matmul(x.half(), q, s)
+    with pytest.raises(ValueError):                   # N % 32
+        quant_matmul.int8_a8_matmul(x, q[:, :112].contiguous(),
+                                    s[:, :112].contiguous())
+    with pytest.raises(ValueError):                   # another out dtype
+        quant_matmul.int8_matmul(x, q, s, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                   # int8 weight as int4
+        quant_matmul.int4_matmul(x, q, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul.int8_matmul(x, q.t().contiguous().t(), s)

@@ -355,5 +355,8 @@ class TestGenerateSemantics:
     def test_config_rejects(self):
         with pytest.raises(ValueError):
             InferenceConfig(prompt_bucket=0)
-        with pytest.raises(NotImplementedError):
-            InferenceConfig(dtype="int8")
+        with pytest.raises(ValueError):
+            InferenceConfig(dtype="int3")
+        # a quantized mode is accepted and computes in bf16
+        cfg = InferenceConfig(dtype="int8")
+        assert cfg.dtype == torch.bfloat16 and cfg.quantize_bits == 8

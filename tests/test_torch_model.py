@@ -13,6 +13,7 @@ observed differences are ~1e-6).
 import subprocess
 import sys
 from functools import partial
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -203,14 +204,18 @@ class TestPortRules:
                 "deepspeed_tpu_torch.ops.flash_attention, "
                 "deepspeed_tpu_torch.ops.decode_attention, "
                 "deepspeed_tpu_torch.ops.fused_adam, "
+                "deepspeed_tpu_torch.ops.quant_matmul, "
                 "deepspeed_tpu_torch.runtime, "
                 "deepspeed_tpu_torch.config; "
+                "import chip_smoke; "
                 "bad = [m for m in sys.modules if m == 'jax' "
                 "or m.startswith('jax.') or m == 'deepspeed_tpu' "
                 "or m.startswith('deepspeed_tpu.')]; "
                 "print(bad); sys.exit(1 if bad else 0)")
+        # from the checkout's root, where chip_smoke.py lives
         res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                             text=True, timeout=120)
+                             text=True, timeout=120,
+                             cwd=Path(__file__).resolve().parents[1])
         assert res.returncode == 0, res.stdout + res.stderr
 
     def test_entry_points_need_cuda_unless_cpu(self, monkeypatch):
@@ -231,5 +236,8 @@ class TestPortRules:
             init_inference("moe-tiny", dtype=torch.float32, device="cpu")
         with pytest.raises(NotImplementedError):
             init_inference("tiny-bert", dtype=torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError):
-            init_inference("tiny", dtype="int8", device="cpu")
+        # quantized inference is in scope: the mode computes in bf16
+        eng = init_inference("tiny", dtype="int8", device="cpu")
+        assert eng.config.dtype == torch.bfloat16
+        assert eng.config.quantize_bits == 8
+        assert "q8" in eng.params["layers"]["attn"]["wq"]
