@@ -21,7 +21,16 @@ decoder covers the families through config switches —
   flash kernel over the whole arena with 0-based causality; any other
   ``start_pos`` takes the plain attention with an explicit (B, S, T) mask;
 * CACHE-LESS (no ``cache``; JAX :1010-1015): causal flash attention over
-  the sequence with an optional (B, S) key-padding mask.
+  the sequence with an optional (B, S) key-padding mask, or the config's
+  ``attention_impl`` (JAX :93), e.g. ``make_sparse_attention_impl`` of
+  ``ops/sparse_attention.py``.
+
+A custom ``attention_impl`` is called where JAX calls it: in the cache-less
+forward as ``impl(q, k, v, mask, causal=cfg.causal)``, and in the dense and
+paged modes on the dense view with a (B, S, T) mask and ``causal=False``
+(JAX :888-909, :936-1000), which a unidirectional sparse impl refuses, as
+in JAX. It gets ``alibi=`` only for alibi models (and must declare it, JAX
+:855), and ``plain=`` when it declares that parameter by name.
 
 Parameters keep the JAX tree layout (layer leaves stacked on a leading
 layer axis); the layer loop is a Python loop over views of those stacks
@@ -56,6 +65,7 @@ fields, default off, so JAX configs load).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 from functools import lru_cache, partial
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -119,6 +129,7 @@ class TransformerConfig:
     act_quant_bits: int = 0
     a8_decode: bool = False     # W8A8 / W4A8: decode-shaped quantized sites
     #   quantize their activation rows (set by the inference engine)
+    attention_impl: Optional[Callable] = None   # None => flash attention
 
     def __post_init__(self):
         if self.num_kv_heads is None:
@@ -162,6 +173,38 @@ def check_servable(cfg: TransformerConfig) -> None:
     if on:
         raise NotImplementedError(
             f"training features not ported yet: {', '.join(on)}")
+
+
+def _require_impl_kwarg(impl: Callable, kwarg: str, why: str) -> None:
+    """A custom attention_impl must DECLARE every kwarg a model feature
+    needs (JAX ``_require_impl_kwarg``): failing loud beats silently
+    dropping a bias."""
+    sig = inspect.signature(impl)
+    if (kwarg not in sig.parameters
+            and not any(p.kind is inspect.Parameter.VAR_KEYWORD
+                        for p in sig.parameters.values())):
+        raise TypeError(
+            f"custom attention_impl must accept a {kwarg}= kwarg for {why} "
+            f"(signature is {sig})")
+
+
+def active_attention_impl(cfg: TransformerConfig) -> str:
+    """Which attention the cache-less forward runs: 'custom' (the config's
+    ``attention_impl``) or 'flash_attention' (its kernel on a CUDA tensor,
+    its plain version on a CPU tensor)."""
+    return "custom" if cfg.attention_impl is not None else "flash_attention"
+
+
+def _impl_call(impl: Callable, alibi: Optional[torch.Tensor], plain: bool,
+               **extra) -> Callable[..., torch.Tensor]:
+    """``impl`` with the keywords JAX passes (``alibi`` only when the model
+    has it) and ``plain`` when the impl declares it by name."""
+    kw = dict(extra)
+    if alibi is not None:
+        kw["alibi"] = alibi
+    if "plain" in inspect.signature(impl).parameters:
+        kw["plain"] = plain
+    return partial(impl, **kw)
 
 
 def eval_config(cfg: TransformerConfig) -> TransformerConfig:
@@ -510,10 +553,12 @@ def _paged_step(block_table: torch.Tensor, positions: torch.Tensor,
 def _paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      layer_cache: Dict[str, torch.Tensor], step: _PagedStep,
                      paged_impl: str, alibi: Optional[torch.Tensor],
-                     plain: bool) -> torch.Tensor:
+                     plain: bool, impl: Optional[Callable] = None
+                     ) -> torch.Tensor:
     """Scatter this step's K/V into the arena, then read through the block
     table. Scatter comes first: the chunk's own keys must be in the pool
-    before attention runs."""
+    before attention runs. A custom ``impl`` reads the gathered dense view
+    (JAX :888-909)."""
     ck, cv = layer_cache["k"], layer_cache["v"]
     B, S, N, D = q.shape
     K = ck.shape[2]
@@ -523,7 +568,7 @@ def _paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cv.index_put_((step.write_blk, step.write_off), v.to(cv.dtype))
     bt = step.block_table
     pos = step.positions
-    if paged_impl == "gather":
+    if paged_impl == "gather" or impl is not None:
         T_view = bt.shape[1] * ck.shape[1]
         kk = ck[bt.long()].reshape(B, T_view, K, D)
         vv = cv[bt.long()].reshape(B, T_view, K, D)
@@ -533,6 +578,9 @@ def _paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         resident = col[None, :] <= pos.max(dim=1).values[:, None]
         vv = torch.where(resident[:, :, None, None], vv, torch.zeros_like(vv))
         full = col[None, None, :] <= pos[:, :, None]
+        if impl is not None:
+            return _impl_call(impl, alibi, plain)(q, kk, vv, full.int(),
+                                                  causal=False)
         return dot_product_attention(q, kk, vv, full, causal=False,
                                      alibi=alibi)
     if plain:
@@ -593,20 +641,46 @@ def _dense_step(S: int, B: int, cache: Optional[Dict[str, torch.Tensor]],
     return _DenseStep("general", start, full, None, key_positions)
 
 
+def _impl_dense_mask(step: _DenseStep, S: int, T: int) -> torch.Tensor:
+    """The (B, S, T) int32 mask JAX hands a custom impl over the arena:
+    causal over absolute positions (query s at ``start + s``) and the
+    (B, T) validity (JAX :970-983)."""
+    if step.mode == "general":
+        return step.mask.int()
+    dev = step.mask.device
+    q_pos = step.start + torch.arange(S, device=dev)
+    causal = torch.arange(T, device=dev)[None, :] <= q_pos[:, None]
+    return (causal[None] & (step.mask != 0)[:, None, :]).int()
+
+
 def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      layer_cache: Optional[Dict[str, torch.Tensor]],
                      step: _DenseStep, alibi: Optional[torch.Tensor],
-                     plain: bool) -> torch.Tensor:
+                     plain: bool, impl: Optional[Callable] = None,
+                     causal: bool = True) -> torch.Tensor:
     """Write this step's K/V into the dense arena at the cursor (in place;
-    JAX updates it with ``dynamic_update_slice``), then attend."""
+    JAX updates it with ``dynamic_update_slice``), then attend. A custom
+    ``impl`` is called as JAX calls it (cache-less :1010-1015, over the
+    arena :984-1000)."""
     flash = reference_flash_attention if plain else flash_attention
     if layer_cache is None:
+        if impl is not None:
+            return _impl_call(impl, alibi, plain)(q, k, v, step.mask,
+                                                  causal=causal)
         return flash(q, k.contiguous(), v.contiguous(), step.mask,
                      causal=True, alibi=alibi)
     ck, cv = layer_cache["k"], layer_cache["v"]
     S = q.shape[1]
     ck[:, step.start:step.start + S] = k
     cv[:, step.start:step.start + S] = v
+    if impl is not None:
+        extra = {}
+        if alibi is not None and step.key_positions is not None:
+            _require_impl_kwarg(impl, "key_positions",
+                                "ragged alibi decode")
+            extra["key_positions"] = step.key_positions
+        return _impl_call(impl, alibi, plain, **extra)(
+            q, ck, cv, _impl_dense_mask(step, S, ck.shape[1]), causal=False)
     if step.mode == "decode":
         decode = reference_decode_attention if plain else decode_attention
         return decode(q[:, 0], ck, cv, step.mask, alibi=alibi,
@@ -756,17 +830,23 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
                   cfg.norm_eps, plain)
     alibi = (_alibi_table(cfg.num_heads, x.device)
              if cfg.position == "alibi" else None)
+    impl = cfg.attention_impl
+    if alibi is not None and impl is not None:
+        _require_impl_kwarg(impl, "alibi",
+                            "position='alibi' models (BLOOM) — silently "
+                            "dropping the alibi bias would change the model")
     if paged:
         step = _paged_step(block_table, positions, cache["k"].shape[2],
                            paged_write_mask, paged_chunk)
         positions = step.positions
         attention = partial(_paged_attention, step=step,
-                            paged_impl=paged_impl, alibi=alibi, plain=plain)
+                            paged_impl=paged_impl, alibi=alibi, plain=plain,
+                            impl=impl)
     else:
         step = _dense_step(S, B, cache, attention_mask, start_pos,
                            key_positions, dev)
         attention = partial(_dense_attention, step=step, alibi=alibi,
-                            plain=plain)
+                            plain=plain, impl=impl, causal=cfg.causal)
     rope = (rope_table(positions, cfg.rotary_dim or cfg.head_dim,
                        cfg.rope_theta) if cfg.position == "rope" else None)
     for li, layer in enumerate(_layer_views(params["layers"],

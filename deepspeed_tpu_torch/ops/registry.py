@@ -50,6 +50,10 @@ KERNELS: Dict[str, str] = {
     "int8_a8_matmul": "quant_matmul",
     "int4_matmul": "quant_matmul",
     "int4_a8_matmul": "quant_matmul",
+    "block_sparse_attention_fwd": "block_sparse_attention",
+    "block_sparse_attention_bwd_dq": "block_sparse_attention",
+    "block_sparse_attention_bwd_dkv": "block_sparse_attention",
+    "fused_lamb": "fused_lamb",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -145,8 +149,8 @@ def check_launch(name: str, err: int) -> None:
 
 def op_report() -> str:
     """Kernel / source / launches / library-built table."""
-    lines = [f"{'kernel':<28}{'source':<32}{'launches':<10}built", "-" * 76]
+    lines = [f"{'kernel':<32}{'source':<36}{'launches':<10}built", "-" * 84]
     for name, src in KERNELS.items():
-        lines.append(f"{name:<28}{'csrc/' + src + '.cu':<32}"
+        lines.append(f"{name:<32}{'csrc/' + src + '.cu':<36}"
                      f"{_launches[name]:<10}{'yes' if src in _libs else 'no'}")
     return "\n".join(lines)

@@ -13,7 +13,8 @@ eager PyTorch:
                          grad buffer, in fp32 across micro-batches (16-bit
                          grads are added into an fp32 buffer after each)
   update              -- ``MixedPrecisionOptimizer.apply``: one fused Adam
-                         launch over the flat fp32 master, with the clip
+                         (or LAMB phase-1) launch over the flat fp32
+                         master, with the clip
                          coefficient, the fp16 unscale and the overflow skip
                          as device scalars
   fp16                -- the dynamic loss scale lives on the device
@@ -27,7 +28,7 @@ same trajectory) and are accepted. Not ported yet (they raise):
 checkpointing (``save_checkpoint``, ``load_checkpoint``,
 ``save_16bit_model``), offload, world size > 1, activation checkpointing,
 dropout / progressive layer drop / random-LTD, compression, curriculum,
-observability, and optimizers other than the Adam family.
+observability, and optimizers other than the Adam family and LAMB.
 """
 
 from __future__ import annotations

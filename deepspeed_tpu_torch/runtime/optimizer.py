@@ -1,4 +1,4 @@
-"""The mixed-precision Adam / AdamW optimizer over one flat buffer.
+"""The mixed-precision Adam / AdamW / LAMB optimizer over one flat buffer.
 
 Counterpart of ``deepspeed_tpu/runtime/optimizer.py``: ``build_optimizer``
 turns the config's ``optimizer`` section into a ``MixedPrecisionOptimizer``
@@ -28,9 +28,17 @@ reach it as a device scalar and the overflow as a device flag, so the host
 never waits on the card. The host learns whether an fp16 step was skipped
 at the next step, from a copy of the flag that has long landed by then.
 
-The other optimizer types of the JAX package (lamb, adagrad, sgd, lion and
-the onebit / zero-one families) raise ``NotImplementedError``; LAMB waits
-for its kernel (``fused_lamb``).
+``lamb`` follows ``optax.lamb`` as the JAX engine builds it (JAX
+:172-173): the Adam update above (bias-corrected, eps default 1e-8), plus
+``wd * p`` on every leaf, then a trust ratio ``||p|| / ||u||`` per leaf
+(per stacked leaf: all layers' ``wq`` are one leaf), set to 1 where either
+norm is 0 and not clamped, and ``p -= lr * ratio * u``; clipping, the fp16
+skip and the two counts as for Adam. One launch of the LAMB phase-1 kernel
+(``ops/fused_lamb.py``) covers the whole model, over a block plan whose
+blocks never straddle a leaf; phase 2 is one in-place torch op per leaf.
+
+The other optimizer types of the JAX package (onebitlamb, adagrad, sgd,
+lion and the onebit / zero-one families) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,11 +51,12 @@ import torch
 from ..config.config import Config
 from ..models.core import tree_leaves, tree_map
 from ..ops.fused_adam import fused_adam_flat, reference_adam_flat
+from ..ops.fused_lamb import LambSegments, lamb_step
 from ..utils.logging import logger
 from .lr_schedules import as_schedule_fn, build_lr_schedule
 
 _LOW = (torch.bfloat16, torch.float16)
-_PORTED = ("adam", "adamw", "fusedadam")
+_PORTED = ("adam", "adamw", "fusedadam", "lamb")
 
 
 class StepStats(NamedTuple):
@@ -74,8 +83,9 @@ def flat_views(flat: torch.Tensor, like: Any) -> Any:
 class OptimizerState:
     """Flat buffers: ``param_flat`` / ``grad_flat`` (n,) of the compute
     dtype, whose views are ``params`` / ``grads``; ``master`` (n,) fp32
-    when the params are 16-bit; the Adam moments (n,) fp32. ``count``:
-    steps attempted (JAX's outer count); ``inner_count``: steps applied."""
+    when the params are 16-bit; the Adam moments (n,) fp32; for LAMB the
+    update buffer (n,) fp32 and the leaves' block plan. ``count``: steps
+    attempted (JAX's outer count); ``inner_count``: steps applied."""
 
     params: Any
     param_flat: torch.Tensor
@@ -87,6 +97,8 @@ class OptimizerState:
     count: int = 0
     inner_count: int = 0
     pending_skip: Optional[Tuple[torch.Tensor, Any]] = None
+    lamb_update: Optional[torch.Tensor] = None
+    segments: Optional[LambSegments] = None
 
     @property
     def n(self) -> int:
@@ -94,15 +106,16 @@ class OptimizerState:
 
 
 class MixedPrecisionOptimizer:
-    """Adam / AdamW with fp32 master weights, global-norm clipping and the
-    fp16 skip (see the module docstring). ``plain`` runs the Adam kernel's
-    plain version on any device: the reference the kernel is held
-    against."""
+    """Adam / AdamW, or LAMB with ``lamb``, with fp32 master weights,
+    global-norm clipping and the fp16 skip (see the module docstring).
+    ``plain`` runs the kernels' plain versions on any device: the reference
+    the kernels are held against."""
 
     def __init__(self, lr_schedule: Any = 1e-3, grad_clip: float = 0.0,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, adam_w_mode: bool = True,
-                 keep_master_weights: bool = True, plain: bool = False):
+                 keep_master_weights: bool = True, plain: bool = False,
+                 lamb: bool = False):
         self.lr_schedule: Callable = as_schedule_fn(lr_schedule)
         self.grad_clip = grad_clip
         self.betas = (float(betas[0]), float(betas[1]))
@@ -111,6 +124,7 @@ class MixedPrecisionOptimizer:
         self.adam_w_mode = bool(adam_w_mode)
         self.keep_master_weights = keep_master_weights
         self.plain = plain
+        self.lamb = lamb
 
     def init(self, params: Any) -> OptimizerState:
         """Copy ``params`` (one floating dtype, one device) into a flat
@@ -141,11 +155,18 @@ class MixedPrecisionOptimizer:
                 view.grad = g
         master = (param_flat.float() if self.keep_master_weights
                   and dtype in _LOW else None)
+        lamb = {}
+        if self.lamb:
+            lamb = dict(
+                lamb_update=torch.zeros(n, dtype=torch.float32, device=dev),
+                segments=LambSegments.from_sizes([t.numel()
+                                                  for t in leaves]))
         return OptimizerState(
             params=views, param_flat=param_flat, grads=grads,
             grad_flat=grad_flat, master=master,
             exp_avg=torch.zeros(n, dtype=torch.float32, device=dev),
-            exp_avg_sq=torch.zeros(n, dtype=torch.float32, device=dev))
+            exp_avg_sq=torch.zeros(n, dtype=torch.float32, device=dev),
+            **lamb)
 
     @staticmethod
     def _drain(state: OptimizerState) -> None:
@@ -192,19 +213,26 @@ class MixedPrecisionOptimizer:
             scale = coef if scale is None else scale * coef
         target = state.master if state.master is not None else state.param_flat
         if target.dtype != torch.float32:
-            raise ValueError("Adam keeps fp32 params: 16-bit params need "
-                             "keep_master_weights")
-        adam = reference_adam_flat if self.plain else fused_adam_flat
-        adam(target, grads, state.exp_avg, state.exp_avg_sq,
-             state.inner_count + 1,
-             lr=float(self.lr_schedule(state.inner_count)),
-             beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
-             weight_decay=self.weight_decay, bias_correction=True,
-             adam_w_mode=self.adam_w_mode,
-             param_copy=state.param_flat if state.master is not None else None,
-             grad_scale=(scale.reshape(1).float() if scale is not None
-                         else None),
-             skip=skip.reshape(1) if skip is not None else None)
+            raise ValueError("Adam and LAMB keep fp32 params: 16-bit params "
+                             "need keep_master_weights")
+        kw = dict(lr=float(self.lr_schedule(state.inner_count)),
+                  beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
+                  weight_decay=self.weight_decay, bias_correction=True,
+                  param_copy=(state.param_flat if state.master is not None
+                              else None),
+                  grad_scale=(scale.reshape(1).float() if scale is not None
+                              else None),
+                  skip=skip.reshape(1) if skip is not None else None)
+        if self.lamb:
+            # optax.lamb: per-leaf trust ratio, no clamp
+            lamb_step(target, grads, state.exp_avg, state.exp_avg_sq,
+                      state.lamb_update, state.segments,
+                      state.inner_count + 1, max_coeff=float("inf"),
+                      min_coeff=0.0, plain=self.plain, **kw)
+        else:
+            adam = reference_adam_flat if self.plain else fused_adam_flat
+            adam(target, grads, state.exp_avg, state.exp_avg_sq,
+                 state.inner_count + 1, adam_w_mode=self.adam_w_mode, **kw)
         lr = float(self.lr_schedule(state.count))
         state.count += 1
         if skip is None:
@@ -244,9 +272,12 @@ def build_optimizer(config: Config,
                    else params.get("adam_w_mode", name != "adam"))
     logger.info(f"Built optimizer '{config.optimizer.type}' "
                 f"(grad_clip={config.gradient_clipping})")
+    # lamb: DeepSpeed's FusedLamb keys max_coeff / min_coeff /
+    # bias_correction are ignored, as the JAX engine's optax.lamb ignores
+    # them (no clamp, bias correction always on)
     return MixedPrecisionOptimizer(
         lr_schedule, grad_clip=config.gradient_clipping,
         betas=tuple(params.get("betas", (0.9, 0.999))),
         eps=params.get("eps", 1e-8),
         weight_decay=params.get("weight_decay", 0.0),
-        adam_w_mode=adam_w_mode)
+        adam_w_mode=adam_w_mode, lamb=name == "lamb")

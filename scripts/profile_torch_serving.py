@@ -9,8 +9,10 @@ weights) ``serve`` (8 greedy requests of 32 new tokens through the
 right-padded prompts of 64..500 tokens, 32 greedy new tokens, after one
 unprofiled warm-up call); and ``train``:
 OPT-1.3B at full size, 3 ``train_batch`` steps of ``chip_smoke``'s train
-phase (bf16, micro batch 4 x 1024 tokens) after one warm-up step. Prints one
-JSON line per scenario:
+phase (bf16, micro batch 4 x 1024 tokens, AdamW) after one warm-up step, or
+``sparse_train``: the same for its sparse_train phase (the Fixed sparse
+layout, LAMB, micro batch 2 x 2048 tokens). Prints one JSON line per
+scenario:
 
 * ``wall_ms`` — host wall time of the profiled scenario (ends in a sync;
   the profiler's own host-side cost is inside it);
@@ -24,7 +26,7 @@ JSON line per scenario:
   for ``train``.
 
     python3 scripts/profile_torch_serving.py
-        [--scenario serve|generate|both|train]
+        [--scenario serve|generate|both|train|sparse_train]
         [--dtype bf16|int8|int4|w8a8|w4a8] [--trace PATH]
 
 ``--trace`` also writes the Chrome trace (of the last scenario). Needs one
@@ -49,7 +51,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 PORT_KERNELS = ("ln_fwd_kernel", "paged_decode_kernel", "paged_prefill_kernel",
                 "paged_prefill_mma_kernel", "flash_fwd_kernel",
                 "flash_fwd_mma_kernel", "decode_kernel", "flash_bwd_dq",
-                "flash_bwd_dkv", "adam_kernel", "quant_matmul_kernel")
+                "flash_bwd_dkv", "adam_kernel", "quant_matmul_kernel",
+                "sparse_fwd", "sparse_dq", "sparse_dkv",
+                "lamb_phase1_kernel")
 TRAIN_STEPS = 3
 
 
@@ -109,7 +113,8 @@ def main(argv) -> int:
     scenario = (argv[argv.index("--scenario") + 1] if "--scenario" in argv
                 else "serve")
     dtype = argv[argv.index("--dtype") + 1] if "--dtype" in argv else "bf16"
-    if scenario not in ("serve", "generate", "both", "train"):
+    if scenario not in ("serve", "generate", "both", "train",
+                        "sparse_train"):
         print(f"profile_torch_serving: unknown scenario {scenario}",
               file=sys.stderr)
         return 1
@@ -119,8 +124,8 @@ def main(argv) -> int:
         return 1
     smi = chip_smoke.nvidia_smi()
     results = []
-    if scenario == "train":
-        return profile_train(smi, trace)
+    if scenario in ("train", "sparse_train"):
+        return profile_train(smi, trace, scenario == "sparse_train")
     srv, _ = chip_smoke.make_server(
         torch.bfloat16 if dtype == "bf16" else dtype)
     if scenario in ("serve", "both"):
@@ -161,11 +166,13 @@ def main(argv) -> int:
     return 0
 
 
-def profile_train(smi: str, trace) -> int:
+def profile_train(smi: str, trace, sparse: bool) -> int:
     import chip_smoke
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    engine, batch, _ = chip_smoke.make_trainer(torch.device("cuda"))
+    phase = "sparse_train" if sparse else "train"
+    spec = chip_smoke.TRAINS[phase]
+    engine, batch, _ = chip_smoke.make_trainer(torch.device("cuda"), phase)
     engine.train_batch(batch=batch)                   # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -182,9 +189,11 @@ def profile_train(smi: str, trace) -> int:
         return 1
     if trace:
         prof.export_chrome_trace(trace)
+    what = (f"{phase}: opt-1.3b bf16, micro batch {spec['B']} x {spec['S']}"
+            " tokens, " + ("Fixed sparse layout, LAMB" if sparse
+                           else "AdamW"))
     print(json.dumps(dict(
-        card=smi, scenario="chip_smoke train: opt-1.3b bf16, micro batch "
-        f"{chip_smoke.TRAIN_B} x {chip_smoke.TRAIN_S} tokens, AdamW",
+        card=smi, scenario=f"chip_smoke {what}",
         steps=TRAIN_STEPS, losses=[float(x) for x in losses],
         step_ms=wall * 1e3 / TRAIN_STEPS, **out)), flush=True)
     return 0

@@ -22,7 +22,12 @@ type times the sum of its terms' magnitudes (``BWD_ROUND``); fused Adam
 1e-6 + 1e-5 relative (the same fp32 arithmetic, FMA-contracted). The
 quantized decode GEMMs (int8 / int4, weight-only and a8) run at small shapes
 and at llama-7b's decode sites against the same fp32 / bf16 tolerances (the
-a8 integer parts are exact, so only the fp32 scaling differs).
+a8 integer parts are exact, so only the fp32 scaling differs). The
+block-sparse kernels (forward, dq, dkv) run over DeepSpeed's layouts and
+over layouts with a key-less q-tile, padded list slots and asymmetric
+per-head masks, causal and not, against their plain versions with the
+flash tolerances; the LAMB phase-1 kernel against its plain version with
+the Adam tolerances, over segments that start unaligned.
 """
 
 import numpy as np
@@ -44,7 +49,16 @@ from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
                                      reference_flash_attention_bwd,
                                      reference_layer_norm,
                                      reference_paged_attention)
-from deepspeed_tpu_torch.ops import quant_matmul
+from deepspeed_tpu_torch.ops import (LambSegments, block_sparse_attention,
+                                     block_sparse_attention_bwd_dkv,
+                                     block_sparse_attention_bwd_dq,
+                                     block_sparse_attention_bwd_magnitude,
+                                     block_sparse_attention_fwd,
+                                     build_tile_plan, lamb_phase1, lamb_step,
+                                     reference_block_sparse_attention,
+                                     reference_block_sparse_attention_bwd,
+                                     reference_lamb_phase1)
+from deepspeed_tpu_torch.ops import quant_matmul, sparse_attention
 from deepspeed_tpu_torch.ops.quant_matmul import quantize_int4
 
 pytestmark = pytest.mark.cuda
@@ -616,3 +630,180 @@ def test_quant_matmul_rejects_bad_operands(dev):
         quant_matmul.int4_matmul(x, q, s)
     with pytest.raises(ValueError, match="contiguous"):
         quant_matmul.int8_matmul(x, q.t().contiguous().t(), s)
+
+
+# ---------------------------------------------------------------------------
+# block-sparse attention (forward, dq, dkv) and the LAMB phase-1 kernel
+# ---------------------------------------------------------------------------
+
+
+def sparse_layout(kind, N, S):
+    """(layout (N, S/16, S/16), fine block, causal) of a named case: the
+    path's Fixed layout, a sliding window, BSLongformer (global row and
+    column: transposed lists wider than the forward's), per-head BigBird,
+    a layout with a key-less q-tile, and a random asymmetric per-head
+    layout (the dkv kernel must read the q-major masks untransposed)."""
+    n = S // 16
+    if kind == "fixed":
+        cfg = sparse_attention.FixedSparsityConfig(num_heads=N, block=16)
+        return cfg.make_layout(S), 16, True
+    if kind == "window":
+        cfg = sparse_attention.LocalSlidingWindowSparsityConfig(
+            num_heads=N, block=16, num_sliding_window_blocks=3)
+        return cfg.make_layout(S), 16, True
+    if kind == "longformer":
+        cfg = sparse_attention.BSLongformerSparsityConfig(num_heads=N,
+                                                          block=16)
+        return cfg.make_layout(S), 16, False
+    if kind == "bigbird_heads":
+        cfg = sparse_attention.BigBirdSparsityConfig(
+            num_heads=N, block=32, different_layout_per_head=True,
+            num_random_blocks=2)
+        return cfg.make_layout(S), 32, False
+    rng = np.random.default_rng(S + N)
+    layout = (rng.uniform(size=(N, n, n)) < 0.15).astype(np.int64)
+    if kind == "empty_tile":
+        layout[:, :8, :] = 0          # q-tile 0: no active k-tile
+        return layout, 16, False
+    assert kind == "asym"
+    return layout, 16, False
+
+
+SPARSE_KINDS = ["fixed", "window", "longformer", "bigbird_heads",
+                "empty_tile", "asym"]
+# (B, S, N, D): small shapes over the MMA head sizes and the CUDA-core
+# fallback (D 48); the path's shape is held by chip_smoke.py
+SPARSE_SHAPES = [(2, 256, 4, 64), (1, 384, 2, 128), (2, 256, 2, 32),
+                 (1, 256, 2, 48)]
+
+
+@pytest.mark.parametrize("kind", SPARSE_KINDS)
+@pytest.mark.parametrize("B,S,N,D", SPARSE_SHAPES)
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_block_sparse_matches_plain(dev, kind, B, S, N, D, dtype, atol):
+    layout, block, causal = sparse_layout(kind, N, S)
+    plan = build_tile_plan(layout, block, S)
+    rng = np.random.default_rng(S + D + N)
+    q, k, v, do = (t(rng.normal(size=(B, S, N, D)), dev, dtype)
+                   for _ in range(4))
+    for c in sorted({causal, not causal}):
+        before = launch_counts()
+        o, lse = block_sparse_attention_fwd(q, k, v, plan, c)
+        ro, rlse = reference_block_sparse_attention(q, k, v, plan, c)
+        delta = attention_delta(ro, do)
+        dq = block_sparse_attention_bwd_dq(q, k, v, do, rlse, delta, plan, c)
+        dk, dv = block_sparse_attention_bwd_dkv(q, k, v, do, rlse, delta,
+                                                plan, c)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        for name in ("block_sparse_attention_fwd",
+                     "block_sparse_attention_bwd_dq",
+                     "block_sparse_attention_bwd_dkv"):
+            assert after[name] == before[name] + 1
+        torch.testing.assert_close(o.float(), ro.float(), atol=atol,
+                                   rtol=atol)
+        live = torch.isfinite(rlse)
+        assert torch.equal(torch.isfinite(lse), live)
+        torch.testing.assert_close(lse[live], rlse[live], atol=atol,
+                                   rtol=atol)
+        if kind == "empty_tile":
+            assert (o[:, :128] == 0).all() and (dq[:, :128] == 0).all()
+        refs = reference_block_sparse_attention_bwd(q, k, v, ro, rlse, do,
+                                                    plan, c)
+        mags = block_sparse_attention_bwd_magnitude(q, k, v, ro, rlse, do,
+                                                    plan, c)
+        for got, ref, mag in zip((dq, dk, dv), refs, mags):
+            assert torch.isfinite(got).all()
+            diff = (got.float() - ref.float()).abs()
+            bound = atol + atol * ref.float().abs() + BWD_ROUND[dtype] * mag
+            assert bool((diff <= bound).all()), float((diff - bound).max())
+
+
+@pytest.mark.parametrize("dtype,atol", LOW)
+def test_block_sparse_autograd_matches_plain(dev, dtype, atol):
+    """Gradients through ``block_sparse_attention`` (forward kernel, then
+    the dq and dkv kernels) equal those of ``plain=True``."""
+    N, S, D = 4, 256, 64
+    layout, block, causal = sparse_layout("fixed", N, S)
+    plan = build_tile_plan(layout, block, S)
+    rng = np.random.default_rng(7)
+    arrays = [rng.normal(size=(2, S, N, D)) for _ in range(3)]
+    do = t(rng.normal(size=(2, S, N, D)), dev, dtype)
+    grads = []
+    for plain in (False, True):
+        leaves = [t(a, dev, dtype).requires_grad_() for a in arrays]
+        block_sparse_attention(*leaves, plan, causal, plain=plain
+                               ).backward(do)
+        grads.append([x.grad for x in leaves])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=atol)
+
+
+def test_block_sparse_rejects_bad_operands(dev):
+    layout, block, _ = sparse_layout("fixed", 2, 256)
+    plan = build_tile_plan(layout, block, 256)
+    q = torch.zeros(1, 256, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no GQA"):
+        block_sparse_attention_fwd(q, q[:, :, :1].contiguous(),
+                                   q[:, :, :1].contiguous(), plan)
+    with pytest.raises(ValueError, match="plan"):
+        block_sparse_attention_fwd(q[:, :128].contiguous(),
+                                   q[:, :128].contiguous(),
+                                   q[:, :128].contiguous(), plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+        block_sparse_attention_fwd(qt, q, q, plan)
+
+
+@pytest.mark.parametrize("sizes", [[1 << 20], [5, 8193, 3, 40000, 1],
+                                   [2048 * 2048 * 3 + 7, 2048]])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16,
+                                        torch.float16])
+@pytest.mark.parametrize("extras", [False, True])
+def test_lamb_phase1_matches_plain(dev, sizes, grad_dtype, extras):
+    """The phase-1 kernel against its plain version over segments whose
+    starts are not 4-element aligned (their blocks take the scalar path),
+    then the whole step with its 16-bit copy."""
+    seg = LambSegments.from_sizes(sizes)
+    n = seg.n
+    rng = np.random.default_rng(n)
+    p, m = (t(rng.normal(size=n), dev, torch.float32) for _ in range(2))
+    v = t(rng.uniform(0, 1, n), dev, torch.float32)
+    g = t(rng.normal(size=n), dev, grad_dtype)
+    kw = dict(weight_decay=0.01)
+    if extras:
+        kw.update(grad_scale=torch.tensor([0.37], device=dev),
+                  skip=torch.tensor([False], device=dev))
+    bufs = [[x.clone() for x in (p, m, v, torch.zeros_like(p))]
+            for _ in range(2)]
+    before = launch_counts()["fused_lamb"]
+    part = lamb_phase1(bufs[0][0], g, *bufs[0][1:], seg, 3, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_lamb"] == before + 1
+    ref = reference_lamb_phase1(bufs[1][0], g, *bufs[1][1:], seg, 3, **kw)
+    for a, b in zip(bufs[0][1:], bufs[1][1:]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(part, ref, atol=1e-3, rtol=1e-5)
+    copies = [torch.empty(n, dtype=torch.bfloat16, device=dev)
+              for _ in range(2)]
+    ratios = [lamb_step(b[0], g, *b[1:], seg, 4, 1e-2, param_copy=c,
+                        plain=i == 1, **kw)
+              for i, (b, c) in enumerate(zip(bufs, copies))]
+    torch.testing.assert_close(ratios[0], ratios[1], atol=0, rtol=1e-5)
+    torch.testing.assert_close(bufs[0][0], bufs[1][0], atol=1e-6, rtol=1e-5)
+    for b, c in zip(bufs, copies):       # each copy: its own params rounded
+        assert torch.equal(c, b[0].bfloat16())
+
+
+def test_lamb_skip_writes_nothing(dev):
+    seg = LambSegments.from_sizes([4099, 77])
+    p, g, m = (torch.randn(seg.n, device=dev) for _ in range(3))
+    v, u = torch.rand(seg.n, device=dev), torch.randn(seg.n, device=dev)
+    copy = p.bfloat16()
+    snap = [x.clone() for x in (p, m, v, copy)]
+    lamb_step(p, g, m, v, u, seg, 1, 1e-2, param_copy=copy,
+              skip=torch.tensor([True], device=dev))
+    for a, b in zip((p, m, v, copy), snap):
+        assert torch.equal(a, b)
+    assert (u == 0).all()

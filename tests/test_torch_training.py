@@ -418,7 +418,7 @@ def test_unported_engine_features_raise():
         initialize(model=create_model("tiny", dtype=torch.float32,
                                       dropout=0.1),
                    config=_config(), device="cpu")
-    for extra in ({"optimizer": {"type": "lamb"}},
+    for extra in ({"optimizer": {"type": "lion"}},
                   {"parallel": {"tensor_parallel_size": 2}},
                   {"zero_optimization": {"stage": 2, "offload_optimizer":
                                          {"device": "cpu"}}},
