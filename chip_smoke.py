@@ -87,17 +87,39 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    update within E2E_SPARSE_TRAIN_TOL; ``scripts/lamb_parity_faults.py``
    reads the same measures with faults planted in the kernel path's LAMB).
 
+14. ``spatial`` — the Stable Diffusion v1.5 VAE decoder's mid block
+   (resnet -> attention -> resnet) at full width: a 64 x 64 latent of 512
+   channels, 32 groups, eps 1e-6, batch 4, seeded bf16 weights (10.5 M
+   parameters): a warm-up, then 5 timed calls with exact launch counts (5
+   ``fused_group_norm`` and 1 ``flash_attention``, head_dim 512, a call).
+   The output must be finite and within SPATIAL_TOL of the plain path.
+   Prints ms a call, latents/s, the share of the bf16 peak at its FLOPs and
+   peak memory.
+15. ``e2e_spatial_parity`` — the same block in fp32 on a 16 x 16 latent, B
+   2: the kernel path against ``plain=True`` within E2E_TOL.
+16. ``quantize`` — ``fake_quantize`` (int8, groups of 128) over every
+   weight leaf of OPT-1.3B in bf16 under autograd: one quantize launch a
+   leaf, the gradient passed through bit for bit, |deq - w| within half a
+   scale plus one bf16 ulp; then int4 ``quantize_symmetric`` over the same
+   leaves, bit-equal to its plain version.
+
 The ``kernels`` phase also holds the three block-sparse kernels at the
 sparse_train shape (B 2, S 2048, 32 heads of 64) for the Fixed, sliding
 window and BSLongformer layouts, and at small shapes with a key-less q-tile
 and with BigBird's per-head layouts, beside the port's flash kernels at the
-same shape; and the LAMB phase-1 kernel on a flat buffer of 64 Mi elements
-and segmented over OPT-1.3B's leaves (1.3 B elements).
+same shape; the LAMB phase-1 kernel on a flat buffer of 64 Mi elements
+and segmented over OPT-1.3B's leaves (1.3 B elements); the GroupNorm
+kernel at the mid block's shape and JAX's test shapes (``F.group_norm`` as
+yardstick) and on 300 + 0.01 N(0, 1) against float64; group quantization,
+bit for bit, over OPT-1.3B's 1.316 B bf16 parameters and 64 Mi elements;
+and the flash forward at head_dim 512 (the mid block's self attention,
+cross attention over 77 keys; SDPA as yardstick).
 
 Then one ``{"kernels": [...]}`` line (``launches``: each kernel's count over
 the serve run, the first generate call, the first call of each quantized
-mode, the int8 serve run, the 5 timed train steps and the 5 timed
-sparse_train steps), the nvidia-smi line, and as the last line ``{"ok":
+mode, the int8 serve run, the 5 timed train steps, the 5 timed
+sparse_train steps, the 5 timed spatial calls and the quantize phase's
+fake_quantize pass), the nvidia-smi line, and as the last line ``{"ok":
 true, "device": {...}}``. Each phase's line carries ``at_s``, the seconds
 since the start, and the ``kernels`` phase's line the seconds each group
 of cases took.
@@ -124,6 +146,7 @@ from deepspeed_tpu_torch.inference.kv_cache import (cache_memory_bytes,
 from deepspeed_tpu_torch.models import (Model, create_model, is_quantized,
                                         param_count, tree_bytes)
 from deepspeed_tpu_torch.models.core import tree_leaves
+from deepspeed_tpu_torch.models.spatial import init_mid_block, mid_block
 from deepspeed_tpu_torch.models.presets import transformer_config
 from deepspeed_tpu_torch.models.transformer import (_quantize_int8,
                                                     alibi_slopes, forward,
@@ -153,6 +176,10 @@ from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
                                      reference_layer_norm,
                                      reference_paged_attention,
                                      reset_launch_counts)
+from deepspeed_tpu_torch.ops import (fake_quantize, fused_group_norm,
+                                     quantize_symmetric,
+                                     reference_group_norm,
+                                     reference_quantize_symmetric)
 from deepspeed_tpu_torch.ops import registry
 from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
 from deepspeed_tpu_torch.serving import ServingConfig, init_serving
@@ -261,6 +288,10 @@ SOURCES = {
         "deepspeed_tpu/ops/block_sparse_attention.py:360"),
     "fused_lamb": ("deepspeed_tpu_torch/csrc/fused_lamb.cu",
                    "deepspeed_tpu/ops/fused_lamb.py:82"),
+    "quantize_symmetric": ("deepspeed_tpu_torch/csrc/quantization.cu",
+                           "deepspeed_tpu/ops/quantization.py:44"),
+    "fused_group_norm": ("deepspeed_tpu_torch/csrc/group_norm.cu",
+                         "deepspeed_tpu/ops/spatial.py:101"),
 }
 # the quantized inference modes and the decode GEMM each one runs
 QUANT_MODES = {"int8": "int8_matmul", "w8a8": "int8_a8_matmul",
@@ -300,6 +331,35 @@ SPARSE_TRAIN_KERNELS = {"block_sparse_attention_fwd": 24,
 # sequential sum) within LAMB_SUM_RTOL of themselves.
 LAMB_SUM_RTOL = 1e-5
 STALE = 1e4        # dense arena slots outside every mask: large and finite
+# The Stable Diffusion v1.5 VAE decoder's mid block (diffusers AutoencoderKL
+# of runwayml/stable-diffusion-v1-5, vae/: block_out_channels [128, 256,
+# 512, 512], norm_num_groups 32, resnet eps 1e-6, one attention head as wide
+# as the channels) on the 64 x 64 latent of a 512 x 512 image, batch 4
+SPATIAL = dict(B=4, latent=64, C=512, groups=32, eps=1e-6)
+SPATIAL_CALLS = 5
+# per mid block call: 5 group norms (2 per resnet block, 1 in attention),
+# one flash forward (the single head of 512)
+SPATIAL_KERNELS = {"fused_group_norm": 5, "flash_attention": 1}
+# bf16 kernel path vs the plain path after 4 convs and an attention over
+# 4096 keys, each rounding to bf16 in other places: relative to the
+# output's largest magnitude
+SPATIAL_TOL = 5e-2
+# GroupNorm cases: the mid block's shape, then JAX's test shapes
+# (tests/kernels/test_spatial.py:18)
+GN_SHAPES = [("vae_mid", 4, 4096, 512, 32), ("jax_a", 2, 256, 64, 8),
+             ("jax_b", 1, 1024, 96, 12), ("jax_c", 3, 640, 128, 32)]
+GN_EPS = 1e-6
+QUANT_N = 1 << 26  # the quantize cases' second size (64 Mi elements)
+# the flash forward at head_dim 512 (non-causal, N 1): (case, dtype, B, S, T)
+FLASH_WIDE = [("vae_mid", torch.bfloat16, 4, 4096, 4096),
+              ("vae_mid", torch.float32, 2, 1024, 1024),
+              ("cross", torch.bfloat16, 2, 1024, 77),
+              ("cross", torch.float32, 2, 1024, 77)]
+# 300 + 0.01 N(0, 1) in fp32 against float64: an fp32 mean of values near
+# 300 may be off by an ulp there (3e-5, 0.3% of the std), which the
+# normalisation scales by 1 / std = 100 (~3e-3); a one-pass variance gives
+# NaN or errors of order 1
+GN_STRESS_TOL = 1e-2
 
 
 def nvidia_smi() -> str:
@@ -1189,6 +1249,170 @@ def lamb_cases(dev, gen):
     return results
 
 
+def group_norm_cases(dev, gen):
+    """fused_group_norm at the SD v1.5 VAE mid block's shape (B 4, a 64 x
+    64 latent, C 512, 32 groups, eps 1e-6) and at JAX's test shapes, in bf16
+    and fp32, on x = 3 N(0, 1) + 1; then the stress input 300 + 0.01 N(0,
+    1) in fp32 at the path's shape, held against a float64 computation
+    (finite, within GN_STRESS_TOL). Yardstick: ``F.group_norm`` on the
+    channels-last (B, C, HW, 1) view."""
+    results = []
+    for case, B, HW, C, G in GN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (3 * torch.randn(B, HW, C, generator=gen, device=dev) + 1
+                 ).to(dtype)
+            scale = (1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+                     ).to(dtype)
+            bias = (0.1 * torch.randn(C, generator=gen, device=dev)
+                    ).to(dtype)
+            got = fused_group_norm(x, scale, bias, G, eps=GN_EPS)
+            ref = reference_group_norm(x, scale, bias, G, eps=GN_EPS)
+            err = check(f"fused_group_norm {case} {dtype}", got, ref,
+                        TOL[dtype])
+            item = x.element_size()
+            b_ms, b_by = bound_ms((2 * x.numel() + 2 * C) * item,
+                                  8.0 * x.numel(), FP32_FLOPS)
+            view = x.permute(0, 2, 1).unsqueeze(-1)       # (B, C, HW, 1)
+            results.append(dict(
+                case=case, B=B, HW=HW, C=C, G=G, dtype=str(dtype),
+                max_abs_err=err, tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+                ms=time_ms(lambda: fused_group_norm(x, scale, bias, G,
+                                                    eps=GN_EPS)),
+                plain_ms=time_ms(lambda: reference_group_norm(
+                    x, scale, bias, G, eps=GN_EPS), iters=4, reps=5),
+                library_ms=time_ms(lambda: torch.nn.functional.group_norm(
+                    view, G, scale, bias, GN_EPS)),
+                library="F.group_norm, channels-last view",
+                bound_ms=b_ms, bound_by=b_by))
+    case, B, HW, C, G = GN_SHAPES[0]
+    x = 300 + 0.01 * torch.randn(B, HW, C, generator=gen, device=dev)
+    got = fused_group_norm(x, torch.ones(C, device=dev),
+                           torch.zeros(C, device=dev), G)
+    xg = x.double().reshape(B, HW, G, C // G)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    want = ((xg - mean) / torch.sqrt(var + 1e-5)).reshape(B, HW, C)
+    err = max_err(got, want)
+    if not (bool(torch.isfinite(got).all()) and err <= GN_STRESS_TOL):
+        raise AssertionError(f"fused_group_norm stress: max abs error {err} "
+                             f"against float64 (limit {GN_STRESS_TOL})")
+    results.append(dict(case="stress_300", B=B, HW=HW, C=C, G=G,
+                        dtype="float64 reference", max_abs_err=err,
+                        tol=GN_STRESS_TOL))
+    return results
+
+
+def quant_input(dev, gen, n: int, group: int, bits: int, dtype):
+    """``n`` N(0, 1) values in ``dtype`` whose first group is zeros and
+    whose second group holds exact .5 ties of x / scale (its absmax is
+    qmax, so its scale is 1)."""
+    x = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+    qmax = 2 ** (bits - 1) - 1
+    tie = torch.arange(group, device=dev) % (2 * qmax) - qmax + 0.5
+    tie[-1] = qmax
+    x[:group] = 0
+    x[group:2 * group] = tie.to(dtype)
+    return x
+
+
+def quantize_cases(dev, gen):
+    """quantize_symmetric against its plain version, bit for bit in q and
+    the scales: over OPT-1.3B's 1.316 B bf16 parameters in groups of 128,
+    int8 (the main case) and int4; and over 64 Mi elements in bf16 and
+    fp32, int8 and int4, groups of 64 and 128; each input with a zero group
+    and a group of exact .5 ties. No single PyTorch call computes per-group
+    symmetric quantization, so there is no library time."""
+    n_opt = sum(opt_leaf_sizes(dev))
+    specs = [("opt-1.3b", n_opt, 128, bits, torch.bfloat16) for bits in (8, 4)]
+    specs += [("64Mi", QUANT_N, g, bits, dtype) for dtype in
+              (torch.bfloat16, torch.float32) for bits in (8, 4)
+              for g in (128, 64)]
+    results = []
+    for case, n, group, bits, dtype in specs:
+        x = quant_input(dev, gen, n, group, bits, dtype)
+        q, s = quantize_symmetric(x, bits, group)
+        qr, sr = reference_quantize_symmetric(x, bits, group)
+        if not (torch.equal(q, qr) and torch.equal(s, sr)):
+            raise AssertionError(
+                f"quantize_symmetric {case} bits={bits} group={group} "
+                f"{dtype}: q differs in {int((q != qr).sum())} elements, "
+                f"scales in {int((s != sr).sum())} groups")
+        del qr, sr
+        if s[0] != 1 or s[1] != 1 or q[:group].any():
+            raise AssertionError(f"quantize_symmetric {case}: zero / tie "
+                                 "group scales")
+        big = n > QUANT_N
+        b_ms, b_by = bound_ms(n * x.element_size() + n + 4 * (n // group),
+                              4.0 * n, FP32_FLOPS)
+        results.append(dict(
+            case=case, n=n, group=group, bits=bits, dtype=str(dtype),
+            max_abs_err=0.0, bit_equal=True,
+            ms=time_ms(lambda: quantize_symmetric(x, bits, group),
+                       iters=5 if big else 20, reps=4 if big else 10),
+            plain_ms=time_eager_ms(lambda: reference_quantize_symmetric(
+                x, bits, group), iters=2 if big else 5),
+            library_ms=None,
+            library="none: no PyTorch call quantizes per group",
+            bound_ms=b_ms, bound_by=b_by))
+        del x, q, s
+        torch.cuda.empty_cache()
+    return results
+
+
+def flash_wide_cases(dev, gen):
+    """The flash forward at head_dim 512, non-causal, no mask: the VAE mid
+    block's single head over its 64 x 64 latent (B 4, S = T 4096) in bf16,
+    the same at B 2, S = T 1024 in fp32 (the CUDA-core path), and cross
+    attention of 1024 queries over 77 keys (a text encoder's length) in
+    both. Yardstick: one ``scaled_dot_product_attention`` call without a
+    mask; the backend it takes is named."""
+    results = []
+    for case, dtype, B, S, T in FLASH_WIDE:
+        N = K = 1
+        D = SPATIAL["C"]
+        q = torch.randn(B, S, N, D, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, T, K, D, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        got = flash_attention(q, k, v, causal=False)
+        ref = reference_flash_attention(q, k, v, causal=False)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {case}: non-finite output")
+        err = check(f"flash_attention {case} D={D} {dtype}", got, ref,
+                    TOL[dtype])
+        item = q.element_size()
+        b_ms, b_by = bound_ms((2 * B * S * N * D + 2 * B * T * K * D) * item,
+                              4.0 * B * S * T * N * D,
+                              BF16_FLOPS if dtype != torch.float32
+                              else FP32_FLOPS)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        slow = dtype == torch.float32
+        results.append(dict(
+            case=case, B=B, S=S, T=T, N=N, K=K, D=D, causal=False,
+            dtype=str(dtype), max_abs_err=err,
+            tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+            ms=time_ms(lambda: flash_attention(q, k, v, causal=False),
+                       iters=4 if slow else 20, reps=3 if slow else 10),
+            plain_ms=time_ms(lambda: reference_flash_attention(
+                q, k, v, causal=False), iters=2, reps=3),
+            library_ms=time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt), iters=4 if slow else 20,
+                reps=3 if slow else 10),
+            library="SDPA, no mask, backend " + sdpa_backend(qt, kt, vt),
+            bound_ms=b_ms, bound_by=b_by))
+    return results
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these
+    operands (no mask, no dropout), by the dispatcher's own choice."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+    except (AttributeError, ImportError, RuntimeError, ValueError):
+        return "not reported by this PyTorch"
+
+
 def int_mm_ms(dev, K: int, w8: torch.Tensor):
     """The a8 yardstick: one ``torch._int_mm`` (s8 x s8 -> s32 on cuBLASLt)
     of INT_MM_ROWS activation rows, its smallest M, by the (K, N) int8
@@ -1988,6 +2212,168 @@ def e2e_sparse_train_phase(dev):
                 launches={n: counts[n] for n in SPARSE_TRAIN_KERNELS})
 
 
+# ---------------------------------------------------------------------------
+# the SD v1.5 VAE mid block, and group quantization over OPT-1.3B
+# ---------------------------------------------------------------------------
+
+
+def spatial_flops(B: int, HW: int, C: int, k: int = 3):
+    """Multiply-adds x 2 of one mid block call: the four k x k convs, the
+    attention (4 B HW^2 C: QK^T and PV) and the q / k / v / proj GEMMs."""
+    return dict(convs=4 * 2.0 * B * HW * C * C * k * k,
+                attention=4.0 * B * HW * HW * C,
+                qkv_proj=4 * 2.0 * B * HW * C * C)
+
+
+def spatial_phase(dev):
+    """The SD v1.5 VAE decoder's mid block at full width (SPATIAL: a 64 x
+    64 latent of 512 channels, 32 groups, eps 1e-6, batch 4; seeded bf16
+    weights): a warm-up call, then SPATIAL_CALLS timed calls with launch
+    counts zeroed just before them and held exactly to SPATIAL_KERNELS per
+    call; the output finite and within SPATIAL_TOL * max|plain| of the
+    plain path (``plain=True``) on the same weights."""
+    B, side, C, G = (SPATIAL[k] for k in ("B", "latent", "C", "groups"))
+    params = init_mid_block(torch.Generator(device=dev).manual_seed(11), C,
+                            device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    x = torch.randn(B, side, side, C, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    with torch.no_grad():
+        out = mid_block(x, params, G)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(SPATIAL_CALLS):
+            out = mid_block(x, params, G)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = {name: SPATIAL_KERNELS.get(name, 0) * SPATIAL_CALLS
+                for name in counts}
+        if counts != want:
+            raise AssertionError(f"spatial: launches {counts}, expected "
+                                 f"{want}")
+        plain = mid_block(x, params, G, plain=True)
+    if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"spatial: output {tuple(out.shape)} not "
+                             "finite or not of the input's shape")
+    err, scale = max_err(out, plain), float(plain.float().abs().max())
+    if not err <= SPATIAL_TOL * scale:
+        raise AssertionError(f"spatial: max abs error {err} > "
+                             f"{SPATIAL_TOL} * {scale}")
+    ms = wall / SPATIAL_CALLS * 1e3
+    flops = spatial_flops(B, side * side, C)
+    total = sum(flops.values())
+    return counts, dict(
+        phase="spatial", model="sd-v1.5 vae decoder mid block",
+        dtype="bfloat16", B=B, latent=[side, side], channels=C, groups=G,
+        eps=SPATIAL["eps"], params=param_count(params), calls=SPATIAL_CALLS,
+        ms_per_call=ms, latents_per_s=B / (ms / 1e3), flops_per_call=total,
+        flops=flops, peak_share=total / (ms / 1e3) / BF16_FLOPS,
+        peak_mem_gb=peak, max_abs_err=err, plain_absmax=scale,
+        tol=SPATIAL_TOL,
+        launches={k: v for k, v in counts.items() if v})
+
+
+def e2e_spatial_phase(dev):
+    """The mid block at full width (C 512, 32 groups) on a 16 x 16 latent,
+    B 2, fp32: the kernel path against ``plain=True`` on the card, within
+    E2E_TOL. Beside it, the plain path's own spread: its output moved by
+    one fp32 ulp of noise on the input (``plain_ulp_noise``). JAX's init
+    (weights N(0, 0.1^2) at fan-ins of 4608) amplifies each conv's input
+    ~7x, so that spread is of the order of E2E_TOL."""
+    C, G = SPATIAL["C"], SPATIAL["groups"]
+    params = init_mid_block(torch.Generator(device=dev).manual_seed(13), C,
+                            device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    x = torch.randn(2, 16, 16, C, generator=gen, device=dev)
+    noisy = x * (1 + 2.0 ** -24 * torch.randn(x.shape, generator=gen,
+                                               device=dev))
+    with torch.no_grad():
+        outs = [mid_block(x, params, G, plain=p) for p in (False, True)]
+        floor = max_err(mid_block(noisy, params, G, plain=True), outs[1])
+    if not bool(torch.isfinite(outs[0]).all()):
+        raise AssertionError("e2e_spatial_parity: non-finite output")
+    err = max_err(*outs)
+    if not err <= E2E_TOL:
+        raise AssertionError(f"e2e_spatial_parity: max abs error {err} > "
+                             f"{E2E_TOL}")
+    return dict(phase="e2e_spatial_parity", dtype="float32", B=2,
+                latent=[16, 16], channels=C, groups=G, max_abs_err=err,
+                tol=E2E_TOL, plain_ulp_noise=floor,
+                out_absmax=float(outs[1].abs().max()))
+
+
+def quantize_phase(dev):
+    """``fake_quantize`` (int8, groups of 128) over every weight leaf of
+    OPT-1.3B in bf16 (seeded), under autograd: exactly one quantize launch
+    per leaf (counts zeroed just before, read just after), the gradient
+    equal to the upstream one bit for bit, |deq - w| <= scale / 2 plus one
+    bf16 ulp of deq. Then ``quantize_symmetric`` at int4 over the same
+    leaves, bit-equal to its plain version (not counted)."""
+    cfg = transformer_config("opt-1.3b", dtype=torch.bfloat16,
+                             max_seq_len=SPARSE_S)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    leaves = list(tree_leaves(init_params(gen, cfg)))
+    grads = [torch.randn(w.shape, generator=gen, device=dev,
+                         dtype=w.dtype) for w in leaves]
+    for w in leaves:
+        w.requires_grad_(True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = []
+    for w, g in zip(leaves, grads):
+        y = fake_quantize(w, 8, 128)
+        y.backward(g)
+        outs.append(y.detach())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {name: len(leaves) if name == "quantize_symmetric" else 0
+            for name in counts}
+    if counts != want:
+        raise AssertionError(f"quantize: launches {counts}, expected {want}")
+    worst = 0.0       # max over elements of |deq - w| / (scale / 2 + ulp)
+    for w, g, y in zip(leaves, grads, outs):
+        if not torch.equal(w.grad, g):
+            raise AssertionError("quantize: the gradient is not the "
+                                 "upstream gradient")
+        flat = w.detach().reshape(-1)
+        pad = (-flat.numel()) % 128
+        _, s = reference_quantize_symmetric(
+            torch.nn.functional.pad(flat, (0, pad)), 8, 128)
+        s = s.repeat_interleave(128)[:flat.numel()]
+        yf = y.reshape(-1).float()
+        ulp = torch.ldexp(torch.ones_like(yf), torch.frexp(yf).exponent - 8)
+        worst = max(worst, float(((yf - flat.float()).abs()
+                                  / (s / 2 + ulp)).max()))
+        if not worst <= 1:
+            raise AssertionError(f"quantize: |deq - w| reaches {worst} x "
+                                 "(scale / 2 + one bf16 ulp)")
+    int4_mismatch = 0
+    for w in leaves:
+        flat = w.detach().reshape(-1)
+        flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % 128))
+        a, b = quantize_symmetric(flat, 4, 128), \
+            reference_quantize_symmetric(flat, 4, 128)
+        int4_mismatch += int((a[0] != b[0]).sum()) + int((a[1] != b[1]).sum())
+    if int4_mismatch:
+        raise AssertionError(f"quantize: int4 differs from its plain version "
+                             f"in {int4_mismatch} values")
+    n = sum(w.numel() for w in leaves)
+    return counts, dict(
+        phase="quantize", model="opt-1.3b", dtype="bfloat16", bits=8,
+        group=128, leaves=len(leaves), elements=n,
+        fake_quantize_ms=wall * 1e3, launches=counts["quantize_symmetric"],
+        worst_err_over_bound=worst, int4_bit_equal=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — nothing was run",
@@ -2021,7 +2407,10 @@ def main() -> int:
                        ("fused_adam", adam_cases),
                        ("quant_matmul", quant_cases),
                        ("block_sparse_attention", sparse_cases),
-                       ("fused_lamb", lamb_cases)):
+                       ("fused_lamb", lamb_cases),
+                       ("fused_group_norm", group_norm_cases),
+                       ("quantize_symmetric", quantize_cases),
+                       ("flash_attention_d512", flash_wide_cases)):
         t0 = time.perf_counter()
         res = run(dev, gen)
         cases.update(res if isinstance(res, dict) else {group: res})
@@ -2050,6 +2439,13 @@ def main() -> int:
     sparse_counts, sparse_train = train_phase(dev, "sparse_train")
     emit(dict(sparse_train, card=smi))
     emit(dict(e2e_sparse_train_phase(dev), card=smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    spatial_counts, spatial = spatial_phase(dev)
+    emit(dict(spatial, card=smi))
+    emit(dict(e2e_spatial_phase(dev), card=smi))
+    quantize_counts, quantize = quantize_phase(dev)
+    emit(dict(quantize, card=smi))
 
     # the main paths' shapes: norm at the prefill chunk's 256 rows (RMSNorm,
     # bf16), paged decode over the ragged 8 rows, paged prefill at start
@@ -2072,7 +2468,10 @@ def main() -> int:
             "block_sparse_attention_fwd": lambda c: c["case"] == "fixed",
             "block_sparse_attention_bwd_dq": lambda c: c["case"] == "fixed",
             "block_sparse_attention_bwd_dkv": lambda c: c["case"] == "fixed",
-            "fused_lamb": lambda c: c["case"] == "opt-1.3b"}
+            "fused_lamb": lambda c: c["case"] == "opt-1.3b",
+            "fused_group_norm": lambda c: c["case"] == "vae_mid",
+            "quantize_symmetric": lambda c: (c["case"] == "opt-1.3b"
+                                             and c["bits"] == 8)}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         bf16 = [c for c in cases[name] if c["dtype"] == str(torch.bfloat16)]
@@ -2082,7 +2481,9 @@ def main() -> int:
             launches=(counts.get(name, 0) + gen_counts.get(name, 0)
                       + quant_counts.get(name, 0)
                       + train_counts.get(name, 0)
-                      + sparse_counts.get(name, 0)),
+                      + sparse_counts.get(name, 0)
+                      + spatial_counts.get(name, 0)
+                      + quantize_counts.get(name, 0)),
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

@@ -28,13 +28,16 @@ def _to_tensor(a: Any, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(np_params: Dict[str, Any], cfg, device="cpu",
+def params_from_jax(np_params: Dict[str, Any], cfg=None, device="cpu",
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The JAX param pytree (numpy leaves, layer axis first) -> the port's
     params on ``device``; floating leaves cast to ``dtype`` (default
-    ``cfg.dtype``). Quantized sites (``{"q8"|"q4", "s"}``) come over as
-    they are: int8 / uint8 values, fp32 scales."""
-    dtype = cfg.dtype if dtype is None else dtype
+    ``cfg.dtype``; with neither, each leaf keeps its numpy dtype). Quantized
+    sites (``{"q8"|"q4", "s"}``) come over as they are: int8 / uint8
+    values, fp32 scales. A tree with no ``cfg`` (the spatial mid block's:
+    nested dicts, no layer axis) converts the same way."""
+    if dtype is None and cfg is not None:
+        dtype = cfg.dtype
 
     def walk(node):
         if is_quantized(node):

@@ -26,8 +26,13 @@ from .quant_matmul import (int4_a8_matmul, int4_matmul,  # noqa: F401
                            reference_int4_a8_matmul, reference_int4_matmul,
                            reference_int8_a8_matmul, reference_int8_matmul,
                            unpack_int4)
+from .quantization import (dequantize_symmetric,  # noqa: F401
+                           fake_quantize, quantize_symmetric,
+                           reference_quantize_symmetric)
 from .registry import (launch_counts, op_report,  # noqa: F401
                        reset_launch_counts)
+from .spatial import (diffusers_attention, fused_group_norm,  # noqa: F401
+                      reference_group_norm)
 from .sparse_attention import (  # noqa: F401
     BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
     FixedSparsityConfig, LocalSlidingWindowSparsityConfig,
@@ -62,4 +67,6 @@ __all__ = ["TilePlan", "block_sparse_attention",
            "quantize_int4", "reference_int4_a8_matmul",
            "reference_int4_matmul", "reference_int8_a8_matmul",
            "reference_int8_matmul", "unpack_int4", "launch_counts", "op_report",
-           "reset_launch_counts"]
+           "reset_launch_counts", "dequantize_symmetric", "fake_quantize",
+           "quantize_symmetric", "reference_quantize_symmetric",
+           "diffusers_attention", "fused_group_norm", "reference_group_norm"]

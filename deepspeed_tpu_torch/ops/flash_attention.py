@@ -11,7 +11,10 @@ writes lse and the backward is two CUDA kernels of
 ``_bwd_dkv_kernel``) fed with delta = rowsum(dO * O), which stays one plain
 torch op as in JAX (``flash_attention.py:271``). On a CPU tensor autograd
 differentiates the plain forward natively; ``reference_flash_attention_bwd``
-is the two kernels' plain version (the FA2 recompute from lse).
+is the two kernels' plain version (the FA2 recompute from lse). The forward
+kernel takes head_dim up to 512 (the SD VAE mid block's single head of
+512); the backward kernels up to 256, and a backward above that raises
+ValueError.
 
 Layouts are the JAX wrapper's: q (B, S, N, D), k / v (B, T, K, D) with
 GQA read natively (query head n reads KV head n // (N // K); dk / dv sum
@@ -36,7 +39,8 @@ import torch
 
 from . import registry
 
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 512        # the forward kernel
+MAX_BWD_HEAD_DIM = 256    # the backward kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -145,7 +149,7 @@ def flash_attention_bwd_magnitude(q, k, v, o, lse, do, mask=None,
                           causal, scale, alibi, magnitude=True)
 
 
-def _check(name: str, q, k, v, mask, alibi):
+def _check(name: str, q, k, v, mask, alibi, max_d: int = MAX_HEAD_DIM):
     """Validate the operands every kernel of this module takes; returns the
     mask as contiguous int32 (or None)."""
     if q.device.type != "cuda":
@@ -162,8 +166,11 @@ def _check(name: str, q, k, v, mask, alibi):
     if K == 0 or N % K != 0:
         raise ValueError(f"{name}: n_heads {N} must be a multiple of "
                          f"kv_heads {K}")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D} > {MAX_HEAD_DIM}")
+    if D > max_d:
+        raise ValueError(f"{name}: head_dim {D} > {max_d}"
+                         + (" (the backward kernels take head_dim <= "
+                            f"{MAX_BWD_HEAD_DIM})" if max_d < MAX_HEAD_DIM
+                            else ""))
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: q/k/v must share one of float32, "
                          f"bfloat16, float16; got {q.dtype}/{k.dtype}/"
@@ -247,7 +254,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _reference_bwd(q, k, v, do, lse, delta, mask, causal, scale,
                               alibi)[0]
-    mask = _check("flash_attention_bwd_dq", q, k, v, mask, alibi)
+    mask = _check("flash_attention_bwd_dq", q, k, v, mask, alibi,
+                  MAX_BWD_HEAD_DIM)
     _check_grad_operands("flash_attention_bwd_dq", q, do, lse, delta)
     B, S, N, D = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -275,7 +283,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return _reference_bwd(q, k, v, do, lse, delta, mask, causal, scale,
                               alibi)[1:]
-    mask = _check("flash_attention_bwd_dkv", q, k, v, mask, alibi)
+    mask = _check("flash_attention_bwd_dkv", q, k, v, mask, alibi,
+                  MAX_BWD_HEAD_DIM)
     _check_grad_operands("flash_attention_bwd_dkv", q, do, lse, delta)
     B, S, N, D = q.shape
     T, K = k.shape[1], k.shape[2]

@@ -54,6 +54,8 @@ KERNELS: Dict[str, str] = {
     "block_sparse_attention_bwd_dq": "block_sparse_attention",
     "block_sparse_attention_bwd_dkv": "block_sparse_attention",
     "fused_lamb": "fused_lamb",
+    "fused_group_norm": "group_norm",
+    "quantize_symmetric": "quantization",
 }
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -27,7 +27,13 @@ block-sparse kernels (forward, dq, dkv) run over DeepSpeed's layouts and
 over layouts with a key-less q-tile, padded list slots and asymmetric
 per-head masks, causal and not, against their plain versions with the
 flash tolerances; the LAMB phase-1 kernel against its plain version with
-the Adam tolerances, over segments that start unaligned.
+the Adam tolerances, over segments that start unaligned. The GroupNorm
+kernel runs at JAX's test shapes and the SD v1.5 VAE mid block's (B 4, HW
+4096, C 512, 32 groups) with the norm tolerances, and on 300 + 0.01 N(0, 1)
+against float64 within 1e-2; group quantization must equal its plain
+version bit for bit (q and scales); the flash forward at head_dim 264..512
+(self and cross attention, masks, alibi, GQA) within the attention
+tolerances.
 """
 
 import numpy as np
@@ -58,6 +64,10 @@ from deepspeed_tpu_torch.ops import (LambSegments, block_sparse_attention,
                                      reference_block_sparse_attention,
                                      reference_block_sparse_attention_bwd,
                                      reference_lamb_phase1)
+from deepspeed_tpu_torch.ops import (fake_quantize, fused_group_norm,
+                                     quantize_symmetric,
+                                     reference_group_norm,
+                                     reference_quantize_symmetric)
 from deepspeed_tpu_torch.ops import quant_matmul, sparse_attention
 from deepspeed_tpu_torch.ops.quant_matmul import quantize_int4
 
@@ -807,3 +817,169 @@ def test_lamb_skip_writes_nothing(dev):
     for a, b in zip((p, m, v, copy), snap):
         assert torch.equal(a, b)
     assert (u == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm over NHWC tokens
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,HW,C,G", [
+    (2, 256, 64, 8), (1, 1024, 96, 12), (3, 640, 128, 32), (2, 100, 24, 8),
+    (1, 77, 40, 1), (2, 33, 60, 20), (4, 4096, 512, 32)])
+@pytest.mark.parametrize("dtype,atol", LOW + [(torch.float16, 4e-3)])
+@pytest.mark.parametrize("affine_f32", [False, True])
+def test_group_norm_matches_plain(dev, B, HW, C, G, dtype, atol, affine_f32):
+    rng = np.random.default_rng(B * HW + C)
+    x = t(rng.normal(size=(B, HW, C)) * 3 + 1, dev, dtype)
+    adt = torch.float32 if affine_f32 else dtype
+    scale = t(rng.normal(size=C) * 0.1 + 1, dev, adt)
+    bias = t(rng.normal(size=C) * 0.1, dev, adt)
+    before = launch_counts()["fused_group_norm"]
+    got = fused_group_norm(x, scale, bias, G, eps=1e-6)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_group_norm"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    ref = reference_group_norm(x, scale, bias, G, eps=1e-6)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+
+
+def test_group_norm_stress_input_against_float64(dev):
+    B, HW, C, G = 4, 4096, 512, 32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = 300 + 0.01 * torch.randn(B, HW, C, generator=gen, device=dev)
+    scale, bias = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+    got = fused_group_norm(x, scale, bias, G)
+    xg = x.double().reshape(B, HW, G, C // G)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    want = ((xg - mean) / torch.sqrt(var + 1e-5)).reshape(B, HW, C)
+    assert torch.isfinite(got).all()
+    assert float((got.double() - want).abs().max()) <= 1e-2
+
+
+def test_group_norm_unaligned_view_takes_narrow_loads(dev):
+    base = torch.randn(2 * 64 * 32 + 1, device=dev)
+    x = base[1:].view(2, 64, 32)
+    scale, bias = torch.rand(32, device=dev) + 0.5, torch.randn(32, device=dev)
+    got = fused_group_norm(x, scale, bias, 8)
+    ref = reference_group_norm(x, scale, bias, 8)
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_group_norm_rejects_bad_operands(dev):
+    x = torch.zeros(1, 16, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # affine dtype
+        fused_group_norm(x, torch.ones(32, device=dev, dtype=torch.float16),
+                         torch.zeros(32, device=dev, dtype=torch.float16), 8)
+    with pytest.raises(ValueError):                     # affine shape
+        fused_group_norm(x, torch.ones(16, device=dev),
+                         torch.zeros(16, device=dev), 8)
+    strided = torch.zeros(1, 16, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # not contiguous
+        fused_group_norm(strided[:, :, ::2], torch.ones(32, device=dev),
+                         torch.zeros(32, device=dev), 8)
+
+
+# ---------------------------------------------------------------------------
+# group quantization
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("groups,group_size", [(1000, 128), (777, 64),
+                                               (13, 100), (5, 4096),
+                                               (1, 8), (3000, 2)])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_quantize_bit_identical_to_plain(dev, groups, group_size, bits,
+                                         dtype):
+    n = groups * group_size
+    gen = torch.Generator(device=dev).manual_seed(n + bits)
+    x = (torch.randn(n, generator=gen, device=dev) * 2).to(dtype)
+    x[:group_size] = 0                                  # a zero group
+    if groups > 2:                                      # exact .5 ties
+        qmax = 2 ** (bits - 1) - 1
+        tie = torch.arange(group_size, device=dev) % (2 * qmax) - qmax + 0.5
+        tie[-1] = qmax
+        x[group_size:2 * group_size] = tie.to(dtype)
+    before = launch_counts()["quantize_symmetric"]
+    q, s = quantize_symmetric(x, bits, group_size)
+    torch.cuda.synchronize()
+    assert launch_counts()["quantize_symmetric"] == before + 1
+    qr, sr = reference_quantize_symmetric(x, bits, group_size)
+    assert q.dtype == torch.int8 and s.shape == (groups,)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert s[0] == 1 and not q[:group_size].any()
+
+
+def test_quantize_unaligned_view_takes_scalar_loads(dev):
+    base = torch.randn(128 * 50 + 1, device=dev, dtype=torch.bfloat16)
+    x = base[1:]
+    q, s = quantize_symmetric(x, 8, 128)
+    qr, sr = reference_quantize_symmetric(x, 8, 128)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+def test_fake_quantize_on_the_card(dev):
+    w = torch.randn(300, 70, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    g = torch.randn(300, 70, device=dev, dtype=torch.bfloat16)
+    y = fake_quantize(w, bits=8, group_size=128)
+    y.backward(g)
+    assert torch.equal(w.grad, g)
+    flat = torch.nn.functional.pad(w.detach().reshape(-1), (0, 120))
+    q, s = reference_quantize_symmetric(flat, 8, 128)
+    want = (q.reshape(-1, 128).float() * s[:, None]).reshape(-1)[:21000]
+    assert torch.equal(y.detach().reshape(-1), want.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# flash forward above head_dim 256
+# ---------------------------------------------------------------------------
+
+# (B, S, T, N, K, D): the VAE mid block's single head of 512 (self and
+# cross attention, ragged edges), GQA, D 264 (not a multiple of 16) and 300
+# (16-bit: the CUDA-core path); then the mid block's path shape, with only
+# the plain non-causal flags
+WIDE_SHAPES = [(2, 256, 256, 1, 1, 512), (1, 100, 77, 1, 1, 512),
+               (2, 70, 130, 4, 2, 512), (1, 48, 65, 2, 1, 264),
+               (1, 33, 40, 2, 2, 300), (4, 4096, 4096, 1, 1, 512)]
+
+
+@pytest.mark.parametrize("B,S,T,N,K,D,causal,use_alibi,dtype,atol", [
+    p for p in attn_params(WIDE_SHAPES, [(False, False), (True, False),
+                                         (False, True)])
+    if p[1] < 4096 or p[6:8] == (False, False)])
+def test_flash_wide_matches_plain(dev, B, S, T, N, K, D, causal, use_alibi,
+                                  dtype, atol):
+    rng = np.random.default_rng(S * T + D)
+    mask = dense_mask(B, T, seed=T, lo=max(1, T // 4))
+    k, v = dense_kv(B, T, K, D, mask, seed=D)
+    q = rng.normal(size=(B, S, N, D))
+    al = alibi_slopes(N, device=dev) if use_alibi else None
+    args = (t(q, dev, dtype), t(k, dev, dtype), t(v, dev, dtype),
+            t(mask, dev))
+    before = launch_counts()["flash_attention"]
+    got, lse = flash_attention(*args, causal=causal, alibi=al,
+                               return_lse=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    ref, ref_lse = reference_flash_attention(*args, causal=causal, alibi=al,
+                                             return_lse=True)
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(lse, ref_lse, atol=atol, rtol=atol)
+
+
+def test_flash_wide_backward_raises(dev):
+    q, k, v = (torch.randn(1, 16, 1, 512, device=dev, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    out = flash_attention(q, k, v, causal=False)
+    with pytest.raises(ValueError, match="backward kernels take head_dim"):
+        out.sum().backward()
+    with pytest.raises(ValueError, match="head_dim 640 > 512"):
+        flash_attention(*(torch.zeros(1, 4, 1, 640, device=dev)
+                          for _ in range(3)))

@@ -205,6 +205,9 @@ class TestPortRules:
                 "deepspeed_tpu_torch.ops.decode_attention, "
                 "deepspeed_tpu_torch.ops.fused_adam, "
                 "deepspeed_tpu_torch.ops.quant_matmul, "
+                "deepspeed_tpu_torch.ops.spatial, "
+                "deepspeed_tpu_torch.ops.quantization, "
+                "deepspeed_tpu_torch.models.spatial, "
                 "deepspeed_tpu_torch.runtime, "
                 "deepspeed_tpu_torch.config; "
                 "import chip_smoke; "
