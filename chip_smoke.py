@@ -20,7 +20,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    with an explicit mask for the dense attention kernels; timed here only,
    the port never calls it). The four quantized decode GEMMs run at
    llama-7b's weight sites, 1 and 8 rows, int4 with one group and with
-   groups of 128.
+   groups of 128; the a8 ones with one group must equal their plain
+   versions bit for bit, and they and ``torch._int_mm`` are also timed over
+   weight copies larger than the L2.
 4. ``serve``   — ``init_serving("llama-7b")`` at full width (H 4096, 32
    layers, 32 heads, D 128, FFN 11008, vocab 32000; seeded random bf16
    weights) serves 8 greedy requests (prompts of 64..700 tokens, two sharing
@@ -54,8 +56,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    on the device and peak memory. ``quant_serve`` — the serve scenario
    over the int8 tree; ``int8_matmul`` must run.
 9. ``e2e_quant_parity`` — the 2-layer fp32 dense check of phase 7 with
-   int8, int4 and int4 (groups of 128) weights: the decode steps through
-   the quantized GEMM kernels against ``plain=True``.
+   int8, int4 and int4 (groups of 128) weights, each weight-only and with
+   quantized activations (w8a8, w4a8): the decode steps through the
+   quantized GEMM kernels against ``plain=True`` (weight-only) or against
+   the kernel path with the a8 GEMMs' plain versions (w8a8, w4a8; their
+   distance to ``plain=True`` is reported).
 10. ``train`` — once the llama-7b phases have released their memory,
    ``initialize`` trains OPT-1.3B at full size (H 2048, 24 layers, 32 heads
    of 64, FFN 8192, vocab 50272; seeded random bf16 weights) with the
@@ -129,7 +134,9 @@ device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -152,6 +159,7 @@ from deepspeed_tpu_torch.models.transformer import (_quantize_int8,
                                                     alibi_slopes, forward,
                                                     init_params,
                                                     quantize_model_weights)
+from deepspeed_tpu_torch.models import transformer
 from deepspeed_tpu_torch.ops import quant_matmul
 from deepspeed_tpu_torch.ops import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, FixedSparsityConfig,
@@ -271,9 +279,9 @@ SOURCES = {
                    "deepspeed_tpu/ops/fused_adam.py:72"),
     "int8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
                     "deepspeed_tpu/ops/quant_matmul.py:79"),
-    "int8_a8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
+    "int8_a8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul_a8.cu",
                        "deepspeed_tpu/ops/quant_matmul.py:167"),
-    "int4_a8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
+    "int4_a8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul_a8.cu",
                        "deepspeed_tpu/ops/quant_matmul.py:250"),
     "int4_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
                     "deepspeed_tpu/ops/quant_matmul.py:394"),
@@ -302,6 +310,7 @@ LLAMA_7B = (4096, 32, 32, 128, 11008, 32000)
 QUANT_SITES = {"qkvo": (4096, 4096), "gate_up": (4096, 11008),
                "down": (11008, 4096), "lm_head": (4096, 32000)}
 INT_MM_ROWS = 17    # torch._int_mm takes more than 16 rows
+L2_BYTES = 50e6     # the H100's L2: rotated timings cycle through more
 SERVE_KERNELS = ("fused_layer_norm", "paged_decode_attention",
                  "paged_prefill_attention")
 GENERATE_KERNELS = ("fused_layer_norm", "flash_attention", "decode_attention")
@@ -1413,29 +1422,50 @@ def sdpa_backend(q, k, v) -> str:
         return "not reported by this PyTorch"
 
 
+def rotated_ms(fn, copies) -> float:
+    """``time_ms`` of ``fn(c)`` cycling through ``copies`` of an operand
+    whose bytes together exceed the L2, so each call reads its operand from
+    HBM as a decode step's first touch of a weight does."""
+    turn = itertools.cycle(copies)
+    return time_ms(lambda: fn(next(turn)), iters=4 * len(copies), reps=5)
+
+
+def l2_copies(t: torch.Tensor):
+    """Copies of ``t`` (itself first) holding more bytes than the L2."""
+    n = 2 + int(L2_BYTES // (t.numel() * t.element_size()))
+    return [t] + [t.clone() for _ in range(n - 1)]
+
+
 def int_mm_ms(dev, K: int, w8: torch.Tensor):
     """The a8 yardstick: one ``torch._int_mm`` (s8 x s8 -> s32 on cuBLASLt)
     of INT_MM_ROWS activation rows, its smallest M, by the (K, N) int8
-    weight, stored column-major as cuBLASLt's int8 GEMMs take it; None
-    where this PyTorch has no such call for these operands."""
+    weight, stored column-major as cuBLASLt's int8 GEMMs take it: (time
+    with the weight in L2 reach, time over L2_BYTES of weight copies);
+    (None, None) where this PyTorch has no such call for these operands."""
     xq = torch.randint(-127, 128, (INT_MM_ROWS, K), dtype=torch.int8,
                        device=dev)
     w8 = w8.t().contiguous().t()
     try:
         torch._int_mm(xq, w8)
     except (AttributeError, RuntimeError):
-        return None
-    return time_ms(lambda: torch._int_mm(xq, w8))
+        return None, None
+    copies = [c.t().contiguous().t() for c in l2_copies(w8)]
+    return (time_ms(lambda: torch._int_mm(xq, w8)),
+            rotated_ms(lambda w: torch._int_mm(xq, w), copies))
 
 
 def quant_cases(dev, gen):
     """The four quantized decode GEMMs at llama-7b's decode sites (K, N),
     M 1 and 8 activation rows in bf16 and fp32, int4 with one group (G 1)
     and with groups of 128 rows, on weights drawn N(0, 0.02) with one
-    all-zero column and quantized as the engine does. Yardsticks (timed
-    here only): the bf16 ``torch.matmul`` of the dense weight for the
-    weight-only kernels, ``torch._int_mm`` of INT_MM_ROWS rows by the int8
-    (for int4: unpacked to int8) weight for the a8 ones."""
+    all-zero column and quantized as the engine does. The a8 kernels with
+    one group must equal their plain versions bit for bit (exact integer
+    sums, the same fp32 epilogue); the others are held to TOL. Yardsticks
+    (timed here only): the bf16 ``torch.matmul`` of the dense weight for
+    the weight-only kernels, ``torch._int_mm`` of INT_MM_ROWS rows by the
+    int8 (for int4: unpacked to int8) weight for the a8 ones. The a8
+    kernels and ``torch._int_mm`` are also timed at M 8 in bf16 over weight
+    copies larger than the L2 (``ms_rotated``, ``library_ms_rotated``)."""
     out = {name: [] for name in QUANT_MODES.values()}
     for site, (K, N) in QUANT_SITES.items():
         w = 0.02 * torch.randn(K, N, generator=gen, device=dev)
@@ -1462,23 +1492,34 @@ def quant_cases(dev, gen):
                         if got.dtype != dtype or got.shape != (M, N):
                             raise AssertionError(f"{name}: output "
                                                  f"{got.dtype} {got.shape}")
-                        err = check(f"{name} {site} M={M} G={G} {dtype}",
-                                    got, want, TOL[dtype])
+                        label = f"{name} {site} M={M} G={G} {dtype}"
+                        exact = a8 and G == 1
+                        if exact and not torch.equal(got, want):
+                            raise AssertionError(
+                                f"{label}: {int((got != want).sum())} "
+                                "outputs differ from the plain version")
+                        err = check(label, got, want, TOL[dtype])
                         item = x.element_size()
                         nbytes = (q.numel() + 4 * s.numel()
                                   + (M * K + M * N) * item)
                         peak = (INT8_OPS if a8 else BF16_FLOPS
                                 if dtype == torch.bfloat16 else FP32_FLOPS)
                         b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, peak)
-                        library = None
+                        library, rot = None, {}
                         if dtype == torch.bfloat16:
-                            library = (lib4 if int4 else lib8) if a8 else \
-                                time_ms(lambda: torch.matmul(x, dense))
+                            library = (lib4 if int4 else lib8)[0] if a8 \
+                                else time_ms(lambda: torch.matmul(x, dense))
+                        if a8 and M == 8 and dtype == torch.bfloat16:
+                            rot = dict(
+                                ms_rotated=rotated_ms(
+                                    lambda qc: fn(x, qc, s), l2_copies(q)),
+                                library_ms_rotated=(lib4 if int4
+                                                    else lib8)[1])
                         out[name].append(dict(
                             site=site, M=M, K=K, N=N, G=G, dtype=str(dtype),
-                            max_abs_err=err,
+                            max_abs_err=err, exact=exact,
                             tol=dict(zip(("atol", "rtol"), TOL[dtype])),
-                            ms=time_ms(lambda: fn(x, q, s)),
+                            ms=time_ms(lambda: fn(x, q, s)), **rot,
                             plain_ms=time_ms(lambda: ref(x, q, s), iters=4,
                                              reps=3),
                             library_ms=library,
@@ -1750,12 +1791,32 @@ def generate_phase(srv):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def dense_parity(params, cfg, dev, gen, phase: str):
+def plain_forward(*args, **kw):
+    return forward(*args, plain=True, **kw)
+
+
+def a8_plain_gemms(*args, **kw):
+    """The kernel path with the W8A8 / W4A8 GEMMs' plain versions in place
+    of their kernels: attention and norms run the same kernels as the kernel
+    path, so only the a8 GEMMs can make the two differ."""
+    saved = transformer.int8_a8_matmul, transformer.int4_a8_matmul
+    transformer.int8_a8_matmul = quant_matmul.reference_int8_a8_matmul
+    transformer.int4_a8_matmul = quant_matmul.reference_int4_a8_matmul
+    try:
+        return forward(*args, **kw)
+    finally:
+        transformer.int8_a8_matmul, transformer.int4_a8_matmul = saved
+
+
+def dense_parity(params, cfg, dev, gen, phase: str, second=plain_forward,
+                 tol=E2E_TOL):
     """The static prefill of 2 prompts (200 and 77 tokens, padded to 256)
     and 8 greedy decode steps over a 512-column arena whose slots outside
     ``valid`` hold large finite values, through the kernel path and through
-    ``plain=True`` on two copies of the arena. Returns (each step's max abs
-    logits error, the last logits)."""
+    ``second`` (by default ``plain=True``) on two copies of the arena,
+    greedy on the second path's logits; the largest error must be within
+    ``tol`` (None: not held). Returns (each step's max abs logits error,
+    the last logits)."""
     lens, S_pad, T = [200, 77], 256, 512
     B, S = len(lens), max(lens)
     lengths = torch.tensor(lens, device=dev)
@@ -1770,24 +1831,24 @@ def dense_parity(params, cfg, dev, gen, phase: str):
     arena["v"].fill_(-STALE)
     arenas = [arena, {k: v.clone() for k, v in arena.items()}]
     rows = torch.arange(B, device=dev)
-    outs = [forward(params, ids, cfg, cache=arenas[i], attention_mask=valid,
-                    start_pos=0, plain=bool(i))[0][rows, lengths - 1]
-            for i in range(2)]
+    paths = (forward, second)
+    outs = [paths[i](params, ids, cfg, cache=arenas[i], attention_mask=valid,
+                     start_pos=0)[0][rows, lengths - 1] for i in range(2)]
     errs = [max_err(outs[0], outs[1])]
     for t in range(8):
         tok = outs[1].argmax(dim=-1)
         valid[:, S + t] = 1
         pos = (lengths + t)[:, None]
-        outs = [forward(params, tok[:, None], cfg, cache=arenas[i],
-                        attention_mask=valid, start_pos=S + t, positions=pos,
-                        plain=bool(i))[0][:, -1] for i in range(2)]
+        outs = [paths[i](params, tok[:, None], cfg, cache=arenas[i],
+                         attention_mask=valid, start_pos=S + t,
+                         positions=pos)[0][:, -1] for i in range(2)]
         for o in outs:
             if not bool(torch.isfinite(o).all()):
                 raise AssertionError(f"{phase}: non-finite logits")
         errs.append(max_err(outs[0], outs[1]))
-    if not max(errs) <= E2E_TOL:
+    if tol is not None and not max(errs) <= tol:
         raise AssertionError(f"{phase}: logits max abs error {max(errs)} > "
-                             f"{E2E_TOL}")
+                             f"{tol}")
     return errs, outs[1]
 
 
@@ -1922,9 +1983,18 @@ def quant_phases(smi, bf16_tokens):
 
 def e2e_quant_phase(dev):
     """llama-7b widths at 2 layers, fp32 compute, weights int8, int4 (one
-    group) and int4 in groups of 128: the dense prefill (dequantized in
-    both paths: 2 x 256 rows) and 8 decode steps of 2 rows, through the
-    quantized GEMM kernels and through ``plain=True``."""
+    group) and int4 in groups of 128, each weight-only and with quantized
+    activations (w8a8 / w4a8: ``a8_decode``): the dense prefill (dequantized
+    in both paths: 2 x 256 rows) and 8 decode steps of 2 rows, through the
+    quantized GEMM kernels, held to E2E_TOL against ``plain=True`` for the
+    weight-only modes and against the same kernel path with the a8 GEMMs'
+    plain versions for w8a8 / w4a8 (``a8_plain_gemms``). Against
+    ``plain=True`` the a8 modes are measured, not held
+    (``plain_path_max_abs_err``): the attention and norm kernels differ from
+    their plain versions by fp32 rounding, and the activation quantization
+    turns such a difference into a whole quantization step wherever it
+    moves x / sx across a rounding boundary. Each decode step must launch
+    the mode's GEMM at every weight site and no other."""
     cfg = transformer_config("llama-7b", dtype=torch.float32, num_layers=2,
                              max_seq_len=512)
     gen = torch.Generator(device=dev)
@@ -1933,17 +2003,29 @@ def e2e_quant_phase(dev):
     cases = []
     for bits, groups in ((8, None), (4, None), (4, 128)):
         params = quantize_model_weights(dense, bits=bits, group_size=groups)
-        kernel = "int8_matmul" if bits == 8 else "int4_matmul"
-        reset_launch_counts()
-        errs, last = dense_parity(params, cfg, dev, gen,
-                                  f"e2e_quant int{bits} groups {groups}")
-        if launch_counts()[kernel] != 8 * per_forward(cfg):
-            raise AssertionError(f"e2e_quant: {kernel} launched "
-                                 f"{launch_counts()[kernel]} times, "
-                                 f"expected {8 * per_forward(cfg)}")
-        cases.append(dict(bits=bits, groups=groups, max_abs_err=max(errs),
-                          per_step=errs,
-                          logits_absmax=float(last.abs().max())))
+        for a8 in (False, True):
+            mode = ("w" if a8 else "int") + str(bits) + ("a8" if a8 else "")
+            want = {name: 0 for name in QUANT_MODES.values()}
+            want[QUANT_MODES[mode]] = 8 * per_forward(cfg)
+            mcfg = dataclasses.replace(cfg, a8_decode=a8)
+            label = f"e2e_quant {mode} groups {groups}"
+            reset_launch_counts()
+            errs, last = dense_parity(
+                params, mcfg, dev, gen, label,
+                second=a8_plain_gemms if a8 else plain_forward)
+            got = {name: launch_counts()[name] for name in want}
+            if got != want:
+                raise AssertionError(f"e2e_quant {mode}: launches {got}, "
+                                     f"expected {want}")
+            case = dict(mode=mode, bits=bits, groups=groups,
+                        max_abs_err=max(errs), per_step=errs,
+                        logits_absmax=float(last.abs().max()))
+            if a8:
+                plain_errs, _ = dense_parity(params, mcfg, dev, gen, label,
+                                             tol=None)
+                case.update(plain_path_max_abs_err=max(plain_errs),
+                            plain_path_per_step=plain_errs)
+            cases.append(case)
     return dict(phase="e2e_quant_parity", model="llama-7b", layers=2,
                 dtype="float32", prompt_lens=[200, 77], padded=256,
                 arena=512, decode_steps=8, tol=E2E_TOL, cases=cases)
@@ -2393,7 +2475,7 @@ def main() -> int:
     for src in sorted(set(registry.KERNELS.values())):
         registry.library(src)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              build_dir=str(registry.build_dir())))
+              build_dir=str(registry.BUILD_ROOT)))
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)

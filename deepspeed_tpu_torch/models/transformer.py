@@ -356,7 +356,8 @@ def _quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-output-channel int8: JAX's ``_quant_math`` for 8 bits."""
     w32 = w.float()
     absmax = w32.abs().amax(dim=-2, keepdim=True)
-    s = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / 127.0)
+    s = torch.where(absmax == 0.0, torch.ones_like(absmax),
+                    absmax / torch.full_like(absmax, 127.0))
     q = torch.clamp(torch.round(w32 / s), -127.0, 127.0).to(torch.int8)
     return {"q8": q, "s": s}
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``deepspeed_tpu/ops/quant_matmul.py``. Each of
 ``int8_matmul``, ``int8_a8_matmul``, ``int4_matmul`` and ``int4_a8_matmul``
-launches its CUDA kernel (``csrc/quant_matmul.cu``) on a CUDA tensor and runs
+launches its CUDA kernel on a CUDA tensor (the weight-only ones
+``csrc/quant_matmul.cu``, the a8 ones ``csrc/quant_matmul_a8.cu``) and runs
 its plain version (``reference_*``, the JAX oracle's arithmetic) on a CPU
 tensor. The kernels take what the decode path gives them: x (M <= 8, K) in
 float32 or bfloat16, the output in x's dtype. Which call reaches them is
@@ -20,6 +21,14 @@ Layouts (the JAX package's):
 
 The a8 variants quantize each row of x on the fly (``quantize_activation_rows``:
 absmax / 127, round half to even, clip to +-127) and multiply in integers.
+They take what JAX's ``int8_a8_matmul`` / ``int4_a8_matmul`` take (K and N,
+for int4 K/2 and N, multiples of 128), with 1..8 rows and int4 groups of a
+multiple of 16 rows (``check_a8_operands``, device-free).
+
+Every quantizer here divides by a tensor, never by a Python number: on a
+CUDA tensor ATen turns a division by a scalar into a product with its
+reciprocal, which moves some scales by one ulp from the CPU's and JAX's
+eager IEEE division.
 """
 
 from __future__ import annotations
@@ -32,8 +41,10 @@ import torch
 from . import registry
 
 MAX_ROWS = 8              # activation rows the kernels take (decode-shaped)
-COL_TILE = 32             # output columns per thread block
-MAX_A8_SMEM = 192 * 1024  # the a8 kernels hold the quantized x in shared memory
+COL_TILE = 32             # output columns per thread block (weight-only)
+A8_ALIGN = 128            # JAX's a8 kernels' K / N (int4: K/2 / N) multiple
+A8_GROUP = 16             # the a8 kernel's int4 groups: a multiple of 16 rows
+A8_MAX_K = 32768          # the a8 kernel holds K/8 of x in shared memory
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,7 +59,8 @@ def quantize_activation_rows(x: torch.Tensor
     """(M, K) float -> (int8 values, (M, 1) fp32 per-row scales)."""
     x32 = x.float()
     absmax = x32.abs().amax(dim=-1, keepdim=True)
-    s = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / 127.0)
+    s = torch.where(absmax == 0.0, torch.ones_like(absmax),
+                    absmax / torch.full_like(absmax, 127.0))
     q = torch.clamp(torch.round(x32 / s), -127, 127)
     return q.to(torch.int8), s
 
@@ -66,7 +78,8 @@ def quantize_int4(w: torch.Tensor, group_size: Optional[int] = None
     G = K // gs
     w32 = w.float().reshape(*lead, G, gs, N)
     absmax = w32.abs().amax(dim=-2)                        # (..., G, N)
-    s = torch.where(absmax == 0.0, torch.ones_like(absmax), absmax / 7.0)
+    s = torch.where(absmax == 0.0, torch.ones_like(absmax),
+                    absmax / torch.full_like(absmax, 7.0))
     q = torch.clamp(torch.round(w32 / s[..., None, :]), -7, 7).to(torch.int32)
     q = q.reshape(*lead, K, N)
     lo = q[..., :K // 2, :] & 0xF
@@ -143,19 +156,40 @@ def reference_int4_matmul(x, q4, scale, out_dtype=None):
 # ---------------------------------------------------------------------------
 
 
-def _fn():
-    fn = registry.library("quant_matmul").dstt_quant_matmul
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+# both entry points: x, q, s, out, M, K, N, G, int4, dtype, stream
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _check_common(name: str, x: torch.Tensor, out_dtype) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got "
+                         f"{x.dtype}")
+    if out_dtype is not None and out_dtype != x.dtype:
+        raise ValueError(f"{name}: the kernel writes x's dtype {x.dtype}, "
+                         f"not {out_dtype}")
+
+
+def _aligned(name: str, x: torch.Tensor, *others) -> torch.Tensor:
+    """x contiguous and 16-byte aligned (copied if not); the weight and the
+    scales must already be, on x's device."""
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous() if not x.is_contiguous() else x.clone()
+    for label, t in zip(("weight", "scales"), others):
+        if t.device != x.device:
+            raise ValueError(f"{name}: {label} on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            # the kernels read 16-byte vectors of weight rows and scales
+            raise ValueError(f"{name}: {label} must be contiguous and start "
+                             "16-byte aligned")
+    return x
 
 
 def _launch(name: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-            out_dtype, int4: bool, a8: bool) -> torch.Tensor:
-    """Check the operands of a CUDA call and launch the kernel."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
+            out_dtype, int4: bool) -> torch.Tensor:
+    """Check the operands of a weight-only CUDA call and launch the kernel."""
+    _check_common(name, x, out_dtype)
     if x.dim() != 2 or q.dim() != 2 or scale.dim() != 2:
         raise ValueError(f"{name}: x, the weight and the scales must be 2-D; "
                          f"got {tuple(x.shape)}, {tuple(q.shape)}, "
@@ -165,12 +199,6 @@ def _launch(name: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if not 1 <= M <= MAX_ROWS:
         raise ValueError(f"{name}: the kernel takes 1..{MAX_ROWS} rows, got "
                          f"{M}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"{name}: x must be float32 or bfloat16, got "
-                         f"{x.dtype}")
-    if out_dtype is not None and out_dtype != x.dtype:
-        raise ValueError(f"{name}: the kernel writes x's dtype {x.dtype}, "
-                         f"not {out_dtype}")
     want = torch.uint8 if int4 else torch.int8
     if q.dtype != want:
         raise ValueError(f"{name}: weight must be {want}, got {q.dtype}")
@@ -188,22 +216,71 @@ def _launch(name: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"{name}: needs N % {COL_TILE} == 0, K % 8 == 0 and "
                          f"groups of a multiple of 4 rows inside each nibble "
                          f"plane; got K={K}, N={N}, G={G}")
-    if a8 and M * K > MAX_A8_SMEM:
-        raise ValueError(f"{name}: M * K = {M * K} exceeds the kernel's "
-                         f"{MAX_A8_SMEM} bytes of quantized activations")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        x = x.contiguous() if not x.is_contiguous() else x.clone()
-    for label, t in (("weight", q), ("scales", scale)):
-        if t.device != x.device:
-            raise ValueError(f"{name}: {label} on {t.device}, x on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            # the kernel reads 16-byte vectors of weight rows and scales
-            raise ValueError(f"{name}: {label} must be contiguous and start "
-                             "16-byte aligned")
+    x = _aligned(name, x, q, scale)
     out = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    err = _fn()(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                M, K, N, G, int(int4), int(a8), _DTYPES[x.dtype],
-                torch.cuda.current_stream(x.device).cuda_stream)
+    fn = registry.function("quant_matmul", "dstt_quant_matmul", _ARGS)
+    err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+             M, K, N, G, int(int4), _DTYPES[x.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    registry.check_launch(name, err)
+    return out
+
+
+def check_a8_operands(name: str, x_shape, q_shape, scale_shape
+                      ) -> Tuple[int, int, int, int]:
+    """The a8 kernels' shape rules, device-free: JAX's checks first, with
+    its messages (int4: ``x K`` against the packed rows, then K/2 and N %
+    128; int8: K and N % 128), then the kernel's own (1..8 rows, scales
+    (G, N) with G == 1 for int8, int4 groups of a multiple of A8_GROUP
+    rows). ``name`` is ``int8_a8_matmul`` or ``int4_a8_matmul``. Returns
+    (M, K, N, G); raises ValueError. Beyond JAX: K <= A8_MAX_K."""
+    int4 = name == "int4_a8_matmul"
+    if len(x_shape) != 2 or len(q_shape) != 2 or len(scale_shape) != 2:
+        raise ValueError(f"{name}: x, the weight and the scales must be 2-D; "
+                         f"got {tuple(x_shape)}, {tuple(q_shape)}, "
+                         f"{tuple(scale_shape)}")
+    M, K = x_shape
+    rows, N = q_shape
+    if int4:
+        if K != 2 * rows:
+            raise ValueError(f"x K={K} vs packed K/2={rows}")
+        if rows % A8_ALIGN or N % A8_ALIGN:
+            raise ValueError(f"int4_a8_matmul needs K/2,N % 128 == 0, "
+                             f"got {rows}x{N}")
+    else:
+        if K % A8_ALIGN or N % A8_ALIGN:
+            raise ValueError(f"int8_a8_matmul needs K,N % 128 == 0, got "
+                             f"{K}x{N}")
+        if rows != K:
+            raise ValueError(f"{name}: x has K={K}, the weight {rows} rows")
+    if not 1 <= M <= MAX_ROWS or K > A8_MAX_K:
+        raise ValueError(f"{name}: the kernel takes 1..{MAX_ROWS} rows and K "
+                         f"up to {A8_MAX_K}, got {M} x {K}")
+    G = scale_shape[0]
+    if scale_shape[1] != N or G < 1 or (not int4 and G != 1) or K % G:
+        raise ValueError(f"{name}: scales must be ({'G' if int4 else 1}, {N})"
+                         f" with G dividing K; got {tuple(scale_shape)}")
+    if (K // G) % A8_GROUP:
+        raise ValueError(f"{name}: groups of {K // G} rows; the kernel takes "
+                         f"a multiple of {A8_GROUP}")
+    return M, K, N, G
+
+
+def _launch_a8(name: str, x: torch.Tensor, q: torch.Tensor,
+               scale: torch.Tensor, out_dtype, int4: bool) -> torch.Tensor:
+    """Check the operands of an a8 CUDA call and launch the kernel."""
+    _check_common(name, x, out_dtype)
+    M, K, N, G = check_a8_operands(name, x.shape, q.shape, scale.shape)
+    want = torch.uint8 if int4 else torch.int8
+    if q.dtype != want or scale.dtype != torch.float32:
+        raise ValueError(f"{name}: weight must be {want} and the scales "
+                         f"float32, got {q.dtype} and {scale.dtype}")
+    x = _aligned(name, x, q, scale)
+    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
+    fn = registry.function("quant_matmul_a8", "dstt_quant_matmul_a8", _ARGS)
+    err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+             M, K, N, G, int(int4), _DTYPES[x.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream)
     registry.check_launch(name, err)
     return out
 
@@ -213,7 +290,7 @@ def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
     """x (M, K) @ (q8 (K, N) int8 * scale (1, N)) -> (M, N)."""
     if x.device.type == "cpu":
         return reference_int8_matmul(x, q8, scale, out_dtype)
-    return _launch("int8_matmul", x, q8, scale, out_dtype, False, False)
+    return _launch("int8_matmul", x, q8, scale, out_dtype, False)
 
 
 def int8_a8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
@@ -222,7 +299,7 @@ def int8_a8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor,
     ``acc * sx * scale``."""
     if x.device.type == "cpu":
         return reference_int8_a8_matmul(x, q8, scale, out_dtype)
-    return _launch("int8_a8_matmul", x, q8, scale, out_dtype, False, True)
+    return _launch_a8("int8_a8_matmul", x, q8, scale, out_dtype, False)
 
 
 def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
@@ -230,7 +307,7 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     """x (M, K) @ unpack_int4(q4 (K/2, N), scale (G, N)) -> (M, N)."""
     if x.device.type == "cpu":
         return reference_int4_matmul(x, q4, scale, out_dtype)
-    return _launch("int4_matmul", x, q4, scale, out_dtype, True, False)
+    return _launch("int4_matmul", x, q4, scale, out_dtype, True)
 
 
 def int4_a8_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
@@ -239,4 +316,4 @@ def int4_a8_matmul(x: torch.Tensor, q4: torch.Tensor, scale: torch.Tensor,
     integers, group partials scaled by ``scale``, then times ``sx``."""
     if x.device.type == "cpu":
         return reference_int4_a8_matmul(x, q4, scale, out_dtype)
-    return _launch("int4_a8_matmul", x, q4, scale, out_dtype, True, True)
+    return _launch_a8("int4_a8_matmul", x, q4, scale, out_dtype, True)

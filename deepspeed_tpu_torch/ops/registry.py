@@ -9,9 +9,12 @@ is left here is the kernel library itself:
 * ``library(name)`` builds ``csrc/<name>.cu`` at first use with ``nvcc`` for
   ``sm_90a`` into a shared library with a plain C interface and loads it
   with ``ctypes``. Every source is compiled by its own ``nvcc`` process, all
-  started together. The output directory is keyed by a hash of the sources
-  and flags (``build/torch_kernels/<hash>/`` at the checkout root), so an
-  edited source is rebuilt and an unchanged one is loaded as it is.
+  started together. Each library is keyed by a hash of its own source, the
+  headers and the flags (``build/torch_kernels/<name>-<hash>.so`` at the
+  checkout root), so an edited source is rebuilt alone and an unchanged one
+  is loaded as it is; ``library`` builds only its own source when that
+  library is missing, ``build`` every missing one.
+* ``function(source, symbol, argtypes)``: a C entry point bound once.
 * ``check_launch`` / ``launch_counts`` / ``reset_launch_counts``: one plain
   integer per kernel, incremented by its wrapper each time it launches the
   kernel (and the launch reported no error), so a run can show that its
@@ -29,7 +32,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -47,9 +50,9 @@ KERNELS: Dict[str, str] = {
     "flash_attention_bwd_dkv": "flash_attention_bwd",
     "fused_adam": "fused_adam",
     "int8_matmul": "quant_matmul",
-    "int8_a8_matmul": "quant_matmul",
+    "int8_a8_matmul": "quant_matmul_a8",
     "int4_matmul": "quant_matmul",
-    "int4_a8_matmul": "quant_matmul",
+    "int4_a8_matmul": "quant_matmul_a8",
     "block_sparse_attention_fwd": "block_sparse_attention",
     "block_sparse_attention_bwd_dq": "block_sparse_attention",
     "block_sparse_attention_bwd_dkv": "block_sparse_attention",
@@ -60,6 +63,7 @@ KERNELS: Dict[str, str] = {
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -79,56 +83,83 @@ def _sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
-def build_dir() -> Path:
-    """``build/torch_kernels/<hash of every source, header and flag>``."""
+def source_key(name: str, csrc: Path = CSRC) -> str:
+    """Hash of the flags, every header (``*.cuh``, ``*.h``) and
+    ``<csrc>/<name>.cu``: what one source's library depends on."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
+    for p in sorted(csrc.glob("*.cuh")) + sorted(csrc.glob("*.h")) \
+            + [csrc / f"{name}.cu"]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile every ``csrc/*.cu`` not yet built for the current sources, one
-    ``nvcc`` process per source, all running at once. Returns the output
-    directory. Raises with the compiler's output when a build fails."""
-    out = build_dir()
-    todo = [(name, src) for name, src in _sources().items()
-            if not (out / f"{name}.so").exists()]
-    if not todo:
-        return out
-    out.mkdir(parents=True, exist_ok=True)
+def library_path(name: str) -> Path:
+    """``build/torch_kernels/<name>-<source_key(name)>.so``: an edited
+    source gets a new path and is rebuilt; the others keep theirs."""
+    return BUILD_ROOT / f"{name}-{source_key(name)}.so"
+
+
+def _compile(names, verbose: bool) -> None:
+    """One ``nvcc`` process per source, all running at once; raises with
+    the compiler's output when a build fails."""
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for name, src in todo:
-        tmp = out / f"{name}.{os.getpid()}.tmp.so"
+    for name in names:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(src)]
-        procs.append((name, tmp, subprocess.Popen(
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for name, tmp, proc in procs:
+    for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         if verbose and log:
             print(f"[nvcc {name}]\n{log}", flush=True)
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
         else:
-            os.replace(tmp, out / f"{name}.so")
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return out
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile every ``csrc/*.cu`` whose library is missing for its current
+    key, all in parallel. Returns the directory of the libraries."""
+    todo = [name for name in _sources() if not library_path(name).exists()]
+    if todo:
+        _compile(todo, verbose)
+    return BUILD_ROOT
 
 
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>.cu``, built on first use."""
+    """The loaded library of ``csrc/<source>.cu``, built on first use (that
+    source alone, when its library is missing)."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build() / f"{source}.so"))
+            path = library_path(source)
+            if not path.exists():
+                _compile([source], False)
+            lib = ctypes.CDLL(str(path))
             _libs[source] = lib
         return lib
+
+
+def function(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of ``library(source)`` with its ``argtypes`` set and an
+    int return, bound once and then taken from a cache."""
+    fn = _functions.get((source, symbol))
+    if fn is None:
+        fn = getattr(library(source), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(source, symbol)] = fn
+    return fn
 
 
 def launch_counts() -> Dict[str, int]:

@@ -52,6 +52,7 @@ PORT_KERNELS = ("ln_fwd_kernel", "paged_decode_kernel", "paged_prefill_kernel",
                 "paged_prefill_mma_kernel", "flash_fwd_kernel",
                 "flash_fwd_mma_kernel", "decode_kernel", "flash_bwd_dq",
                 "flash_bwd_dkv", "adam_kernel", "quant_matmul_kernel",
+                "quant_matmul_a8_kernel",
                 "sparse_fwd", "sparse_dq", "sparse_dkv",
                 "lamb_phase1_kernel")
 TRAIN_STEPS = 3

@@ -21,8 +21,10 @@ intermediates. The 16-bit flash backward adds twice one rounding of the
 type times the sum of its terms' magnitudes (``BWD_ROUND``); fused Adam
 1e-6 + 1e-5 relative (the same fp32 arithmetic, FMA-contracted). The
 quantized decode GEMMs (int8 / int4, weight-only and a8) run at small shapes
-and at llama-7b's decode sites against the same fp32 / bf16 tolerances (the
-a8 integer parts are exact, so only the fp32 scaling differs). The
+and at llama-7b's decode sites against the same fp32 / bf16 tolerances; the
+a8 ones with one scale group must equal their plain versions bit for bit
+(exact integer sums, the same fp32 epilogue), and the three quantizers must
+give the same q and scales on the card as on the CPU. The
 block-sparse kernels (forward, dq, dkv) run over DeepSpeed's layouts and
 over layouts with a key-less q-tile, padded list slots and asymmetric
 per-head masks, causal and not, against their plain versions with the
@@ -40,7 +42,8 @@ import numpy as np
 import pytest
 import torch
 
-from deepspeed_tpu_torch.models.transformer import alibi_slopes
+from deepspeed_tpu_torch.models.transformer import (_quantize_int8,
+                                                    alibi_slopes)
 from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
                                      flash_attention, flash_attention_bwd_dkv,
                                      flash_attention_bwd_dq,
@@ -595,19 +598,25 @@ def quant_operands(dev, name, M, K, N, groups, dtype, seed):
     w = t(rng.normal(0, 0.05, (K, N)).astype(np.float32), dev)
     w[:, 1] = 0.0
     if name.startswith("int8"):
-        absmax = w.abs().amax(dim=0, keepdim=True)
-        s = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
-        q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+        q, s = _quantize_int8(w).values()
     else:
         q, s = quantize_int4(w, groups)
     return t(x, dev, dtype), q, s
 
 
-@pytest.mark.parametrize("name", QUANT)
+# the a8 kernels take JAX's a8 shapes (K, N, for int4 K/2, multiples of
+# 128): (384, 96) is among the refused operands below
+QCASES = [(name, K, N) for name in QUANT for K, N in QSHAPES
+          if not ("_a8" in name and (K, N) == (384, 96))]
+
+
+@pytest.mark.parametrize("name,K,N", QCASES)
 @pytest.mark.parametrize("M", [1, 3, 8])
-@pytest.mark.parametrize("K,N", QSHAPES)
 @pytest.mark.parametrize("dtype,atol", LOW)
 def test_quant_matmul_matches_plain(dev, name, M, K, N, dtype, atol):
+    """The a8 kernels with one scale group equal their plain versions bit
+    for bit (exact integer sums, the same fp32 epilogue); the weight-only
+    ones and grouped int4 sum in fp32 in another order."""
     groups = [None] if name.startswith("int8") else [None, 128]
     if K == 384 and not name.startswith("int8"):
         groups = [None, 64]
@@ -620,8 +629,54 @@ def test_quant_matmul_matches_plain(dev, name, M, K, N, dtype, atol):
         assert launch_counts()[name] == before + 1
         ref = getattr(quant_matmul, "reference_" + name)(x, q, s)
         assert got.dtype == dtype and got.shape == (M, N)
-        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
-                                   rtol=atol)
+        if "_a8" in name and g is None:
+            assert torch.equal(got, ref), float((got - ref).abs().max())
+        else:
+            torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                       rtol=atol)
+
+
+@pytest.mark.parametrize("M,K,N,group", [(3, 256, 128, 16), (8, 768, 256, 48),
+                                         (5, 512, 384, 32), (8, 512, 128, 256)])
+@pytest.mark.parametrize("dtype,atol", LOW)
+def test_int4_a8_small_groups(dev, M, K, N, group, dtype, atol):
+    """W4A8 with groups that end inside a 32-row step (16, 48 rows: two
+    half steps) or on its edge."""
+    x, q, s = quant_operands(dev, "int4_a8_matmul", M, K, N, group, dtype,
+                             K + group)
+    got = quant_matmul.int4_a8_matmul(x, q, s)
+    ref = quant_matmul.reference_int4_a8_matmul(x, q, s)
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.parametrize("K,N", [(384, 256), (4096, 11008)])
+def test_quantizers_match_cpu_bit_for_bit(dev, K, N):
+    """The decode path's three quantizers (the a8 GEMMs' activation rows,
+    int8 and int4 weights) give the same q and scales on the card as on the
+    CPU: every division is an IEEE division on both devices (a division by
+    a Python number on a CUDA tensor is a product with its reciprocal)."""
+    rng = np.random.default_rng(K + N)
+    w = rng.normal(0, 0.05, (K, N)).astype(np.float32)
+    w[:, 1] = 0.0
+    x = rng.normal(0, 2.0, (8, K)).astype(np.float32)
+    x[2] = 0.0
+    group = 128 if (K // 2) % 128 == 0 else 64
+    cases = [("activation rows", quant_matmul.quantize_activation_rows, x),
+             ("int8 weights", lambda a: tuple(_quantize_int8(a).values()), w),
+             ("int4 weights", quantize_int4, w),
+             (f"int4 weights, groups of {group}",
+              lambda a: quantize_int4(a, group), w)]
+    differ = []
+    for label, fn, a in cases:
+        on_card = fn(t(a, dev))
+        on_cpu = fn(t(a, "cpu"))
+        for part, got, want in zip(("q", "scales"), on_card, on_cpu):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            diff = int((got.cpu() != want).sum())
+            if diff:
+                differ.append(f"{label}: {diff} of {want.numel()} {part}")
+    assert not differ, "differ on the card: " + "; ".join(differ)
 
 
 def test_quant_matmul_rejects_bad_operands(dev):
@@ -632,8 +687,17 @@ def test_quant_matmul_rejects_bad_operands(dev):
     with pytest.raises(ValueError):                   # fp16 x
         quant_matmul.int8_matmul(x.half(), q, s)
     with pytest.raises(ValueError):                   # N % 32
-        quant_matmul.int8_a8_matmul(x, q[:, :112].contiguous(),
-                                    s[:, :112].contiguous())
+        quant_matmul.int8_matmul(x, q[:, :112].contiguous(),
+                                 s[:, :112].contiguous())
+    for name in ("int8_a8_matmul", "int4_a8_matmul"):  # JAX's a8 shapes
+        x3, q3, s3 = quant_operands(dev, name, 3, 384, 96, None,
+                                    torch.float32, 1)
+        with pytest.raises(ValueError, match="128"):
+            getattr(quant_matmul, name)(x3, q3, s3)
+    x4, q4, s4 = quant_operands(dev, "int4_a8_matmul", 2, 256, 128, 32,
+                                torch.float32, 2)
+    with pytest.raises(ValueError, match="groups"):   # groups of 8 rows
+        quant_matmul.int4_a8_matmul(x4, q4, torch.cat([s4] * 4))
     with pytest.raises(ValueError):                   # another out dtype
         quant_matmul.int8_matmul(x, q, s, out_dtype=torch.bfloat16)
     with pytest.raises(ValueError):                   # int8 weight as int4

@@ -12,6 +12,9 @@ fp32 throughout:
   ``reference_int4_matmul`` / ``reference_int4_a8_matmul`` within
   ``2e-5 + 2e-5 |ref|`` (the same fp32 arithmetic summed in another order;
   the a8 integer parts are exact);
+* the a8 kernels' shape rules (``check_a8_operands``) refuse exactly the
+  shapes JAX's ``int8_a8_matmul`` / ``int4_a8_matmul`` refuse before their
+  ``pallas_call``;
 * ``_qeinsum`` at every route against JAX's: the kernel route with JAX's
   TPU semantics engaged on the CPU (``tpu_route`` below), the dequant route,
   and the gate's edges;
@@ -267,6 +270,69 @@ def test_int4_ops_match_jax_oracles(M, K, N, grouped):
         np.testing.assert_allclose(_np(mine(xt, q4, s)),
                                    np.asarray(oracle(xj, qj, sj)),
                                    atol=ATOL, rtol=RTOL)
+
+
+# (name, M, K, N, G): aligned and unaligned K / N (int4: K/2), int4 groups
+# of 16, 32 and 128 rows and one group, 1..8 rows
+A8_SHAPES = [("int8_a8_matmul", 8, 4096, 11008, 1),
+             ("int8_a8_matmul", 1, 256, 128, 1),
+             ("int8_a8_matmul", 3, 384, 96, 1),
+             ("int8_a8_matmul", 2, 200, 128, 1),
+             ("int8_a8_matmul", 2, 256, 160, 1),
+             ("int4_a8_matmul", 8, 4096, 11008, 1),
+             ("int4_a8_matmul", 8, 4096, 11008, 32),
+             ("int4_a8_matmul", 1, 256, 128, 16),
+             ("int4_a8_matmul", 5, 512, 384, 16),
+             ("int4_a8_matmul", 3, 512, 128, 32),
+             ("int4_a8_matmul", 2, 384, 256, 1),
+             ("int4_a8_matmul", 2, 384, 256, 3),
+             ("int4_a8_matmul", 2, 256, 96, 1),
+             ("int4_a8_matmul", 2, 1024, 256, 8)]
+
+
+def jax_a8_refuses(name, M, K, N, G) -> bool:
+    """Whether JAX's a8 function raises ValueError on these shapes. It
+    checks before its ``pallas_call``, so an accepted shape gets past its
+    checks and fails on the Pallas TPU parameters here (or runs)."""
+    rows = K // 2 if name.startswith("int4") else K
+    dtype = jnp.uint8 if name.startswith("int4") else jnp.int8
+    try:
+        getattr(jq, name)(jnp.zeros((M, K), jnp.float32),
+                          jnp.zeros((rows, N), dtype),
+                          jnp.ones((G, N), jnp.float32))
+    except ValueError:
+        return True
+    except Exception:            # past its checks: the Pallas call itself
+        pass
+    return False
+
+
+def port_a8_refuses(name, M, K, N, G) -> bool:
+    rows = K // 2 if name.startswith("int4") else K
+    try:
+        got = pq.check_a8_operands(name, (M, K), (rows, N), (G, N))
+    except ValueError:
+        return True
+    assert got == (M, K, N, G)
+    return False
+
+
+@pytest.mark.parametrize("name,M,K,N,G", A8_SHAPES)
+def test_a8_shape_rules_match_jax(name, M, K, N, G):
+    """``check_a8_operands`` raises ValueError exactly where JAX's a8
+    function does."""
+    assert port_a8_refuses(name, M, K, N, G) == jax_a8_refuses(name, M, K,
+                                                               N, G)
+
+
+@pytest.mark.parametrize("name,M,K,N,G", [("int4_a8_matmul", 3, 512, 128, 64),
+                                          ("int4_a8_matmul", 2, 768, 256, 5)])
+def test_a8_refuses_groups_jax_passes(name, M, K, N, G):
+    """Groups of 8 rows, or a G that does not divide K, get past JAX's
+    checks (its kernel tiles by the largest power of two dividing the
+    group); the kernel here takes groups of a multiple of 16 rows."""
+    assert not jax_a8_refuses(name, M, K, N, G)
+    assert port_a8_refuses(name, M, K, N, G)
 
 
 def test_wrappers_keep_dtype_and_route_cpu_to_plain():
