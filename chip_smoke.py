@@ -171,8 +171,7 @@ from deepspeed_tpu_torch.ops import (
     reference_block_sparse_attention, reference_block_sparse_attention_bwd,
     reference_lamb_flat, reference_lamb_phase1, tile_plan_for)
 from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
-                                     flash_attention, flash_attention_bwd_dkv,
-                                     flash_attention_bwd_dq,
+                                     flash_attention, flash_attention_bwd,
                                      flash_attention_bwd_magnitude,
                                      fused_adam_flat, fused_layer_norm,
                                      launch_counts, reference_adam_flat,
@@ -271,10 +270,8 @@ SOURCES = {
                         "deepspeed_tpu/ops/flash_attention.py:135"),
     "decode_attention": ("deepspeed_tpu_torch/csrc/decode_attention.cu",
                          "deepspeed_tpu/ops/decode_attention.py:161"),
-    "flash_attention_bwd_dq": ("deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
-                               "deepspeed_tpu/ops/flash_attention.py:286"),
-    "flash_attention_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
-                                "deepspeed_tpu/ops/flash_attention.py:311"),
+    "flash_attention_bwd": ("deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "deepspeed_tpu/ops/flash_attention.py:286,311"),
     "fused_adam": ("deepspeed_tpu_torch/csrc/fused_adam.cu",
                    "deepspeed_tpu/ops/fused_adam.py:72"),
     "int8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
@@ -315,11 +312,10 @@ SERVE_KERNELS = ("fused_layer_norm", "paged_decode_attention",
                  "paged_prefill_attention")
 GENERATE_KERNELS = ("fused_layer_norm", "flash_attention", "decode_attention")
 # the train path's kernels and their exact launches per step of OPT-1.3B
-# (24 layers: one flash forward and one dq / dkv backward each; two norms
+# (24 layers: one flash forward and one flash backward call each; two norms
 # each plus the final norm; one Adam launch for the whole model)
-TRAIN_KERNELS = {"flash_attention": 24, "flash_attention_bwd_dq": 24,
-                 "flash_attention_bwd_dkv": 24, "fused_layer_norm": 49,
-                 "fused_adam": 1}
+TRAIN_KERNELS = {"flash_attention": 24, "flash_attention_bwd": 24,
+                 "fused_layer_norm": 49, "fused_adam": 1}
 # the sparse_train path's kernels and their exact launches per step: the
 # sparse forward, dq and dkv once per layer, no flash kernel, the norms as
 # above, and one LAMB phase-1 launch for the whole model (its phase 2 is
@@ -327,8 +323,7 @@ TRAIN_KERNELS = {"flash_attention": 24, "flash_attention_bwd_dq": 24,
 SPARSE_TRAIN_KERNELS = {"block_sparse_attention_fwd": 24,
                         "block_sparse_attention_bwd_dq": 24,
                         "block_sparse_attention_bwd_dkv": 24,
-                        "flash_attention": 0, "flash_attention_bwd_dq": 0,
-                        "flash_attention_bwd_dkv": 0,
+                        "flash_attention": 0, "flash_attention_bwd": 0,
                         "fused_layer_norm": 49, "fused_adam": 0,
                         "fused_lamb": 1}
 # LAMB against its plain version: the same fp32 arithmetic as Adam's, so m,
@@ -737,18 +732,22 @@ def check_bwd(name: str, got, ref, mag, dtype) -> float:
 
 
 def flash_bwd_cases(dev, gen):
-    """The flash backward's dq and dkv kernels at OPT-1.3B's training shape
-    (B 4, S = T 1024, 32 heads of 64, causal, no mask) in bf16 and fp32;
-    then GQA (K 8) and alibi with right-padded masks with holes, whose
-    masked keys hold STALE. Inputs o / lse are the plain forward's; the
-    yardstick is autograd of ``scaled_dot_product_attention`` (the backward
-    alone) with the same causality and mask."""
+    """The flash backward (``flash_attention_bwd``: delta, dq, dk and dv in
+    one call) at OPT-1.3B's training shape (B 4, S = T 1024, 32 heads of 64,
+    causal, no mask) in bf16 and fp32; then GQA (K 8) and alibi with
+    right-padded masks with holes, whose masked keys hold STALE. Inputs o /
+    lse are the plain forward's; the yardstick is autograd of
+    ``scaled_dot_product_attention`` (the backward alone, all three
+    gradients) with the same causality and mask. The bound: 10 D operations
+    per visible pair (S, dP, dV, dK, dQ) and the bytes of q, k, v, o, dO,
+    lse (and the mask) read once and dq, dk, dv written once; the fp32 dq
+    accumulator is scratch and is not counted."""
     D = 64
     specs = [("train", torch.bfloat16, 4, 1024, 32, 32, False, False),
              ("train", torch.float32, 4, 1024, 32, 32, False, False),
              ("gqa_mask", torch.bfloat16, 4, 512, 32, 8, True, False),
              ("alibi_mask", torch.bfloat16, 2, 512, 32, 32, True, True)]
-    out = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    out = []
     for case, dtype, B, S, N, K, masked, use_alibi in specs:
         T = S
         if masked:
@@ -763,14 +762,13 @@ def flash_bwd_cases(dev, gen):
         al = alibi_slopes(N, device=dev) if use_alibi else None
         o, lse = reference_flash_attention(q, k, v, mask, True, None, al,
                                            return_lse=True)
-        delta = attention_delta(o, do)
-        args = (q, k, v, do, lse, delta, mask, True, None, al)
-        got = (flash_attention_bwd_dq(*args),
-               *flash_attention_bwd_dkv(*args))
-        refs = reference_flash_attention_bwd(q, k, v, o, lse, do, mask,
-                                             True, None, al)
-        mags = flash_attention_bwd_magnitude(q, k, v, o, lse, do, mask,
-                                             True, None, al)
+        # contiguous, as the forward kernel writes it (the plain forward
+        # returns a permuted view, which the wrapper would copy)
+        o = o.contiguous()
+        args = (q, k, v, o, lse, do, mask, True, None, al)
+        got = flash_attention_bwd(*args)
+        refs = reference_flash_attention_bwd(*args)
+        mags = flash_attention_bwd_magnitude(*args)
         errs = [check_bwd(f"flash_attention_bwd {case} {dtype} {part}",
                           g, r, m, dtype)
                 for part, g, r, m in zip(("dq", "dk", "dv"), got, refs, mags)]
@@ -779,19 +777,18 @@ def flash_bwd_cases(dev, gen):
             if bool((got[1][dead] != 0).any() | (got[2][dead] != 0).any()):
                 raise AssertionError(f"flash_attention_bwd {case}: a masked "
                                      "key got a gradient")
-        del refs, mags
+        del refs, mags, got
         # the work these inputs need: the causal pairs of visible keys
         seen = (mask if mask is not None
                 else torch.ones(B, T, dtype=torch.int32, device=dev)).long()
         pairs = int(torch.cumsum(seen, dim=1).sum()) * N
         item = q.element_size()
-        io = (2 * B * S * N * D + 2 * B * T * K * D) * item + 8 * B * N * S \
-            + (4 * B * T if mask is not None else 0)
+        nbytes = (4 * B * S * N * D + 4 * B * T * K * D) * item \
+            + 4 * B * N * S + (4 * B * T if mask is not None else 0)
         peak = BF16_FLOPS if dtype != torch.float32 else FP32_FLOPS
-        b_dq = bound_ms(io + B * S * N * D * item, 6.0 * pairs * D, peak)
-        b_dkv = bound_ms(io + 2 * B * T * K * D * item, 8.0 * pairs * D, peak)
-        plain = time_ms(lambda: reference_flash_attention_bwd(
-            q, k, v, o, lse, do, mask, True, None, al), iters=2, reps=3)
+        b_ms, b_by = bound_ms(nbytes, 10.0 * pairs * D, peak)
+        plain = time_ms(lambda: reference_flash_attention_bwd(*args),
+                        iters=2, reps=3)
         library = None
         if al is None:
             G = N // K
@@ -811,20 +808,16 @@ def flash_bwd_cases(dev, gen):
             library = time_eager_ms(lambda: torch.autograd.grad(
                 lo, (lq, lk, lv), ldo, retain_graph=True))
             del lo
-        common = dict(case=case, B=B, S=S, T=T, N=N, K=K, D=D, causal=True,
-                      masked=masked, alibi=use_alibi, dtype=str(dtype),
-                      tol=dict(zip(("atol", "rtol"), TOL[dtype]),
-                               round=BWD_ROUND[dtype]),
-                      plain_ms=plain, library_ms=library)
-        out["flash_attention_bwd_dq"].append(dict(
-            common, max_abs_err=errs[0],
-            ms=time_ms(lambda: flash_attention_bwd_dq(*args)),
-            bound_ms=b_dq[0], bound_by=b_dq[1]))
-        out["flash_attention_bwd_dkv"].append(dict(
-            common, max_abs_err=max(errs[1:]),
-            ms=time_ms(lambda: flash_attention_bwd_dkv(*args)),
-            bound_ms=b_dkv[0], bound_by=b_dkv[1]))
-        del q, k, v, do, o, lse, delta, got
+        out.append(dict(
+            case=case, B=B, S=S, T=T, N=N, K=K, D=D, causal=True,
+            masked=masked, alibi=use_alibi, dtype=str(dtype),
+            tol=dict(zip(("atol", "rtol"), TOL[dtype]),
+                     round=BWD_ROUND[dtype]),
+            max_abs_err=max(errs), visible_pairs=pairs,
+            ms=time_ms(lambda: flash_attention_bwd(*args)),
+            plain_ms=plain, library_ms=library, bound_ms=b_ms,
+            bound_by=b_by))
+        del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return out
 
@@ -961,15 +954,13 @@ def sparse_timing(dtype) -> dict:
 
 def flash_same_shape(q, k, v, do):
     """The port's flash kernels (causal) at the sparse shape: ms of the
-    forward, dq and dkv."""
+    forward and of the whole backward (dq, dk and dv in one call)."""
     o, lse = flash_attention(q, k, v, None, causal=True, return_lse=True)
-    delta = attention_delta(o, do)
-    args = (q, k, v, do, lse, delta, None, True)
     kw = sparse_timing(q.dtype)
     return dict(fwd=time_ms(lambda: flash_attention(q, k, v, None,
                                                     causal=True), **kw),
-                dq=time_ms(lambda: flash_attention_bwd_dq(*args), **kw),
-                dkv=time_ms(lambda: flash_attention_bwd_dkv(*args), **kw))
+                bwd=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do),
+                            **kw))
 
 
 def visible_mask(plan, causal: bool, device) -> torch.Tensor:
@@ -988,7 +979,8 @@ def sparse_case(case, plan, causal, q, k, v, do, flash):
     the visible (query, key) pairs only (``visible_mask``), not of every
     pair of the active 128-tiles the kernels visit; the yardstick is SDPA
     with the plan's boolean token mask (forward, and autograd of it for the
-    backward)."""
+    backward). ``flash_ms``: the port's flash forward beside the forward,
+    its whole backward (one call for dq, dk and dv) beside dq and dkv."""
     B, S, N, D = q.shape
     dtype = q.dtype
     name = f"block_sparse {case} {dtype}"
@@ -1060,13 +1052,13 @@ def sparse_case(case, plan, causal, q, k, v, do, flash):
             common, max_abs_err=errs[0],
             ms=time_ms(lambda: block_sparse_attention_bwd_dq(*args), **kw),
             plain_ms=plain_bwd, library_ms=lib_bwd,
-            flash_ms=flash and flash["dq"], bound_ms=b_dq[0],
+            flash_ms=flash and flash["bwd"], bound_ms=b_dq[0],
             bound_by=b_dq[1]),
         "block_sparse_attention_bwd_dkv": dict(
             common, max_abs_err=max(errs[1:]),
             ms=time_ms(lambda: block_sparse_attention_bwd_dkv(*args), **kw),
             plain_ms=plain_bwd, library_ms=lib_bwd,
-            flash_ms=flash and flash["dkv"], bound_ms=b_dkv[0],
+            flash_ms=flash and flash["bwd"], bound_ms=b_dkv[0],
             bound_by=b_dkv[1])}
     del ro, rlse, delta, keep
     torch.cuda.empty_cache()
@@ -2544,8 +2536,7 @@ def main() -> int:
             "paged_prefill_attention": lambda c: c["start"] == 256,
             "flash_attention": lambda c: c["case"] == "prefill",
             "decode_attention": lambda c: c["case"] == "decode",
-            "flash_attention_bwd_dq": lambda c: c["case"] == "train",
-            "flash_attention_bwd_dkv": lambda c: c["case"] == "train",
+            "flash_attention_bwd": lambda c: c["case"] == "train",
             "fused_adam": lambda c: c["case"] == "train",
             "block_sparse_attention_fwd": lambda c: c["case"] == "fixed",
             "block_sparse_attention_bwd_dq": lambda c: c["case"] == "fixed",

@@ -6,8 +6,7 @@ from .block_sparse_attention import (  # noqa: F401
 from .decode_attention import (decode_attention,  # noqa: F401
                                reference_decode_attention)
 from .flash_attention import (attention_delta, flash_attention,  # noqa: F401
-                              flash_attention_bwd, flash_attention_bwd_dkv,
-                              flash_attention_bwd_dq,
+                              flash_attention_bwd,
                               flash_attention_bwd_magnitude,
                               reference_flash_attention,
                               reference_flash_attention_bwd)
@@ -56,7 +55,6 @@ __all__ = ["TilePlan", "block_sparse_attention",
            "sparse_self_attention", "tile_plan_for",
            "decode_attention", "reference_decode_attention",
            "attention_delta", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd_magnitude",
            "reference_flash_attention", "reference_flash_attention_bwd",
            "fused_adam_flat", "reference_adam_flat",

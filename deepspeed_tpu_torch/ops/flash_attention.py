@@ -5,15 +5,16 @@ Counterpart of ``deepspeed_tpu/ops/flash_attention.py``. ``flash_attention``
 launches the forward CUDA kernel of ``csrc/flash_attention.cu`` on a CUDA
 tensor and runs its plain version, ``reference_flash_attention``, on a CPU
 tensor. When autograd needs its gradient on a CUDA tensor, the forward also
-writes lse and the backward is two CUDA kernels of
-``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_dq`` and
-``flash_attention_bwd_dkv``, the JAX ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``) fed with delta = rowsum(dO * O), which stays one plain
-torch op as in JAX (``flash_attention.py:271``). On a CPU tensor autograd
-differentiates the plain forward natively; ``reference_flash_attention_bwd``
-is the two kernels' plain version (the FA2 recompute from lse). The forward
-kernel takes head_dim up to 512 (the SD VAE mid block's single head of
-512); the backward kernels up to 256, and a backward above that raises
+writes lse and the backward is ``flash_attention_bwd``: one call into
+``csrc/flash_attention_bwd.cu`` that computes delta = rowsum(dO * O), dq, dk
+and dv (the JAX ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` with the delta JAX
+computes outside them, ``flash_attention.py:271``); for 16-bit inputs with
+head_dim in {16, 32, 64, 128} that is one fused pass on Hopper's wgmma and
+TMA, else CUDA-core kernels. On a CPU tensor autograd differentiates the
+plain forward natively; ``reference_flash_attention_bwd`` is the backward's
+plain version (the FA2 recompute from lse, delta by ``attention_delta``).
+The forward kernel takes head_dim up to 512 (the SD VAE mid block's single
+head of 512); the backward up to 256, and a backward above that raises
 ValueError.
 
 Layouts are the JAX wrapper's: q (B, S, N, D), k / v (B, T, K, D) with
@@ -131,7 +132,7 @@ def reference_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                                   alibi: Optional[torch.Tensor] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
-    """Plain version of the two backward kernels: the FA2 recompute from
+    """Plain version of ``flash_attention_bwd``: the FA2 recompute from
     the forward's lse (B, N, S), delta = rowsum(dO * O), fp32 arithmetic.
     Returns (dq, dk, dv) in q's / k's / v's dtypes."""
     return _reference_bwd(q, k, v, do, lse, attention_delta(o, do), mask,
@@ -199,19 +200,18 @@ def _check(name: str, q, k, v, mask, alibi, max_d: int = MAX_HEAD_DIM):
     return mask
 
 
-def _check_grad_operands(name: str, q, do, lse, delta):
+def _check_grad_operands(name: str, q, o, do, lse):
     B, S, N, _ = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"{name}: dout must match q {tuple(q.shape)} "
-                         f"{q.dtype}, got {tuple(do.shape)} {do.dtype}")
-    if not do.is_contiguous() or do.data_ptr() % 16:
-        raise ValueError(f"{name}: dout must be contiguous and 16-byte "
-                         "aligned")
-    for tname, t in (("lse", lse), ("delta", delta)):
-        if (t.shape != (B, N, S) or t.dtype != torch.float32
-                or t.device != q.device or not t.is_contiguous()):
-            raise ValueError(f"{name}: {tname} must be ({B}, {N}, {S}) "
-                             f"contiguous float32 on {q.device}")
+    for tname, t in (("o", o), ("dout", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {tname} must match q {tuple(q.shape)} "
+                             f"{q.dtype}, got {tuple(t.shape)} {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must start 16-byte aligned")
+    if (lse.shape != (B, N, S) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{name}: lse must be ({B}, {N}, {S}) contiguous "
+                         f"float32 on {q.device}")
 
 
 def _fn(source: str, symbol: str, n_ptrs: int):
@@ -241,77 +241,48 @@ def _launch_fwd(q, k, v, mask, causal, scale, alibi, return_lse):
     return out, lse
 
 
-def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           do: torch.Tensor, lse: torch.Tensor,
-                           delta: torch.Tensor,
-                           mask: Optional[torch.Tensor] = None,
-                           causal: bool = True, scale: Optional[float] = None,
-                           alibi: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """dq (B, S, N, D) from the forward's lse and delta (both (B, N, S)
-    fp32): the dq kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
-    if q.device.type == "cpu":
-        return _reference_bwd(q, k, v, do, lse, delta, mask, causal, scale,
-                              alibi)[0]
-    mask = _check("flash_attention_bwd_dq", q, k, v, mask, alibi,
-                  MAX_BWD_HEAD_DIM)
-    _check_grad_operands("flash_attention_bwd_dq", q, do, lse, delta)
-    B, S, N, D = q.shape
-    T, K = k.shape[1], k.shape[2]
-    dq = torch.empty_like(q)
-    err = _fn("flash_attention_bwd", "dstt_flash_bwd_dq", 9)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(alibi),
-        dq.data_ptr(), B, S, T, N, K, D, int(causal), _scale(D, scale),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    registry.check_launch("flash_attention_bwd_dq", err)
-    return dq
+def _bwd_workspace_floats(B: int, S: int, N: int, D: int) -> int:
+    """fp32 scratch of one backward call, enough for either route of
+    ``csrc/flash_attention_bwd.cu``: the fused pass's dq accumulator (B, S,
+    N, D) and its lse / delta tiles (B, N, ceil(S / 64), 2, 64), of which
+    the CUDA-core kernels (fp32, other head_dims) use B N S for delta."""
+    return B * S * N * D + B * N * -(-S // 64) * 128
 
 
-def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, do: torch.Tensor,
-                            lse: torch.Tensor, delta: torch.Tensor,
-                            mask: Optional[torch.Tensor] = None,
-                            causal: bool = True,
-                            scale: Optional[float] = None,
-                            alibi: Optional[torch.Tensor] = None
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv), each (B, T, K, D), summed over the query heads of each KV
-    head: the dkv kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None,
+                        causal: bool = True, scale: Optional[float] = None,
+                        alibi: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` from its output o, its lse (B,
+    N, S) fp32 and dout: one call into the backward's CUDA kernels on a CUDA
+    tensor (delta included), the plain version on a CPU tensor. dk / dv sum
+    over the query heads of each KV head."""
     if q.device.type == "cpu":
-        return _reference_bwd(q, k, v, do, lse, delta, mask, causal, scale,
-                              alibi)[1:]
-    mask = _check("flash_attention_bwd_dkv", q, k, v, mask, alibi,
+        return reference_flash_attention_bwd(q, k, v, o, lse, do, mask,
+                                             causal, scale, alibi)
+    mask = _check("flash_attention_bwd", q, k, v, mask, alibi,
                   MAX_BWD_HEAD_DIM)
-    _check_grad_operands("flash_attention_bwd_dkv", q, do, lse, delta)
+    o, do = o.contiguous(), do.contiguous()
+    _check_grad_operands("flash_attention_bwd", q, o, do, lse)
     B, S, N, D = q.shape
     T, K = k.shape[1], k.shape[2]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _fn("flash_attention_bwd", "dstt_flash_bwd_dkv", 10)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(mask), _ptr(alibi),
-        dk.data_ptr(), dv.data_ptr(), B, S, T, N, K, D, int(causal),
-        _scale(D, scale), _DTYPES[q.dtype],
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ws = torch.empty(_bwd_workspace_floats(B, S, N, D), dtype=torch.float32,
+                     device=q.device)
+    err = _fn("flash_attention_bwd", "dstt_flash_bwd", 12)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), _ptr(mask), _ptr(alibi),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+        B, S, T, N, K, D, int(causal), _scale(D, scale), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    registry.check_launch("flash_attention_bwd_dkv", err)
-    return dk, dv
-
-
-def flash_attention_bwd(q, k, v, o, lse, do, mask=None, causal=True,
-                        scale=None, alibi=None):
-    """(dq, dk, dv): delta in plain torch, then the dq and dkv kernels (on
-    a CPU tensor, their plain version)."""
-    delta = attention_delta(o, do)
-    return (flash_attention_bwd_dq(q, k, v, do, lse, delta, mask, causal,
-                                   scale, alibi),
-            *flash_attention_bwd_dkv(q, k, v, do, lse, delta, mask, causal,
-                                     scale, alibi))
+    registry.check_launch("flash_attention_bwd", err)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel (with lse) and the two backward kernels under
+    """The forward kernel (with lse) and ``flash_attention_bwd`` under
     autograd, for CUDA tensors; mask and alibi get no gradient (alibi slopes
     are constants, JAX returns zeros for them)."""
 

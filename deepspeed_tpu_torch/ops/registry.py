@@ -46,8 +46,7 @@ KERNELS: Dict[str, str] = {
     "paged_prefill_attention": "paged_attention",
     "flash_attention": "flash_attention",
     "decode_attention": "decode_attention",
-    "flash_attention_bwd_dq": "flash_attention_bwd",
-    "flash_attention_bwd_dkv": "flash_attention_bwd",
+    "flash_attention_bwd": "flash_attention_bwd",
     "fused_adam": "fused_adam",
     "int8_matmul": "quant_matmul",
     "int8_a8_matmul": "quant_matmul_a8",

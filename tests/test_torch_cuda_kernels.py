@@ -7,8 +7,8 @@ Dense attention (``flash_attention``, ``decode_attention``) runs at small
 shapes and at the shapes of llama-7b's ``generate`` (B 8, 32 heads, D 128,
 a 1024-column arena), with alibi, GQA, ragged masks with holes, and arena
 slots outside every mask holding large finite values. The training kernels
-(the flash backward's dq and dkv, fused Adam) run at small shapes and at
-OPT-1.3B's training shape, and the norm and flash kernels under autograd
+(the flash backward, one call for dq, dk and dv; fused Adam) run at small
+shapes and at OPT-1.3B's training shape, and the norm and flash kernels under autograd
 are held against autograd through their plain versions. The file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -45,8 +45,7 @@ import torch
 from deepspeed_tpu_torch.models.transformer import (_quantize_int8,
                                                     alibi_slopes)
 from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
-                                     flash_attention, flash_attention_bwd_dkv,
-                                     flash_attention_bwd_dq,
+                                     flash_attention, flash_attention_bwd,
                                      flash_attention_bwd_magnitude,
                                      fused_adam_flat,
                                      fused_layer_norm, launch_counts,
@@ -436,48 +435,114 @@ BWD_ROUND = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11,
              torch.float32: 0.0}
 
 
+def bwd_operands(dev, B, S, T, N, K, D, dtype, seed, lo, stale=STALE):
+    """q, k, v, dout, mask (numpy mask too) for a backward case; masked keys'
+    K / V rows hold +-stale (NaN allowed)."""
+    rng = np.random.default_rng(seed)
+    mask = dense_mask(B, T, seed=T + 1, lo=lo)
+    k, v = dense_kv(B, T, K, D, mask, seed=D + 1)
+    k[mask == 0] = stale
+    v[mask == 0] = -stale
+    q = rng.normal(size=(B, S, N, D))
+    do = rng.normal(size=(B, S, N, D))
+    return (*(t(a, dev, dtype) for a in (q, k, v, do)), t(mask, dev), mask)
+
+
+def hold_bwd(got, refs, mags, dtype, atol):
+    for g, ref, mag in zip(got, refs, mags):
+        assert torch.isfinite(g).all()
+        # 16-bit: P and dS enter the tensor-core products rounded once to
+        # the input type (as in FA2), so a sum over up to T terms errs by up
+        # to that rounding times the sum of its terms' magnitudes (``mag``),
+        # which cancellation can leave far above the result itself
+        diff = (g.float() - ref.float()).abs()
+        bound = atol + atol * ref.float().abs() + BWD_ROUND[dtype] * mag
+        assert bool((diff <= bound).all()), float((diff - bound).max())
+
+
 @pytest.mark.parametrize("B,S,T,N,K,D,causal,use_alibi,dtype,atol",
                          attn_params(BWD_SHAPES,
                                      [(c, a) for c in (True, False)
                                       for a in (False, True)]))
 def test_flash_bwd_matches_plain(dev, B, S, T, N, K, D, causal, use_alibi,
                                  dtype, atol):
-    rng = np.random.default_rng(S * T + N + D)
-    mask = dense_mask(B, T, seed=T + 1, lo=max(1, T // 2))
-    k, v = dense_kv(B, T, K, D, mask, seed=D + 1)
-    q = rng.normal(size=(B, S, N, D))
-    do = rng.normal(size=(B, S, N, D))
+    qt, kt, vt, dot, m, mask = bwd_operands(dev, B, S, T, N, K, D, dtype,
+                                            S * T + N + D, max(1, T // 2))
     al = alibi_slopes(N, device=dev) if use_alibi else None
-    qt, kt, vt, dot = (t(a, dev, dtype) for a in (q, k, v, do))
-    m = t(mask, dev)
     o, lse = reference_flash_attention(qt, kt, vt, m, causal, None, al,
                                        return_lse=True)
-    delta = attention_delta(o, dot)
-    before = launch_counts()
-    dq = flash_attention_bwd_dq(qt, kt, vt, dot, lse, delta, m, causal,
-                                None, al)
-    dk, dv = flash_attention_bwd_dkv(qt, kt, vt, dot, lse, delta, m, causal,
+    before = launch_counts()["flash_attention_bwd"]
+    dq, dk, dv = flash_attention_bwd(qt, kt, vt, o, lse, dot, m, causal,
                                      None, al)
     torch.cuda.synchronize()
-    after = launch_counts()
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        assert after[name] == before[name] + 1
+    assert launch_counts()["flash_attention_bwd"] == before + 1
     refs = reference_flash_attention_bwd(qt, kt, vt, o, lse, dot, m, causal,
                                          None, al)
     mags = flash_attention_bwd_magnitude(qt, kt, vt, o, lse, dot, m, causal,
                                          None, al)
-    for got, ref, mag in zip((dq, dk, dv), refs, mags):
-        assert torch.isfinite(got).all()
-        # 16-bit: P and dS enter the tensor-core products rounded once to
-        # the input type (as in FA2), so a sum over up to T terms errs by up
-        # to that rounding times the sum of its terms' magnitudes (``mag``),
-        # which cancellation can leave far above the result itself
-        diff = (got.float() - ref.float()).abs()
-        bound = atol + atol * ref.float().abs() + BWD_ROUND[dtype] * mag
-        assert bool((diff <= bound).all()), float((diff - bound).max())
+    hold_bwd((dq, dk, dv), refs, mags, dtype, atol)
     # masked keys get no gradient
     dead = torch.from_numpy(mask == 0).to(dev)
     assert (dk[dead] == 0).all() and (dv[dead] == 0).all()
+
+
+@pytest.mark.parametrize("D", [16, 64, 128, 48])
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_flash_bwd_nan_in_masked_rows(dev, D, dtype, atol):
+    """Masked keys whose K / V rows hold NaN: every gradient finite, masked
+    keys' dk / dv exactly 0, the rest as with finite rows there."""
+    B, S, N, K = 2, 150, 4, 2
+    qt, kt, vt, dot, m, mask = bwd_operands(dev, B, S, S, N, K, D, dtype, 11,
+                                            S // 2, stale=float("nan"))
+    kz, vz = torch.nan_to_num(kt, nan=0.0), torch.nan_to_num(vt, nan=0.0)
+    o, lse = reference_flash_attention(qt, kz, vz, m, True, None, None,
+                                       return_lse=True)
+    got = flash_attention_bwd(qt, kt, vt, o, lse, dot, m)
+    refs = reference_flash_attention_bwd(qt, kz, vz, o, lse, dot, m)
+    mags = flash_attention_bwd_magnitude(qt, kz, vz, o, lse, dot, m)
+    hold_bwd(got, refs, mags, dtype, atol)
+    dead = torch.from_numpy(mask == 0).to(dev)
+    assert (got[1][dead] == 0).all() and (got[2][dead] == 0).all()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_flash_bwd_keys_past_last_query(dev, D, dtype, atol):
+    """Causal with T > S: key tiles past the last query are seen by no
+    query, so their dk / dv are exactly 0; the rest matches the plain
+    version."""
+    B, S, T, N, K = 2, 70, 400, 4, 2
+    qt, kt, vt, dot, m, mask = bwd_operands(dev, B, S, T, N, K, D, dtype, 12,
+                                            T - 20)
+    o, lse = reference_flash_attention(qt, kt, vt, m, True, None, None,
+                                       return_lse=True)
+    got = flash_attention_bwd(qt, kt, vt, o, lse, dot, m)
+    refs = reference_flash_attention_bwd(qt, kt, vt, o, lse, dot, m)
+    mags = flash_attention_bwd_magnitude(qt, kt, vt, o, lse, dot, m)
+    hold_bwd(got, refs, mags, dtype, atol)
+    assert (got[1][:, S:] == 0).all() and (got[2][:, S:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_flash_bwd_repeatable(dev, dtype):
+    """Two calls on the same inputs: dk and dv bit-equal (each key's rows
+    are written once, by one block, in a fixed order); dq may differ in
+    the order its fp32 partial sums (one per 128-key tile) land by
+    atomics: at most one rounding of the type at |dq| plus the reordering
+    of those sums, 2^-20 (~16 fp32 ulps: at most 8 partials here) of the
+    sum of its terms' magnitudes."""
+    B, S, N, K, D = 2, 1024, 8, 2, 64
+    qt, kt, vt, dot, m, _ = bwd_operands(dev, B, S, S, N, K, D, dtype, 13,
+                                         S // 2)
+    o, lse = reference_flash_attention(qt, kt, vt, m, True, None, None,
+                                       return_lse=True)
+    a = flash_attention_bwd(qt, kt, vt, o, lse, dot, m)
+    b = flash_attention_bwd(qt, kt, vt, o, lse, dot, m)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    mag = flash_attention_bwd_magnitude(qt, kt, vt, o, lse, dot, m)[0]
+    bound = (torch.finfo(dtype).eps * a[0].float().abs() + 2.0 ** -20 * mag)
+    assert bool(((a[0].float() - b[0].float()).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("dtype,atol", LOW)
@@ -505,9 +570,18 @@ def test_flash_bwd_rejects_bad_operands(dev):
     k = torch.zeros(2, 8, 2, 32, device=dev, dtype=torch.bfloat16)
     lse = torch.zeros(2, 4, 8, device=dev)
     with pytest.raises(ValueError):                     # dout dtype
-        flash_attention_bwd_dq(q, k, k, q.float(), lse, lse)
+        flash_attention_bwd(q, k, k, q, lse, q.float())
+    with pytest.raises(ValueError):                     # o shape
+        flash_attention_bwd(q, k, k, q[:, :4], lse, q)
     with pytest.raises(ValueError):                     # lse layout
-        flash_attention_bwd_dkv(q, k, k, q, lse.transpose(1, 2), lse)
+        flash_attention_bwd(q, k, k, q, lse.transpose(1, 2), q)
+    with pytest.raises(ValueError):                     # dtype
+        flash_attention_bwd(q.double(), k.double(), k.double(), q.double(),
+                            lse, q.double())
+    wide = torch.zeros(1, 8, 1, 264, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # head_dim > 256
+        flash_attention_bwd(wide, wide, wide, wide,
+                            torch.zeros(1, 1, 8, device=dev), wide)
 
 
 @pytest.mark.parametrize("n", [1, 4099, 1 << 20])

@@ -45,9 +45,8 @@ from deepspeed_tpu_torch.models import (Model, create_model,
                                         params_to_numpy)
 from deepspeed_tpu_torch.models.core import tree_leaves
 from deepspeed_tpu_torch.models.transformer import alibi_slopes
-from deepspeed_tpu_torch.ops import (attention_delta, flash_attention,
-                                     flash_attention_bwd_dkv,
-                                     flash_attention_bwd_dq, fused_layer_norm,
+from deepspeed_tpu_torch.ops import (flash_attention, flash_attention_bwd,
+                                     fused_layer_norm, launch_counts,
                                      layer_norm_bwd,
                                      reference_flash_attention,
                                      reference_flash_attention_bwd)
@@ -100,16 +99,39 @@ def test_flash_backward_matches_jax_vjp(B, S, N, K, D, causal, masked,
                                        return_lse=True)
     plain = reference_flash_attention_bwd(tq, tk, tv, o, lse, tdo, tm,
                                           causal, None, al)
-    delta = attention_delta(o, tdo)
-    wrapped = (flash_attention_bwd_dq(tq, tk, tv, tdo, lse, delta, tm,
-                                      causal, None, al),
-               *flash_attention_bwd_dkv(tq, tk, tv, tdo, lse, delta, tm,
-                                        causal, None, al))
+    wrapped = flash_attention_bwd(tq, tk, tv, o, lse, tdo, tm, causal, None,
+                                  al)
     leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
     flash_attention(*leaves, tm, causal=causal, alibi=al).backward(tdo)
     for got in (plain, wrapped, [x.grad for x in leaves]):
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("B,S,N,K,D,causal,masked,use_alibi", BWD_CASES)
+def test_flash_bwd_on_cpu_is_the_plain_version(B, S, N, K, D, causal, masked,
+                                               use_alibi):
+    """On CPU tensors ``flash_attention_bwd`` launches nothing and returns
+    exactly what ``reference_flash_attention_bwd`` returns."""
+    rng = np.random.default_rng(S * N + D)
+    q, do = (torch.tensor(rng.normal(size=(B, S, N, D)), dtype=torch.float32)
+             for _ in range(2))
+    k, v = (torch.tensor(rng.normal(size=(B, S, K, D)), dtype=torch.float32)
+            for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.ones(B, S, dtype=torch.int32)
+        mask[0, S - 5:] = 0
+    al = alibi_slopes(N) if use_alibi else None
+    o, lse = reference_flash_attention(q, k, v, mask, causal, None, al,
+                                       return_lse=True)
+    before = launch_counts()
+    got = flash_attention_bwd(q, k, v, o, lse, do, mask, causal, None, al)
+    assert launch_counts() == before
+    want = reference_flash_attention_bwd(q, k, v, o, lse, do, mask, causal,
+                                         None, al)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------
