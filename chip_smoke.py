@@ -117,8 +117,10 @@ and segmented over OPT-1.3B's leaves (1.3 B elements); the GroupNorm
 kernel at the mid block's shape and JAX's test shapes (``F.group_norm`` as
 yardstick) and on 300 + 0.01 N(0, 1) against float64; group quantization,
 bit for bit, over OPT-1.3B's 1.316 B bf16 parameters and 64 Mi elements;
-and the flash forward at head_dim 512 (the mid block's self attention,
-cross attention over 77 keys; SDPA as yardstick).
+the flash forward at head_dim 512 (the mid block's self attention,
+cross attention over 77 keys; SDPA as yardstick); and the flash forward at
+OPT-1.3B's training shape (causal, no mask; SDPA with ``is_causal`` as
+yardstick).
 
 Then one ``{"kernels": [...]}`` line (``launches``: each kernel's count over
 the serve run, the first generate call, the first call of each quantized
@@ -354,6 +356,8 @@ GN_SHAPES = [("vae_mid", 4, 4096, 512, 32), ("jax_a", 2, 256, 64, 8),
              ("jax_b", 1, 1024, 96, 12), ("jax_c", 3, 640, 128, 32)]
 GN_EPS = 1e-6
 QUANT_N = 1 << 26  # the quantize cases' second size (64 Mi elements)
+# the flash forward at OPT-1.3B's training shape: (B, S = T, N = K, D)
+TRAIN_FLASH = (4, 1024, 32, 64)
 # the flash forward at head_dim 512 (non-causal, N 1): (case, dtype, B, S, T)
 FLASH_WIDE = [("vae_mid", torch.bfloat16, 4, 4096, 4096),
               ("vae_mid", torch.float32, 2, 1024, 1024),
@@ -605,7 +609,8 @@ def sdpa_call(q, k, v, keep):
 def flash_cases(dev, gen):
     """The static prefill of llama-7b's generate: 8 rows of 64..500 prompt
     tokens bucketed to S 512 over a 1024-column arena, 32 heads of 128, in
-    bf16 and fp32; then alibi, GQA (K 8) and the cache-less S = T = 512."""
+    bf16 and fp32; then alibi, GQA (K 8) and the cache-less S = T = 512;
+    then OPT-1.3B's training shape (``flash_train_case``)."""
     lens = [500, 64, 287, 133, 411, 350, 96, 222]
     specs = [("prefill", torch.bfloat16, 512, 1024, 32, False),
              ("prefill", torch.float32, 512, 1024, 32, False),
@@ -649,7 +654,45 @@ def flash_cases(dev, gen):
             library_ms=(time_ms(sdpa_call(q, k, v, keep))
                         if al is None else None),
             bound_ms=b_ms, bound_by=b_by))
+    results.append(flash_train_case(dev, gen))
     return results
+
+
+def flash_train_case(dev, gen):
+    """The forward at OPT-1.3B's training shape, as ``train`` runs it 24
+    times a step: bf16, B 4, S = T 1024, 32 heads of 64, causal, no mask.
+    o and the lse that the backward reads are both held to the plain
+    version. Bound: 4 D operations per visible pair and q, k, v and o once.
+    Yardstick: SDPA with ``is_causal``, its backend named."""
+    dtype, (B, S, N, D) = torch.bfloat16, TRAIN_FLASH
+    q, k, v = (torch.randn(B, S, N, D, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    got, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    ref, ref_lse = reference_flash_attention(q, k, v, causal=True,
+                                             return_lse=True)
+    if not bool(torch.isfinite(got).all() and torch.isfinite(lse).all()):
+        raise AssertionError("flash_attention train: non-finite output")
+    err = check(f"flash_attention train {dtype}", got, ref, TOL[dtype])
+    lse_err = check(f"flash_attention train {dtype} lse", lse, ref_lse,
+                    TOL[dtype])
+    pairs = B * N * S * (S + 1) // 2
+    b_ms, b_by = bound_ms(4 * B * S * N * D * q.element_size(),
+                          4.0 * pairs * D, BF16_FLOPS)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    return dict(
+        case="train", B=B, S=S, T=S, N=N, K=N, D=D, lens=None, alibi=False,
+        causal=True, dtype=str(dtype), max_abs_err=err,
+        lse_max_abs_err=lse_err,
+        tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(lambda: reference_flash_attention(
+            q, k, v, causal=True), iters=4, reps=5),
+        library_ms=time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+        library="SDPA, is_causal, backend " + sdpa_backend(qt, kt, vt,
+                                                          causal=True),
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def decode_dense_cases(dev, gen):
@@ -1404,12 +1447,13 @@ def flash_wide_cases(dev, gen):
     return results
 
 
-def sdpa_backend(q, k, v) -> str:
+def sdpa_backend(q, k, v, causal: bool = False) -> str:
     """The backend ``scaled_dot_product_attention`` picks for these
     operands (no mask, no dropout), by the dispatcher's own choice."""
     try:
         from torch.nn.attention import SDPBackend
-        return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, is_causal=causal)).name
     except (AttributeError, ImportError, RuntimeError, ValueError):
         return "not reported by this PyTorch"
 

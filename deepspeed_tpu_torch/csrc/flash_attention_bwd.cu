@@ -78,8 +78,6 @@
 // block, one lane per dims d, d + 32, ..., warp-shuffle dot products),
 // which keep fp32 within 2e-5 of the plain version.
 
-#include <type_traits>
-
 #include "attention_common.cuh"
 #include "hopper.cuh"
 
@@ -88,7 +86,6 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kKeys = 128;          // keys of a fused block, 64 a warpgroup
 constexpr int kRows = 64;           // query rows of a tile
 constexpr int kStages = 2;          // Q / dO / stats tiles in the ring
@@ -103,13 +100,6 @@ constexpr int kStat = 2 * kRows;    // a tile's stats: lse * log2(e), delta
 template <typename T>
 __device__ __forceinline__ void store_pair(T* dst, float a, float b) {
   *reinterpret_cast<uint32_t*>(dst) = Mma<T>::pack(a, b);
-}
-
-// 2^x, one MUFU instruction (denormal results flushed to 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -741,30 +731,6 @@ struct Args {
 
 bool fused_dim(int D) { return D == 16 || D == 32 || D == 64 || D == 128; }
 
-template <typename T>
-constexpr CUtensorMapDataType map_type() {
-  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-}
-
-// the 4-D map of a (B, rows, heads, D) 16-bit tensor in boxes of (P, 1,
-// box_rows, 1)
-template <typename T, int D>
-cudaError_t head_map(CUtensorMap* map, const void* p, int B, int rows,
-                     int heads, int box_rows) {
-  constexpr int P = Tiles<D>::P;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)rows * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)P, 1, (cuuint32_t)box_rows, 1};
-  return tensor_map(map, map_type<T>(), 4, p, dims, strides, box,
-                    P == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                    : P == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                              : CU_TENSOR_MAP_SWIZZLE_32B,
-                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
-}
-
 // ws: the (B, S, N, D) fp32 dq accumulator, then the (B, N, ceil(S / 64),
 // 2, 64) stats tiles
 template <typename T, int D>
@@ -782,10 +748,11 @@ cudaError_t fused(cudaStream_t st, const Args& a) {
             a.N, D, nqt);
   }
   CUtensorMap qm, km, vm, om, am;
-  cudaError_t e = head_map<T, D>(&qm, a.q, a.B, a.S, a.N, kRows);
-  if (e == cudaSuccess) e = head_map<T, D>(&om, a.dout, a.B, a.S, a.N, kRows);
-  if (e == cudaSuccess) e = head_map<T, D>(&km, a.k, a.B, a.T, a.K, kKeys);
-  if (e == cudaSuccess) e = head_map<T, D>(&vm, a.v, a.B, a.T, a.K, kKeys);
+  constexpr int P = C::P;
+  cudaError_t e = head_map<T>(&qm, a.q, a.B, a.S, a.N, D, P, kRows);
+  if (e == cudaSuccess) e = head_map<T>(&om, a.dout, a.B, a.S, a.N, D, P, kRows);
+  if (e == cudaSuccess) e = head_map<T>(&km, a.k, a.B, a.T, a.K, D, P, kKeys);
+  if (e == cudaSuccess) e = head_map<T>(&vm, a.v, a.B, a.T, a.K, D, P, kKeys);
   if (e == cudaSuccess) {
     constexpr int DQN = C::DQN;
     const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)a.N,

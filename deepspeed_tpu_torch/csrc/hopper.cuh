@@ -1,13 +1,15 @@
 // Hopper (sm_90a) building blocks of the port's kernels that stream tiles
 // with the Tensor Memory Accelerator (quant_matmul_a8.cu,
-// flash_attention_bwd.cu):
-// * device: shared-memory addresses, mbarriers, TMA tensor and bulk copies,
-//   stores into another block's shared memory of the cluster, proxy fences,
-//   named barriers, and wgmma (shared-memory matrix descriptors, fences,
-//   commit / wait, and the m64nNk16 products with fp32 accumulators, A from
-//   shared memory or from registers);
+// flash_attention.cu, flash_attention_bwd.cu):
+// * device: shared-memory addresses, mbarriers, TMA tensor loads and stores
+//   and bulk copies, stores into another block's shared memory of the
+//   cluster, proxy fences, named barriers, the TMA swizzle of a tile's
+//   rows, exp2, and wgmma (shared-memory matrix descriptors, fences, commit
+//   / wait, and the m64nNk16 products with fp32 accumulators, A from shared
+//   memory or from registers);
 // * host: cuTensorMapEncodeTiled, looked up at run time, behind a bounded
-//   cache keyed by everything a map depends on.
+//   cache keyed by everything a map depends on, and the 4-D map of a
+//   (B, rows, heads, D) 16-bit attention operand.
 // Each .cu file is its own library, so everything here has internal linkage.
 
 #pragma once
@@ -20,12 +22,29 @@
 
 #include <cstring>
 #include <mutex>
+#include <type_traits>
 #include <unordered_map>
 
 namespace {
 
+constexpr float kLog2e = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 2^x, one MUFU instruction (denormal results flushed to 0; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The byte offset, from a 1024-byte aligned tile, at which a TMA map with
+// an SW-byte swizzle (SW = 32, 64, 128; rows of SW bytes) puts byte `a` of
+// the row-major tile: its 16-byte chunk index XOR the row's bits 7 and up
+__host__ __device__ constexpr int swizzle_offset(int a, int sw) {
+  return a ^ (((a >> 7) & (sw / 16 - 1)) << 4);
 }
 
 // ---------------------------------------------------------------------------
@@ -140,6 +159,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// the box of a 4-D map at (c0, .., c3) = this block's shared memory at src
+// (elements past the edges are skipped), tracked as a bulk group of this
+// thread
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 // the box of a 4-D map at (c0, .., c3) += this block's shared memory at src
 // (fp32 add, done by the TMA unit; elements past the edges are skipped),
 // tracked as a bulk group of this thread
@@ -390,6 +422,30 @@ inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
   }
   *map = it->second;
   return cudaSuccess;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// The 4-D map of a (B, rows, heads, D) 16-bit tensor in boxes of (P, 1,
+// box_rows, 1), P in {16, 32, 64} columns: each box row is one swizzle span
+// of 2 P bytes, as the wgmma descriptors of wgmma_desc<2 P> read it.
+template <typename T>
+cudaError_t head_map(CUtensorMap* map, const void* p, int B, int rows,
+                     int heads, int D, int P, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)P, 1, (cuuint32_t)box_rows, 1};
+  return tensor_map(map, map_type<T>(), 4, p, dims, strides, box,
+                    P == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                    : P == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 }  // namespace

@@ -35,7 +35,10 @@ kernel runs at JAX's test shapes and the SD v1.5 VAE mid block's (B 4, HW
 against float64 within 1e-2; group quantization must equal its plain
 version bit for bit (q and scales); the flash forward at head_dim 264..512
 (self and cross attention, masks, alibi, GQA) within the attention
-tolerances.
+tolerances. The flash forward's TMA / wgmma routes (16-bit, D 16..128 and
+264..512) are also held with NaN in masked K / V rows, with key tiles past
+the last query, with 4 query heads a KV head, and to bit-equal outputs in
+two calls.
 """
 
 import numpy as np
@@ -272,13 +275,17 @@ def dense_kv(B, T, K, D, mask, seed):
     return k, v
 
 
-# (B, S, T, N, K, D): small shapes over the MMA head sizes and the CUDA-core
-# fallback (D 48), ragged edges (S, T not multiples of 64), GQA; then the
-# static prefill of llama-7b's generate (S 512 over a 1024-column arena)
+# (B, S, T, N, K, D): small shapes over the tensor-core head sizes and the
+# CUDA-core fallback (D 48), ragged edges (S, T not multiples of 64), GQA,
+# an odd count of work tiles at D 64 (the persistent route's last pair holds
+# one); then the static prefill of llama-7b's generate (S 512 over a
+# 1024-column arena) and OPT-1.3B's training shape (S = T 1024, 32 heads of
+# 64)
 FLASH_SHAPES = [(2, 16, 16, 4, 4, 32), (2, 12, 40, 4, 2, 32),
                 (2, 37, 37, 8, 2, 64), (1, 70, 130, 8, 2, 128),
                 (2, 65, 65, 4, 1, 16), (2, 20, 33, 4, 2, 48),
-                (8, 512, 1024, 32, 32, 128)]
+                (1, 70, 70, 3, 1, 64),
+                (8, 512, 1024, 32, 32, 128), (4, 1024, 1024, 32, 32, 64)]
 
 
 @pytest.mark.parametrize("B,S,T,N,K,D,causal,use_alibi,dtype,atol", attn_params(
@@ -299,10 +306,7 @@ def test_flash_matches_plain(dev, B, S, T, N, K, D, causal, use_alibi,
     assert launch_counts()["flash_attention"] == before + 1
     ref, ref_lse = reference_flash_attention(*args, causal=causal, alibi=al,
                                              return_lse=True)
-    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
-    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
-                               rtol=atol)
-    torch.testing.assert_close(lse, ref_lse, atol=atol, rtol=atol)
+    hold_fwd(got, lse, ref, ref_lse, atol)
 
 
 def test_flash_cacheless_without_mask(dev):
@@ -346,6 +350,74 @@ def test_flash_rejects_bad_operands(dev):
     base = torch.zeros(2 * 8 * 4 * 32 + 1, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):
         flash_attention(base[1:].view(2, 8, 4, 32), k, k)
+
+
+# head dims of the TMA / wgmma forward (16-bit: D 16..128, and 256 < D <=
+# 512 with D % 8 == 0, 264 with a partial last panel); the fp32 cases run
+# the CUDA-core kernel on the same inputs
+TMA_DIMS = [16, 64, 128, 264, 512]
+
+
+def hold_fwd(got, lse, ref, ref_lse, atol):
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(lse, ref_lse, atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("D", TMA_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_flash_nan_in_masked_rows(dev, D, causal, dtype, atol):
+    """Masked keys whose K / V rows hold NaN (a stale arena slot): o and
+    lse finite and as the plain version's over those rows zeroed."""
+    B, S, N, K = 2, 150, 4, 2
+    q, k, v, _, m, _ = bwd_operands(dev, B, S, S, N, K, D, dtype, 21, S // 2,
+                                    stale=float("nan"))
+    kz, vz = torch.nan_to_num(k, nan=0.0), torch.nan_to_num(v, nan=0.0)
+    got, lse = flash_attention(q, k, v, m, causal=causal, return_lse=True)
+    ref, ref_lse = reference_flash_attention(q, kz, vz, m, causal,
+                                             return_lse=True)
+    hold_fwd(got, lse, ref, ref_lse, atol)
+
+
+@pytest.mark.parametrize("D", TMA_DIMS)
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_flash_keys_past_last_query(dev, D, dtype, atol):
+    """Causal with T > S: key tiles past the last query are seen by no
+    query; S = 200 is not a multiple of the q tile (64 or 128 rows), so the
+    last q tile is ragged."""
+    B, S, T, N, K = 2, 200, 520, 4, 2
+    q, k, v, _, m, _ = bwd_operands(dev, B, S, T, N, K, D, dtype, 22, T - 20)
+    got, lse = flash_attention(q, k, v, m, causal=True, return_lse=True)
+    ref, ref_lse = reference_flash_attention(q, k, v, m, True,
+                                             return_lse=True)
+    hold_fwd(got, lse, ref, ref_lse, atol)
+
+
+@pytest.mark.parametrize("D", [128, 512])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_flash_gqa_four_heads_a_group(dev, D, causal, dtype, atol):
+    """G = 4 query heads read each KV head (16 over 4)."""
+    B, S, T, N, K = 2, 130, 260, 16, 4
+    q, k, v, _, m, _ = bwd_operands(dev, B, S, T, N, K, D, dtype, 24, T // 3)
+    got, lse = flash_attention(q, k, v, m, causal=causal, return_lse=True)
+    ref, ref_lse = reference_flash_attention(q, k, v, m, causal,
+                                             return_lse=True)
+    hold_fwd(got, lse, ref, ref_lse, atol)
+
+
+@pytest.mark.parametrize("D", TMA_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_repeatable(dev, D, dtype):
+    """Two calls on the same inputs give bit-equal o and lse: the forward
+    has no atomics, and each output row is written once, by one block."""
+    B, S, N, K = 2, 300, 4, 2
+    q, k, v, _, m, _ = bwd_operands(dev, B, S, S, N, K, D, dtype, 23, S // 2)
+    a = flash_attention(q, k, v, m, return_lse=True)
+    b = flash_attention(q, k, v, m, return_lse=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 # (B, T, N, K, D): small shapes over the vector-load paths (16-bit D 64 /
@@ -1106,10 +1178,7 @@ def test_flash_wide_matches_plain(dev, B, S, T, N, K, D, causal, use_alibi,
     assert launch_counts()["flash_attention"] == before + 1
     ref, ref_lse = reference_flash_attention(*args, causal=causal, alibi=al,
                                              return_lse=True)
-    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
-    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
-                               rtol=atol)
-    torch.testing.assert_close(lse, ref_lse, atol=atol, rtol=atol)
+    hold_fwd(got, lse, ref, ref_lse, atol)
 
 
 def test_flash_wide_backward_raises(dev):
