@@ -81,8 +81,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    ``attention_impl`` and LAMB (lr 1e-3, weight decay 0.01), bf16, micro
    batch 2 x 2048 tokens: a warm-up step, then 5 timed ``train_batch``
    steps on one seeded batch. Losses finite and falling; launch counts,
-   zeroed before the timed steps, exact: the three block-sparse kernels 24
-   a step each, the flash kernels and Adam none, the norm 49, LAMB phase 1
+   zeroed before the timed steps, exact: the block-sparse forward and
+   backward 24 a step each, the flash kernels and Adam none, the norm 49, LAMB phase 1
    once. Prints step ms, tokens/s, MFU (PR 3's formula at S 2048), peak
    memory, and beside the formula's attention FLOPs (all S^2 pairs) those
    of the pairs the layout lets attend.
@@ -108,7 +108,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    scale plus one bf16 ulp; then int4 ``quantize_symmetric`` over the same
    leaves, bit-equal to its plain version.
 
-The ``kernels`` phase also holds the three block-sparse kernels at the
+The ``kernels`` phase also holds the block-sparse forward and backward at the
 sparse_train shape (B 2, S 2048, 32 heads of 64) for the Fixed, sliding
 window and BSLongformer layouts, and at small shapes with a key-less q-tile
 and with BigBird's per-head layouts, beside the port's flash kernels at the
@@ -166,13 +166,13 @@ from deepspeed_tpu_torch.ops import quant_matmul
 from deepspeed_tpu_torch.ops import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, FixedSparsityConfig,
     LambSegments, LocalSlidingWindowSparsityConfig,
-    block_sparse_attention_bwd_dkv, block_sparse_attention_bwd_dq,
+    block_sparse_attention_bwd,
     block_sparse_attention_bwd_magnitude, block_sparse_attention_fwd,
     build_tile_plan, lamb_phase1, lamb_phase2, lamb_step,
     make_sparse_attention_impl,
     reference_block_sparse_attention, reference_block_sparse_attention_bwd,
     reference_lamb_flat, reference_lamb_phase1, tile_plan_for)
-from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
+from deepspeed_tpu_torch.ops import (decode_attention,
                                      flash_attention, flash_attention_bwd,
                                      flash_attention_bwd_magnitude,
                                      fused_adam_flat, fused_layer_norm,
@@ -287,12 +287,9 @@ SOURCES = {
     "block_sparse_attention_fwd": (
         "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
         "deepspeed_tpu/ops/block_sparse_attention.py:196"),
-    "block_sparse_attention_bwd_dq": (
+    "block_sparse_attention_bwd": (
         "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
-        "deepspeed_tpu/ops/block_sparse_attention.py:325"),
-    "block_sparse_attention_bwd_dkv": (
-        "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
-        "deepspeed_tpu/ops/block_sparse_attention.py:360"),
+        "deepspeed_tpu/ops/block_sparse_attention.py:325,360"),
     "fused_lamb": ("deepspeed_tpu_torch/csrc/fused_lamb.cu",
                    "deepspeed_tpu/ops/fused_lamb.py:82"),
     "quantize_symmetric": ("deepspeed_tpu_torch/csrc/quantization.cu",
@@ -319,12 +316,11 @@ GENERATE_KERNELS = ("fused_layer_norm", "flash_attention", "decode_attention")
 TRAIN_KERNELS = {"flash_attention": 24, "flash_attention_bwd": 24,
                  "fused_layer_norm": 49, "fused_adam": 1}
 # the sparse_train path's kernels and their exact launches per step: the
-# sparse forward, dq and dkv once per layer, no flash kernel, the norms as
+# sparse forward and backward once per layer, no flash kernel, the norms as
 # above, and one LAMB phase-1 launch for the whole model (its phase 2 is
 # torch, one in-place op per leaf), no Adam
 SPARSE_TRAIN_KERNELS = {"block_sparse_attention_fwd": 24,
-                        "block_sparse_attention_bwd_dq": 24,
-                        "block_sparse_attention_bwd_dkv": 24,
+                        "block_sparse_attention_bwd": 24,
                         "flash_attention": 0, "flash_attention_bwd": 0,
                         "fused_layer_norm": 49, "fused_adam": 0,
                         "fused_lamb": 1}
@@ -1017,13 +1013,17 @@ def visible_mask(plan, causal: bool, device) -> torch.Tensor:
 
 
 def sparse_case(case, plan, causal, q, k, v, do, flash):
-    """The three block-sparse kernels against their plain versions on one
-    plan; returns one result per kernel. The bound counts the operations of
-    the visible (query, key) pairs only (``visible_mask``), not of every
-    pair of the active 128-tiles the kernels visit; the yardstick is SDPA
-    with the plan's boolean token mask (forward, and autograd of it for the
-    backward). ``flash_ms``: the port's flash forward beside the forward,
-    its whole backward (one call for dq, dk and dv) beside dq and dkv."""
+    """The block-sparse forward and backward against their plain versions
+    on one plan; returns one result per kernel. The bounds count the
+    operations of the visible (query, key) pairs only (``visible_mask``),
+    not of every pair of the active 128-tiles the kernels visit: 4 D a pair
+    forward, 10 D backward (S, dP, dV, dK, dQ), beside the bytes of q, k, v
+    (and o, dout) and lse read once and of the outputs written once; the
+    backward's fp32 dq accumulator and stats tiles are scratch and are not
+    counted. The yardstick is SDPA with the plan's boolean token mask
+    (forward, and autograd of it for the backward, all three gradients).
+    ``flash_ms``: the port's flash forward beside the forward, its whole
+    backward (one call for dq, dk and dv) beside the backward."""
     B, S, N, D = q.shape
     dtype = q.dtype
     name = f"block_sparse {case} {dtype}"
@@ -1034,14 +1034,10 @@ def sparse_case(case, plan, causal, q, k, v, do, flash):
     live = torch.isfinite(rlse)
     err_fwd = max(check(f"{name} o", o, ro, TOL[dtype]),
                   check(f"{name} lse", lse[live], rlse[live], TOL[dtype]))
-    delta = attention_delta(ro, do)
-    args = (q, k, v, do, rlse, delta, plan, causal)
-    got = (block_sparse_attention_bwd_dq(*args),
-           *block_sparse_attention_bwd_dkv(*args))
-    refs = reference_block_sparse_attention_bwd(q, k, v, ro, rlse, do, plan,
-                                                causal)
-    mags = block_sparse_attention_bwd_magnitude(q, k, v, ro, rlse, do, plan,
-                                                causal)
+    args = (q, k, v, ro, rlse, do, plan, causal)
+    got = block_sparse_attention_bwd(*args)
+    refs = reference_block_sparse_attention_bwd(*args)
+    mags = block_sparse_attention_bwd_magnitude(*args)
     errs = [check_bwd(f"{name} {part}", g, r, m, dtype)
             for part, g, r, m in zip(("dq", "dk", "dv"), got, refs, mags)]
     del refs, mags, got
@@ -1053,12 +1049,11 @@ def sparse_case(case, plan, causal, q, k, v, do, flash):
     peak = BF16_FLOPS if dtype != torch.float32 else FP32_FLOPS
     kw = sparse_timing(dtype)
     b_fwd = bound_ms(4 * io + lsz, 4.0 * visible * D, peak)
-    b_dq = bound_ms(5 * io + 2 * lsz, 6.0 * visible * D, peak)
-    b_dkv = bound_ms(6 * io + 2 * lsz, 8.0 * visible * D, peak)
+    b_bwd = bound_ms(8 * io + lsz, 10.0 * visible * D, peak)
     plain_fwd = time_ms(lambda: reference_block_sparse_attention(
         q, k, v, plan, causal), iters=2, reps=3)
-    plain_bwd = time_ms(lambda: reference_block_sparse_attention_bwd(
-        q, k, v, ro, rlse, do, plan, causal), iters=2, reps=3)
+    plain_bwd = time_ms(lambda: reference_block_sparse_attention_bwd(*args),
+                        iters=2, reps=3)
     lib_fwd = lib_bwd = None
     if bool(live.all()):            # SDPA gives NaN on a key-less row
         mask = keep[None]
@@ -1091,33 +1086,26 @@ def sparse_case(case, plan, causal, q, k, v, do, flash):
             plain_ms=plain_fwd, library_ms=lib_fwd,
             flash_ms=flash and flash["fwd"], bound_ms=b_fwd[0],
             bound_by=b_fwd[1]),
-        "block_sparse_attention_bwd_dq": dict(
-            common, max_abs_err=errs[0],
-            ms=time_ms(lambda: block_sparse_attention_bwd_dq(*args), **kw),
+        "block_sparse_attention_bwd": dict(
+            common, max_abs_err=max(errs),
+            ms=time_ms(lambda: block_sparse_attention_bwd(*args), **kw),
             plain_ms=plain_bwd, library_ms=lib_bwd,
-            flash_ms=flash and flash["bwd"], bound_ms=b_dq[0],
-            bound_by=b_dq[1]),
-        "block_sparse_attention_bwd_dkv": dict(
-            common, max_abs_err=max(errs[1:]),
-            ms=time_ms(lambda: block_sparse_attention_bwd_dkv(*args), **kw),
-            plain_ms=plain_bwd, library_ms=lib_bwd,
-            flash_ms=flash and flash["bwd"], bound_ms=b_dkv[0],
-            bound_by=b_dkv[1])}
-    del ro, rlse, delta, keep
+            flash_ms=flash and flash["bwd"], bound_ms=b_bwd[0],
+            bound_by=b_bwd[1])}
+    del ro, rlse, keep
     torch.cuda.empty_cache()
     return out
 
 
 def sparse_cases(dev, gen):
-    """The block-sparse forward, dq and dkv kernels: at the sparse_train
+    """The block-sparse forward and backward: at the sparse_train
     shape (B 2, S 2048, 32 heads of 64) over the Fixed, sliding-window and
     BSLongformer layouts in bf16 and fp32, beside the port's flash kernels
     at the same shape (causal); then B 1 with a key-less q-tile (S 512, 4
     heads, a layout whose second q-tile is empty) and BigBird's per-head
     layouts (S 1024, 8 heads, bidirectional)."""
     out = {name: [] for name in ("block_sparse_attention_fwd",
-                                 "block_sparse_attention_bwd_dq",
-                                 "block_sparse_attention_bwd_dkv")}
+                                 "block_sparse_attention_bwd")}
 
     def add(res):
         for name, r in res.items():
@@ -2315,13 +2303,13 @@ def sparse_parity_inputs(dev, seed: int = 7, preset: str = "opt-1.3b"):
 
 def e2e_sparse_train_phase(dev):
     """``train_parity`` of ``sparse_parity_inputs``; the kernel path must
-    have run the three block-sparse kernels and LAMB phase 1."""
+    have run the block-sparse forward and backward and LAMB phase 1."""
     reset_launch_counts()
     out = train_parity("e2e_sparse_train_parity", *sparse_parity_inputs(dev),
                        E2E_SPARSE_TRAIN_TOL)
     counts = launch_counts()
-    for name in ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dq",
-                 "block_sparse_attention_bwd_dkv", "fused_lamb"):
+    for name in ("block_sparse_attention_fwd", "block_sparse_attention_bwd",
+                 "fused_lamb"):
         if counts[name] <= 0:
             raise AssertionError(f"e2e_sparse_train_parity: {name} never "
                                  "launched")
@@ -2583,8 +2571,7 @@ def main() -> int:
             "flash_attention_bwd": lambda c: c["case"] == "train",
             "fused_adam": lambda c: c["case"] == "train",
             "block_sparse_attention_fwd": lambda c: c["case"] == "fixed",
-            "block_sparse_attention_bwd_dq": lambda c: c["case"] == "fixed",
-            "block_sparse_attention_bwd_dkv": lambda c: c["case"] == "fixed",
+            "block_sparse_attention_bwd": lambda c: c["case"] == "fixed",
             "fused_lamb": lambda c: c["case"] == "opt-1.3b",
             "fused_group_norm": lambda c: c["case"] == "vae_mid",
             "quantize_symmetric": lambda c: (c["case"] == "opt-1.3b"

@@ -1,6 +1,6 @@
 from .block_sparse_attention import (  # noqa: F401
-    TilePlan, block_sparse_attention, block_sparse_attention_bwd_dkv,
-    block_sparse_attention_bwd_dq, block_sparse_attention_bwd_magnitude,
+    TilePlan, block_sparse_attention, block_sparse_attention_bwd,
+    block_sparse_attention_bwd_magnitude,
     block_sparse_attention_fwd, build_tile_plan,
     reference_block_sparse_attention, reference_block_sparse_attention_bwd)
 from .decode_attention import (decode_attention,  # noqa: F401
@@ -39,8 +39,7 @@ from .sparse_attention import (  # noqa: F401
     layout_to_token_mask, make_sparse_attention_impl, sparse_self_attention,
     tile_plan_for)
 
-__all__ = ["TilePlan", "block_sparse_attention",
-           "block_sparse_attention_bwd_dkv", "block_sparse_attention_bwd_dq",
+__all__ = ["TilePlan", "block_sparse_attention", "block_sparse_attention_bwd",
            "block_sparse_attention_bwd_magnitude",
            "block_sparse_attention_fwd", "build_tile_plan",
            "reference_block_sparse_attention",

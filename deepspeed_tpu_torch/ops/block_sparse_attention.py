@@ -6,17 +6,19 @@ block layout of a sparsity config (``ops/sparse_attention.py``) is tiled on
 the host into 128 x 128 tiles (``build_tile_plan``, numpy, the JAX arrays
 bit for bit): for every (head, q-tile) the active k-tiles and the id of
 each tile's token mask in a table of unique masks, and the transposed
-lists (q-tiles per k-tile) that the dkv kernel walks. The port's plan adds
+lists (q-tiles per k-tile) that the backward walks. The port's plan adds
 each list's true length (``kcount``, ``qcount_t``), so the kernels stop at
 it instead of visiting the padded slots, which JAX points at k-tile 0 with
 the all-zero mask (they add exp(-inf) = 0, so skipping them gives the same
 result).
 
 ``block_sparse_attention`` launches the forward CUDA kernel of
-``csrc/block_sparse_attention.cu`` on a CUDA tensor and, under autograd, its
-dq and dkv kernels, fed with delta = rowsum(dO * O) in plain torch as JAX
-computes it (``block_sparse_attention.py:300``). On a CPU tensor, or with
-``plain=True``, it runs the kernels' plain versions
+``csrc/block_sparse_attention.cu`` on a CUDA tensor and, under autograd,
+``block_sparse_attention_bwd``: one call into the backward's CUDA kernels
+(delta and the stats tiles, one fused pass for dq, dk and dv, dq's
+epilogue), which replaces JAX's dq and dkv kernels and the delta JAX
+computes beside them (``block_sparse_attention.py:300``). On a CPU tensor,
+or with ``plain=True``, it runs the kernels' plain versions
 (``reference_block_sparse_attention`` and
 ``reference_block_sparse_attention_bwd``, dense attention over the plan's
 token mask). JAX's grid-step ceiling (``MAX_GRID_STEPS``, a limit of the
@@ -43,10 +45,11 @@ import numpy as np
 import torch
 
 from . import registry
-from .flash_attention import attention_delta
+from .flash_attention import (_bwd_workspace_floats, _check_grad_operands,
+                              attention_delta)
 
 TILE = 128          # kernel tile edge (q and kv)
-QUAD = 64           # the kernels' sub-tile edge: mask quadrants they skip
+QUAD = 64           # the kernels' sub-tile edge: mask quadrants
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -81,21 +84,37 @@ class TilePlan:
         return int(self.kcount.sum())
 
     def device_arrays(self, device: torch.device) -> Dict[str, torch.Tensor]:
-        """The kernels' operands on ``device``: the lists and counts as
-        int32, the mask table as uint8 (U, 128, 128) and its quadrant table
-        (U, 2, 2) uint8, 1 where a 64 x 64 quadrant has a live entry."""
+        """The kernels' operands on ``device``, made once per device: the
+        lists and counts as int32; the mask table as uint8 (U, 128, 128);
+        ``quad`` (U, 2, 2) uint8, each 64 x 64 quadrant of a mask 0 where
+        it is empty, 1 where it is full, 2 where it is partial; ``bits``
+        (U, 128, 2), the masks key-major for the backward (int64 holding
+        uint64 words: bit r of ``bits[m, c, h]`` is ``masks[m, 64 h + r,
+        c]``); ``korder`` (S / 128,) int32, the key tiles by falling
+        transposed-list length summed over heads (the backward's dispatch
+        order, heaviest first)."""
         key = ("kernel", str(device))
         if key not in self._cache:
-            quad = self.masks.reshape(-1, 2, QUAD, 2, QUAD).any(axis=(2, 4))
+            live = self.masks != 0
+            quads = live.reshape(-1, 2, QUAD, 2, QUAD)
+            quad = np.where(quads.all(axis=(2, 4)), 1,
+                            np.where(quads.any(axis=(2, 4)), 2, 0))
+            rows = live.transpose(0, 2, 1).reshape(-1, TILE, 2, QUAD)
+            bits = np.bitwise_or.reduce(
+                rows.astype(np.uint64) << np.arange(QUAD, dtype=np.uint64),
+                axis=-1)
+            korder = np.argsort(-self.qcount_t.sum(axis=0), kind="stable")
             arrs = dict(kidx=self.kidx, mid=self.mid, kcount=self.kcount,
                         qidx_t=self.qidx_t, mid_t=self.mid_t,
-                        qcount_t=self.qcount_t)
+                        qcount_t=self.qcount_t, korder=korder)
             out = {k: torch.from_numpy(np.ascontiguousarray(a, np.int32)
                                        ).to(device) for k, a in arrs.items()}
             out["masks"] = torch.from_numpy(
-                np.ascontiguousarray(self.masks != 0, np.uint8)).to(device)
+                np.ascontiguousarray(live, np.uint8)).to(device)
             out["quad"] = torch.from_numpy(
                 np.ascontiguousarray(quad, np.uint8)).to(device)
+            out["bits"] = torch.from_numpy(
+                np.ascontiguousarray(bits).view(np.int64)).to(device)
             self._cache[key] = out
         return self._cache[key]
 
@@ -247,8 +266,8 @@ def reference_block_sparse_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                                          ) -> Tuple[torch.Tensor,
                                                     torch.Tensor,
                                                     torch.Tensor]:
-    """Plain version of the dq and dkv kernels: the recompute from the
-    forward's lse (B, N, S) with delta = rowsum(dO * O), fp32 arithmetic.
+    """Plain version of ``block_sparse_attention_bwd``: the recompute from
+    the forward's lse (B, N, S) with delta = rowsum(dO * O), fp32 arithmetic.
     Returns (dq, dk, dv) in q's / k's / v's dtypes."""
     return _reference_bwd(q, k, v, do, lse, attention_delta(o, do), plan,
                           causal, scale)
@@ -302,35 +321,12 @@ def _check(name: str, q, k, v, plan: TilePlan):
                              f"aligned, on {q.device}")
 
 
-def _check_grad_operands(name: str, q, do, lse, delta):
-    B, S, N, _ = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"{name}: dout must match q {tuple(q.shape)} "
-                         f"{q.dtype}, got {tuple(do.shape)} {do.dtype}")
-    if not do.is_contiguous() or do.data_ptr() % 16:
-        raise ValueError(f"{name}: dout must be contiguous and 16-byte "
-                         "aligned")
-    for tname, t in (("lse", lse), ("delta", delta)):
-        if (t.shape != (B, N, S) or t.dtype != torch.float32
-                or t.device != q.device or not t.is_contiguous()):
-            raise ValueError(f"{name}: {tname} must be ({B}, {N}, {S}) "
-                             f"contiguous float32 on {q.device}")
-
-
-def _fn(symbol: str, n_ptrs: int):
+def _fn(symbol: str, n_ptrs: int, n_ints: int):
     fn = getattr(registry.library("block_sparse_attention"), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-def _plan_ptrs(plan: TilePlan, device, transposed: bool):
-    arrs = plan.device_arrays(device)
-    names = (("qidx_t", "mid_t", "qcount_t") if transposed
-             else ("kidx", "mid", "kcount"))
-    return [arrs[n].data_ptr() for n in names] + [
-        arrs["masks"].data_ptr(), arrs["quad"].data_ptr()]
 
 
 def _launch_fwd(q, k, v, plan, causal, scale):
@@ -338,64 +334,52 @@ def _launch_fwd(q, k, v, plan, causal, scale):
     B, S, N, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B, N, S, dtype=torch.float32, device=q.device)
-    err = _fn("dstt_sparse_fwd", 10)(
+    arrs = plan.device_arrays(q.device)
+    err = _fn("dstt_sparse_fwd", 10, 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *_plan_ptrs(plan, q.device, False), out.data_ptr(), lse.data_ptr(),
-        B, S, N, D, plan.kidx.shape[2], int(causal), _scale(D, scale),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        *(arrs[n].data_ptr() for n in ("kidx", "mid", "kcount", "masks",
+                                       "quad")),
+        out.data_ptr(), lse.data_ptr(), B, S, N, D, plan.kidx.shape[2],
+        int(causal), _scale(D, scale), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     registry.check_launch("block_sparse_attention_fwd", err)
     return out, lse
 
 
-def block_sparse_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
-                                  v: torch.Tensor, do: torch.Tensor,
-                                  lse: torch.Tensor, delta: torch.Tensor,
-                                  plan: TilePlan, causal: bool = False,
-                                  scale: Optional[float] = None
-                                  ) -> torch.Tensor:
-    """dq (B, S, N, D) from the forward's lse and delta (both (B, N, S)
-    fp32): the dq kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
+def block_sparse_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor,
+                               plan: TilePlan, causal: bool = False,
+                               scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(dq, dk, dv), each (B, S, N, D), of ``block_sparse_attention`` from
+    its output o, its lse (B, N, S) fp32 and dout: one call into the
+    backward's CUDA kernels on a CUDA tensor (delta included), the plain
+    version on a CPU tensor."""
     if q.device.type == "cpu":
-        return _reference_bwd(q, k, v, do, lse, delta, plan, causal,
-                              scale)[0]
-    _check("block_sparse_attention_bwd_dq", q, k, v, plan)
-    _check_grad_operands("block_sparse_attention_bwd_dq", q, do, lse, delta)
+        return reference_block_sparse_attention_bwd(q, k, v, o, lse, do,
+                                                    plan, causal, scale)
+    _check("block_sparse_attention_bwd", q, k, v, plan)
+    o, do = o.contiguous(), do.contiguous()
+    _check_grad_operands("block_sparse_attention_bwd", q, o, do, lse)
     B, S, N, D = q.shape
-    dq = torch.empty_like(q)
-    err = _fn("dstt_sparse_bwd_dq", 12)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), *_plan_ptrs(plan, q.device, False),
-        dq.data_ptr(), B, S, N, D, plan.kidx.shape[2], int(causal),
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ws = torch.empty(_bwd_workspace_floats(B, S, N, D), dtype=torch.float32,
+                     device=q.device)
+    arrs = plan.device_arrays(q.device)
+    err = _fn("dstt_sparse_bwd", 20, 7)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(),
+        *(arrs[n].data_ptr() for n in ("kidx", "mid", "kcount", "qidx_t",
+                                       "mid_t", "qcount_t", "masks", "quad",
+                                       "bits", "korder")),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+        B, S, N, D, plan.kidx.shape[2], plan.qidx_t.shape[2], int(causal),
         _scale(D, scale), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    registry.check_launch("block_sparse_attention_bwd_dq", err)
-    return dq
-
-
-def block_sparse_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
-                                   v: torch.Tensor, do: torch.Tensor,
-                                   lse: torch.Tensor, delta: torch.Tensor,
-                                   plan: TilePlan, causal: bool = False,
-                                   scale: Optional[float] = None
-                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv), each (B, S, N, D), over the transposed lists: the dkv
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if q.device.type == "cpu":
-        return _reference_bwd(q, k, v, do, lse, delta, plan, causal,
-                              scale)[1:]
-    _check("block_sparse_attention_bwd_dkv", q, k, v, plan)
-    _check_grad_operands("block_sparse_attention_bwd_dkv", q, do, lse, delta)
-    B, S, N, D = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _fn("dstt_sparse_bwd_dkv", 13)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), *_plan_ptrs(plan, q.device, True),
-        dk.data_ptr(), dv.data_ptr(), B, S, N, D, plan.qidx_t.shape[2],
-        int(causal), _scale(D, scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    registry.check_launch("block_sparse_attention_bwd_dkv", err)
-    return dk, dv
+    registry.check_launch("block_sparse_attention_bwd", err)
+    return dq, dk, dv
 
 
 def block_sparse_attention_fwd(q: torch.Tensor, k: torch.Tensor,
@@ -411,10 +395,10 @@ def block_sparse_attention_fwd(q: torch.Tensor, k: torch.Tensor,
 
 
 class _BlockSparse(torch.autograd.Function):
-    """The forward (with lse) and the dq / dkv backward under autograd:
-    the kernels, or with ``plain`` their plain versions (whose backward is
-    the same recompute, so a key-less row gets zero gradients rather than
-    the NaN that autograd through an all -inf softmax gives)."""
+    """The forward (with lse) and ``block_sparse_attention_bwd`` under
+    autograd: the kernels, or with ``plain`` their plain versions (whose
+    backward is the same recompute, so a key-less row gets zero gradients
+    rather than the NaN that autograd through an all -inf softmax gives)."""
 
     @staticmethod
     def forward(ctx, q, k, v, plan, causal, scale, plain):
@@ -427,15 +411,10 @@ class _BlockSparse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        if ctx.plain:
-            grads = reference_block_sparse_attention_bwd(
-                q, k, v, o, lse, do, ctx.plan, ctx.causal, ctx.scale)
-        else:
-            delta = attention_delta(o, do)
-            args = (q, k, v, do, lse, delta, ctx.plan, ctx.causal, ctx.scale)
-            grads = (block_sparse_attention_bwd_dq(*args),
-                     *block_sparse_attention_bwd_dkv(*args))
+        bwd = (reference_block_sparse_attention_bwd if ctx.plain
+               else block_sparse_attention_bwd)
+        grads = bwd(q, k, v, o, lse, do.contiguous(), ctx.plan, ctx.causal,
+                    ctx.scale)
         return (*grads, None, None, None, None)
 
 

@@ -243,9 +243,11 @@ def _launch_fwd(q, k, v, mask, causal, scale, alibi, return_lse):
 
 def _bwd_workspace_floats(B: int, S: int, N: int, D: int) -> int:
     """fp32 scratch of one backward call, enough for either route of
-    ``csrc/flash_attention_bwd.cu``: the fused pass's dq accumulator (B, S,
-    N, D) and its lse / delta tiles (B, N, ceil(S / 64), 2, 64), of which
-    the CUDA-core kernels (fp32, other head_dims) use B N S for delta."""
+    ``csrc/flash_attention_bwd.cu`` and of the block-sparse backward
+    (``csrc/block_sparse_attention.cu``): the fused pass's dq accumulator
+    (B, S, N, D) and its lse / delta tiles (B, N, ceil(S / 64), 2, 64), of
+    which the CUDA-core kernels (fp32, other head_dims) use B N S for
+    delta."""
     return B * S * N * D + B * N * -(-S // 64) * 128
 
 

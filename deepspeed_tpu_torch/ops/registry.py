@@ -53,8 +53,7 @@ KERNELS: Dict[str, str] = {
     "int4_matmul": "quant_matmul",
     "int4_a8_matmul": "quant_matmul_a8",
     "block_sparse_attention_fwd": "block_sparse_attention",
-    "block_sparse_attention_bwd_dq": "block_sparse_attention",
-    "block_sparse_attention_bwd_dkv": "block_sparse_attention",
+    "block_sparse_attention_bwd": "block_sparse_attention",
     "fused_lamb": "fused_lamb",
     "fused_group_norm": "group_norm",
     "quantize_symmetric": "quantization",

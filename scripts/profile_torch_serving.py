@@ -55,7 +55,7 @@ PORT_KERNELS = ("ln_fwd_kernel", "paged_decode_kernel", "paged_prefill_kernel",
                 "flash_bwd_epilogue", "flash_bwd_dq", "flash_bwd_dkv",
                 "adam_kernel", "quant_matmul_kernel",
                 "quant_matmul_a8_kernel",
-                "sparse_fwd", "sparse_dq", "sparse_dkv",
+                "sparse_fwd", "sparse_bwd", "sparse_dq", "sparse_dkv",
                 "lamb_phase1_kernel", "gn_stats_kernel", "gn_apply_kernel",
                 "quant_sym_kernel")
 TRAIN_STEPS = 3

@@ -25,7 +25,8 @@ and at llama-7b's decode sites against the same fp32 / bf16 tolerances; the
 a8 ones with one scale group must equal their plain versions bit for bit
 (exact integer sums, the same fp32 epilogue), and the three quantizers must
 give the same q and scales on the card as on the CPU. The
-block-sparse kernels (forward, dq, dkv) run over DeepSpeed's layouts and
+block-sparse kernels (the forward; the backward, one call for dq, dk and
+dv) run over DeepSpeed's layouts and
 over layouts with a key-less q-tile, padded list slots and asymmetric
 per-head masks, causal and not, against their plain versions with the
 flash tolerances; the LAMB phase-1 kernel against its plain version with
@@ -47,7 +48,7 @@ import torch
 
 from deepspeed_tpu_torch.models.transformer import (_quantize_int8,
                                                     alibi_slopes)
-from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
+from deepspeed_tpu_torch.ops import (decode_attention,
                                      flash_attention, flash_attention_bwd,
                                      flash_attention_bwd_magnitude,
                                      fused_adam_flat,
@@ -61,8 +62,7 @@ from deepspeed_tpu_torch.ops import (attention_delta, decode_attention,
                                      reference_layer_norm,
                                      reference_paged_attention)
 from deepspeed_tpu_torch.ops import (LambSegments, block_sparse_attention,
-                                     block_sparse_attention_bwd_dkv,
-                                     block_sparse_attention_bwd_dq,
+                                     block_sparse_attention_bwd,
                                      block_sparse_attention_bwd_magnitude,
                                      block_sparse_attention_fwd,
                                      build_tile_plan, lamb_phase1, lamb_step,
@@ -891,10 +891,11 @@ def sparse_layout(kind, N, S):
 
 SPARSE_KINDS = ["fixed", "window", "longformer", "bigbird_heads",
                 "empty_tile", "asym"]
-# (B, S, N, D): small shapes over the MMA head sizes and the CUDA-core
-# fallback (D 48); the path's shape is held by chip_smoke.py
+# (B, S, N, D): small shapes over the tensor-core head sizes (an odd count
+# of key tiles at D 64 and 128) and the CUDA-core route (D 48); the path's
+# shape is held by chip_smoke.py
 SPARSE_SHAPES = [(2, 256, 4, 64), (1, 384, 2, 128), (2, 256, 2, 32),
-                 (1, 256, 2, 48)]
+                 (1, 256, 2, 48), (1, 384, 2, 64)]
 
 
 @pytest.mark.parametrize("kind", SPARSE_KINDS)
@@ -910,15 +911,12 @@ def test_block_sparse_matches_plain(dev, kind, B, S, N, D, dtype, atol):
         before = launch_counts()
         o, lse = block_sparse_attention_fwd(q, k, v, plan, c)
         ro, rlse = reference_block_sparse_attention(q, k, v, plan, c)
-        delta = attention_delta(ro, do)
-        dq = block_sparse_attention_bwd_dq(q, k, v, do, rlse, delta, plan, c)
-        dk, dv = block_sparse_attention_bwd_dkv(q, k, v, do, rlse, delta,
-                                                plan, c)
+        dq, dk, dv = block_sparse_attention_bwd(q, k, v, ro, rlse, do, plan,
+                                                c)
         torch.cuda.synchronize()
         after = launch_counts()
         for name in ("block_sparse_attention_fwd",
-                     "block_sparse_attention_bwd_dq",
-                     "block_sparse_attention_bwd_dkv"):
+                     "block_sparse_attention_bwd"):
             assert after[name] == before[name] + 1
         torch.testing.assert_close(o.float(), ro.float(), atol=atol,
                                    rtol=atol)
@@ -974,6 +972,66 @@ def test_block_sparse_rejects_bad_operands(dev):
     with pytest.raises(ValueError, match="contiguous"):
         qt = q.transpose(1, 2).contiguous().transpose(1, 2)
         block_sparse_attention_fwd(qt, q, q, plan)
+    lse = torch.zeros(1, 2, 256, device=dev)
+    with pytest.raises(ValueError):                     # dout dtype
+        block_sparse_attention_bwd(q, q, q, q, lse, q.float(), plan)
+    with pytest.raises(ValueError):                     # o shape
+        block_sparse_attention_bwd(q, q, q, q[:, :128], lse, q, plan)
+    with pytest.raises(ValueError):                     # lse layout
+        block_sparse_attention_bwd(q, q, q, q, lse.transpose(1, 2), q, plan)
+    with pytest.raises(ValueError):                     # float64
+        qd = q.double()
+        block_sparse_attention_bwd(qd, qd, qd, qd, lse, qd, plan)
+    wide = torch.zeros(1, 256, 2, 264, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # head_dim 264
+        block_sparse_attention_bwd(wide, wide, wide, wide, lse, wide, plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_block_sparse_bwd_keyless_q_tile(dev, dtype):
+    """The fused route with a q-tile that sees no key (its lse -inf):
+    every gradient finite, the tile's rows of dq exactly 0, the rest as
+    the plain version."""
+    B, S, N, D = 1, 512, 4, 64
+    layout = np.tile(np.tril(np.ones((32, 32), np.int64)), (N, 1, 1))
+    layout[:, 8:16, :] = 0                    # q-tile 1 sees no key
+    plan = build_tile_plan(layout, 16, S)
+    rng = np.random.default_rng(21)
+    q, k, v, do = (t(rng.normal(size=(B, S, N, D)), dev, dtype)
+                   for _ in range(4))
+    o, lse = reference_block_sparse_attention(q, k, v, plan, True)
+    assert bool(torch.isneginf(lse[..., 128:256]).all())
+    got = block_sparse_attention_bwd(q, k, v, o, lse, do, plan, True)
+    assert (got[0][:, 128:256] == 0).all()
+    refs = reference_block_sparse_attention_bwd(q, k, v, o, lse, do, plan,
+                                                True)
+    mags = block_sparse_attention_bwd_magnitude(q, k, v, o, lse, do, plan,
+                                                True)
+    hold_bwd(got, refs, mags, dtype, dict(ATTN)[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_block_sparse_bwd_repeatable(dev, dtype):
+    """Two calls on the same inputs (the Fixed layout, causal): dk and dv
+    bit-equal (each key's rows are written once, by one block, in a fixed
+    order); dq within one rounding of the type at |dq| plus 2^-20 of the
+    sum of its terms' magnitudes, the order in which its fp32 parts land
+    by TMA reduce-add (as ``test_flash_bwd_repeatable`` holds it)."""
+    B, S, N, D = 2, 1024, 4, 64
+    layout, block, causal = sparse_layout("fixed", N, S)
+    plan = build_tile_plan(layout, block, S)
+    rng = np.random.default_rng(23)
+    q, k, v, do = (t(rng.normal(size=(B, S, N, D)), dev, dtype)
+                   for _ in range(4))
+    o, lse = reference_block_sparse_attention(q, k, v, plan, causal)
+    a = block_sparse_attention_bwd(q, k, v, o, lse, do, plan, causal)
+    b = block_sparse_attention_bwd(q, k, v, o, lse, do, plan, causal)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    mag = block_sparse_attention_bwd_magnitude(q, k, v, o, lse, do, plan,
+                                               causal)[0]
+    bound = (torch.finfo(dtype).eps * a[0].float().abs() + 2.0 ** -20 * mag)
+    assert bool(((a[0].float() - b[0].float()).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("sizes", [[1 << 20], [5, 8193, 3, 40000, 1],

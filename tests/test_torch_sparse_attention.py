@@ -6,12 +6,16 @@
 * ``sparse_self_attention`` on the dense-mask route against JAX's, with and
   without a key-padding mask, shared and per-head layouts (fp32, 2e-5).
 * The kernels' plain versions (``reference_block_sparse_attention`` and
-  its backward, reached through ``block_sparse_attention`` and the kernel
-  route of ``sparse_self_attention``) against JAX's dense-mask route and
+  its backward, reached through ``block_sparse_attention``,
+  ``block_sparse_attention_bwd`` and the kernel route of
+  ``sparse_self_attention``) against JAX's dense-mask route and
   ``jax.vjp`` of it, on layouts without key-less rows (2e-5 forward, 5e-5
   gradients); a key-less q-tile gives the JAX kernels' output 0 and zero
   gradients, as ``tests/unit/test_sparse_attention.py`` pins; k / v with
-  fewer heads than q are refused on the kernel route.
+  fewer heads than q are refused on the kernel route;
+  ``block_sparse_attention_bwd`` on CPU tensors is its plain version and
+  launches nothing; the backward's quadrant flags and key-major mask words
+  agree with the mask table.
 * The impl factory's checks, ``forward`` with a sparse impl against JAX's,
   20-step ``train_batch`` trajectories with a sparse impl and LAMB against
   the JAX engine, and a sparse model's decode refused as JAX refuses it.
@@ -39,14 +43,12 @@ from deepspeed_tpu_torch.models import (Model, create_model, params_from_jax,
 from deepspeed_tpu_torch.models.transformer import (active_attention_impl,
                                                     forward)
 from deepspeed_tpu_torch.ops import (block_sparse_attention,
-                                     block_sparse_attention_bwd_dkv,
-                                     block_sparse_attention_bwd_dq,
+                                     block_sparse_attention_bwd,
                                      block_sparse_attention_fwd,
                                      build_tile_plan, launch_counts,
                                      reference_block_sparse_attention,
                                      reference_block_sparse_attention_bwd)
 from deepspeed_tpu_torch.ops import sparse_attention as P
-from deepspeed_tpu_torch.ops.flash_attention import attention_delta
 
 # the JAX modules (``deepspeed_tpu.ops`` re-exports functions of the same
 # names, which shadow the submodules as attributes)
@@ -252,11 +254,8 @@ def test_plain_kernels_match_jax(name, kw, S, D):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     grads = reference_block_sparse_attention_bwd(tq, tk, tv, o, lse, tdo,
                                                  plan, causal)
-    delta = attention_delta(o, tdo)
-    wrapped = (block_sparse_attention_bwd_dq(tq, tk, tv, tdo, lse, delta,
-                                             plan, causal),
-               *block_sparse_attention_bwd_dkv(tq, tk, tv, tdo, lse, delta,
-                                               plan, causal))
+    wrapped = block_sparse_attention_bwd(tq, tk, tv, o, lse, tdo, plan,
+                                         causal)
     leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
     out = P.sparse_self_attention(*leaves, pc, use_kernel=True)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
@@ -297,6 +296,67 @@ def test_keyless_rows_give_zero_output_and_gradients():
         np.testing.assert_allclose(t.grad[:, :128].numpy(), np.asarray(w),
                                    atol=GRAD_ATOL, rtol=GRAD_ATOL)
         assert float(t.grad[:, 128:].abs().max()) == 0.0
+
+
+SPARSE_BWD_CPU_CASES = [
+    ("FixedSparsityConfig", dict(num_local_blocks=4, num_global_blocks=1,
+                                 attention="unidirectional"), 256, 16),
+    ("LocalSlidingWindowSparsityConfig", dict(num_sliding_window_blocks=3,
+                                              attention="unidirectional"),
+     384, 16),
+    ("BigBirdSparsityConfig", dict(different_layout_per_head=True,
+                                   num_random_blocks=2), 256, 32),
+]
+
+
+@pytest.mark.parametrize("name,kw,S,block", SPARSE_BWD_CPU_CASES)
+def test_sparse_bwd_on_cpu_is_the_plain_version(name, kw, S, block):
+    """On CPU tensors ``block_sparse_attention_bwd`` launches nothing and
+    returns ``reference_block_sparse_attention_bwd`` exactly."""
+    pc = getattr(P, name)(num_heads=4, block=block, **kw)
+    plan = P.tile_plan_for(pc, S)
+    causal = kw.get("attention") == "unidirectional"
+    rng = np.random.default_rng(S + block)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (
+        *_qkv(rng, 2, S, 4, 32), rng.normal(size=(2, S, 4, 32)).astype(
+            np.float32)))
+    o, lse = reference_block_sparse_attention(tq, tk, tv, plan, causal)
+    before = launch_counts()
+    got = block_sparse_attention_bwd(tq, tk, tv, o, lse, tdo, plan, causal)
+    assert launch_counts() == before
+    want = reference_block_sparse_attention_bwd(tq, tk, tv, o, lse, tdo,
+                                                plan, causal)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name,kw,S,block", SPARSE_BWD_CPU_CASES)
+def test_device_arrays_quadrants_and_bits(name, kw, S, block):
+    """The backward's mask operands, from the plan's mask table: each 64 x
+    64 quadrant's flag (0 empty, 1 full, 2 partial), the key-major words
+    (bit r of ``bits[m, c, h]`` is ``masks[m, 64 h + r, c]``) and the key
+    tiles ordered by falling transposed-list length."""
+    plan = P.tile_plan_for(getattr(P, name)(num_heads=4, block=block, **kw),
+                           S)
+    arrs = plan.device_arrays(torch.device("cpu"))
+    masks = plan.masks != 0
+    bits = arrs["bits"].numpy().view(np.uint64)
+    quad = arrs["quad"].numpy()
+    assert bits.shape == (masks.shape[0], 128, 2)
+    assert set(np.unique(quad)) <= {0, 1, 2}
+    for m in range(masks.shape[0]):
+        for h in range(2):
+            for w in range(2):
+                sub = masks[m, 64 * h:64 * h + 64, 64 * w:64 * w + 64]
+                assert quad[m, h, w] == (1 if sub.all() else
+                                         2 if sub.any() else 0)
+            for c in range(128):
+                word = int(bits[m, c, h])
+                assert [(word >> r) & 1 for r in range(64)] == \
+                    masks[m, 64 * h:64 * h + 64, c].astype(int).tolist()
+    lengths = plan.qcount_t.sum(axis=0)[arrs["korder"].numpy()]
+    assert sorted(arrs["korder"].tolist()) == list(range(S // 128))
+    assert (np.diff(lengths) <= 0).all()
 
 
 def test_kernel_route_refuses_gqa_and_counts_nothing_on_the_cpu():
