@@ -20,9 +20,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    with an explicit mask for the dense attention kernels; timed here only,
    the port never calls it). The four quantized decode GEMMs run at
    llama-7b's weight sites, 1 and 8 rows, int4 with one group and with
-   groups of 128; the a8 ones with one group must equal their plain
-   versions bit for bit, and they and ``torch._int_mm`` are also timed over
-   weight copies larger than the L2.
+   groups of 128; the a8 ones must equal their plain versions bit for
+   bit, and they and ``torch._int_mm`` are also timed over weight copies
+   larger than the L2.
 4. ``serve``   — ``init_serving("llama-7b")`` at full width (H 4096, 32
    layers, 32 heads, D 128, FFN 11008, vocab 32000; seeded random bf16
    weights) serves 8 greedy requests (prompts of 64..700 tokens, two sharing
@@ -190,6 +190,7 @@ from deepspeed_tpu_torch.ops import (fake_quantize, fused_group_norm,
                                      reference_group_norm,
                                      reference_quantize_symmetric)
 from deepspeed_tpu_torch.ops import registry
+from deepspeed_tpu_torch.ops.decode_attention import decode_split_plan
 from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
 from deepspeed_tpu_torch.serving import ServingConfig, init_serving
 
@@ -694,13 +695,19 @@ def flash_train_case(dev, gen):
 def decode_dense_cases(dev, gen):
     """llama-7b's decode step over the dense arena: B 8, 32 heads of 128,
     T 1024, ragged validity with holes, bf16 and fp32; then alibi with
-    per-row key positions."""
-    lens = [1000, 77, 512, 300, 64, 800, 640, 129]
+    per-row key positions; then one long row at the same heads (B 1, T
+    4096, kv_len 4000). The bf16 cases without alibi are also timed over
+    K / V arena copies larger than the L2 (``ms_rotated``, and SDPA's
+    ``library_ms_rotated``). Each case records the kernel's split
+    (``decode_split_plan``: splits, chunk columns, ring stages)."""
+    short = [1000, 77, 512, 300, 64, 800, 640, 129]
     results = []
-    for case, dtype, use_alibi in (("decode", torch.bfloat16, False),
-                                   ("decode", torch.float32, False),
-                                   ("decode_alibi", torch.bfloat16, True)):
-        B, T, N, K, D = 8, 1024, 32, 32, 128
+    for case, dtype, use_alibi, B, T, lens in (
+            ("decode", torch.bfloat16, False, 8, 1024, short),
+            ("decode", torch.float32, False, 8, 1024, short),
+            ("decode_alibi", torch.bfloat16, True, 8, 1024, short),
+            ("decode_long", torch.bfloat16, False, 1, 4096, [4000])):
+        N, K, D = 32, 32, 128
         q, k, v, valid = dense_operands(dev, gen, B, 1, T, N, K, D, lens,
                                         dtype)
         q = q[:, 0].contiguous()
@@ -727,15 +734,31 @@ def decode_dense_cases(dev, gen):
                               BF16_FLOPS if dtype != torch.float32
                               else FP32_FLOPS)
         keep = (valid != 0) & (torch.arange(T, device=dev) < kv_len)[None]
+        sdpa = sdpa_call(q[:, None], k, v, keep[:, None, None]) \
+            if al is None else None
+        rot = {}
+        if dtype == torch.bfloat16 and al is None:
+            pairs = l2_copies(torch.stack([k, v]))
+            rot = dict(
+                ms_rotated=rotated_ms(
+                    lambda kv: decode_attention(q, kv[0], kv[1], valid, **kw),
+                    pairs),
+                library_ms_rotated=rotated_ms(
+                    lambda call: call(),
+                    [sdpa_call(q[:, None], kv[0], kv[1], keep[:, None, None])
+                     for kv in pairs]),
+                l2_copies=len(pairs))
+            del pairs
         results.append(dict(
             case=case, B=B, T=T, N=N, K=K, D=D, lens=lens, kv_len=kv_len,
             live_keys=live, alibi=use_alibi, dtype=str(dtype),
+            split=decode_split_plan(B, K, D, item, kv_len,
+                                    torch.cuda.get_device_properties(
+                                        dev).multi_processor_count),
             max_abs_err=err, tol=dict(zip(("atol", "rtol"), TOL[dtype])),
-            ms=time_ms(lambda: decode_attention(*args, **kw)),
+            ms=time_ms(lambda: decode_attention(*args, **kw)), **rot,
             plain_ms=time_ms(lambda: reference_decode_attention(*args, **kw)),
-            library_ms=(time_ms(sdpa_call(q[:, None], k, v,
-                                          keep[:, None, None]))
-                        if al is None else None),
+            library_ms=time_ms(sdpa) if sdpa is not None else None,
             bound_ms=b_ms, bound_by=b_by))
     return results
 
@@ -1482,9 +1505,10 @@ def quant_cases(dev, gen):
     """The four quantized decode GEMMs at llama-7b's decode sites (K, N),
     M 1 and 8 activation rows in bf16 and fp32, int4 with one group (G 1)
     and with groups of 128 rows, on weights drawn N(0, 0.02) with one
-    all-zero column and quantized as the engine does. The a8 kernels with
-    one group must equal their plain versions bit for bit (exact integer
-    sums, the same fp32 epilogue); the others are held to TOL. Yardsticks
+    all-zero column and quantized as the engine does. The a8 kernels must
+    equal their plain versions bit for bit (exact integer sums, the same
+    fp32 epilogue; grouped int4 sums its group partials in the kernel's
+    order); the others are held to TOL. Yardsticks
     (timed here only): the bf16 ``torch.matmul`` of the dense weight for
     the weight-only kernels, ``torch._int_mm`` of INT_MM_ROWS rows by the
     int8 (for int4: unpacked to int8) weight for the a8 ones. The a8
@@ -1517,7 +1541,7 @@ def quant_cases(dev, gen):
                             raise AssertionError(f"{name}: output "
                                                  f"{got.dtype} {got.shape}")
                         label = f"{name} {site} M={M} G={G} {dtype}"
-                        exact = a8 and G == 1
+                        exact = a8
                         if exact and not torch.equal(got, want):
                             raise AssertionError(
                                 f"{label}: {int((got != want).sum())} "
@@ -2012,7 +2036,8 @@ def e2e_quant_phase(dev):
     in both paths: 2 x 256 rows) and 8 decode steps of 2 rows, through the
     quantized GEMM kernels, held to E2E_TOL against ``plain=True`` for the
     weight-only modes and against the same kernel path with the a8 GEMMs'
-    plain versions for w8a8 / w4a8 (``a8_plain_gemms``). Against
+    plain versions for w8a8 / w4a8 (``a8_plain_gemms``; the a8 GEMMs
+    equal their plain versions bit for bit, grouped int4 too). Against
     ``plain=True`` the a8 modes are measured, not held
     (``plain_path_max_abs_err``): the attention and norm kernels differ from
     their plain versions by fp32 rounding, and the activation quantization

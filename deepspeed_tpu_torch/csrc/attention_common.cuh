@@ -32,12 +32,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// *p through the read-only data path (global memory), or a plain load
+// (shared memory)
+template <bool kGlobal, typename V>
+__device__ __forceinline__ V load_vec(const V* p) {
+  if constexpr (kGlobal) return __ldg(p);
+  else return *p;
+}
+
 // NI consecutive elements of a K/V/q row starting at `src` (this lane's
-// dims d0 .. d0 + NI - 1), widened to fp32. `vec`: the lanes of a key tile
-// the row exactly, so the lane's slice is one aligned vector of NI *
-// sizeof(T) bytes and is read as such; otherwise element by element, dims
-// >= D read as 0.
-template <typename T, int NI>
+// dims d0 .. d0 + NI - 1), widened to fp32; `src` in global memory, or in
+// shared memory with kGlobal false. `vec`: the lanes of a key tile the row
+// exactly, so the lane's slice is one aligned vector of NI * sizeof(T)
+// bytes and is read as such; otherwise element by element, dims >= D read
+// as 0.
+template <typename T, int NI, bool kGlobal = true>
 __device__ __forceinline__ void load_slice(const T* __restrict__ src, int d0,
                                            int D, bool vec,
                                            float (&dst)[NI]) {
@@ -47,18 +56,21 @@ __device__ __forceinline__ void load_slice(const T* __restrict__ src, int d0,
       constexpr int PER = 16 / (int)sizeof(T);
 #pragma unroll
       for (int c = 0; c < BYTES / 16; ++c) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + d0) + c);
+        const uint4 raw =
+            load_vec<kGlobal>(reinterpret_cast<const uint4*>(src + d0) + c);
         const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
         for (int j = 0; j < PER; ++j) dst[c * PER + j] = to_f(e[j]);
       }
     } else if constexpr (BYTES == 8) {
-      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(src + d0));
+      const uint2 raw =
+          load_vec<kGlobal>(reinterpret_cast<const uint2*>(src + d0));
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int j = 0; j < NI; ++j) dst[j] = to_f(e[j]);
     } else if constexpr (BYTES == 4) {
-      const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(src + d0));
+      const unsigned raw =
+          load_vec<kGlobal>(reinterpret_cast<const unsigned*>(src + d0));
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int j = 0; j < NI; ++j) dst[j] = to_f(e[j]);

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's kernels that stream tiles
 // with the Tensor Memory Accelerator (quant_matmul_a8.cu,
-// flash_attention.cu, flash_attention_bwd.cu):
+// flash_attention.cu, flash_attention_bwd.cu, decode_attention.cu):
 // * device: shared-memory addresses, mbarriers, TMA tensor loads and stores
 //   and bulk copies, stores into another block's shared memory of the
 //   cluster, proxy fences, named barriers, the TMA swizzle of a tile's
@@ -426,8 +426,9 @@ inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
 
 template <typename T>
 constexpr CUtensorMapDataType map_type() {
-  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // The 4-D map of a (B, rows, heads, D) 16-bit tensor in boxes of (P, 1,

@@ -13,12 +13,17 @@ upper bound on the live columns: every column at or past it counts as
 invalid, so the function is ``valid & (col < kv_len)`` and the kernel reads
 fewer bytes. A row with no live key gives zeros (the JAX oracle gives
 uniform weights there; no caller builds such a row).
+
+The kernel splits the columns below ``kv_len`` across the blocks of each
+(row, KV head) and merges the splits in the same launch (a thread-block
+cluster); ``decode_split_plan`` picks the split on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from functools import lru_cache
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,6 +32,10 @@ from . import registry
 NEG_INF = -1e30
 MAX_GROUP = 8        # query heads per KV head the kernel takes
 MAX_HEAD_DIM = 256
+TILE = 32            # keys of a ring stage (csrc/decode_attention.cu kTile)
+MAX_SPLITS = 8       # blocks of a (row, KV head): a portable cluster
+BLOCKS_PER_SM = 4    # the grid a split may grow to, in blocks an SM
+RING_BYTES = 32 * 1024   # shared memory of a block's K / V ring
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -61,12 +70,38 @@ def reference_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, N, D).to(q.dtype)
 
 
+def decode_split_plan(B: int, K: int, D: int, itemsize: int, kv_len: int,
+                      sms: int) -> Tuple[int, int, int]:
+    """(splits, chunk, stages) of the kernel's launch: the columns below
+    ``kv_len`` go to ``splits`` blocks a (row, KV head), ``chunk`` columns
+    each (split i takes [i * chunk, (i + 1) * chunk)). ``splits`` is the
+    largest power of two up to MAX_SPLITS whose grid (B x K x splits
+    blocks) stays within BLOCKS_PER_SM blocks an SM and whose splits each
+    keep a tile; ``stages`` tiles of K and V fill RING_BYTES (at least
+    two). Small rings and a grid of ~4 blocks an SM ran fastest on the
+    H100 at llama-7b's decode shapes (PERF.md, the dense decode kernel's
+    findings)."""
+    tiles = -(-kv_len // TILE)
+    splits = 1
+    while (splits < MAX_SPLITS and 2 * splits <= tiles
+           and 2 * splits * B * K <= BLOCKS_PER_SM * sms):
+        splits *= 2
+    chunk = TILE * max(1, -(-tiles // splits))
+    stage = 2 * (-(-TILE * D * itemsize // 128) * 128)
+    stages = max(2, min(8, RING_BYTES // stage))
+    return splits, chunk, stages
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _fn():
-    fn = registry.library("decode_attention").dstt_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return registry.function(
+        "decode_attention", "dstt_decode_attention",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -132,6 +167,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             raise ValueError(f"decode_attention: {name} must start 16-byte "
                              "aligned")
     kv_len = T if kv_len is None else max(0, min(int(kv_len), T))
+    splits, chunk, stages = decode_split_plan(
+        B, K, D, q.element_size(), kv_len, _sm_count(q.device.index))
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 valid.data_ptr(),
@@ -140,7 +177,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                 else None,
                 out.data_ptr(), B, T, N, K, D, kv_len,
                 float(scale if scale is not None else D ** -0.5),
-                _DTYPES[q.dtype],
+                _DTYPES[q.dtype], splits, chunk, stages,
                 torch.cuda.current_stream(q.device).cuda_stream)
     registry.check_launch("decode_attention", err)
     return out

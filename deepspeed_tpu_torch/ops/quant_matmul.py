@@ -132,17 +132,64 @@ def reference_int8_a8_matmul(x, q8, scale, out_dtype=None):
 def reference_int4_a8_matmul(x, q4, scale, out_dtype=None):
     """Plain version: activation quantization, per-group integer partial
     products (exact in fp32 at these sizes), each scaled by its group's
-    scales, summed, then times ``sx``."""
+    scales, summed, then times ``sx``. With several groups on shapes the
+    kernel takes, the scaled partials are summed in the kernel's order
+    (``_a8_group_sum``), so the two agree bit for bit."""
     out_dtype = out_dtype or x.dtype
     xq, sx = quantize_activation_rows(x)
     w = _unpack_nibbles(q4)                                 # (K, N)
     K, N = w.shape
     G = scale.shape[0]
-    accs = torch.einsum("mgk,gkn->mgn",
-                        xq.float().reshape(xq.shape[0], G, K // G),
-                        w.float().reshape(G, K // G, N))
-    out = (accs * scale.float()[None]).sum(dim=1)
+    gs = K // G
+    if G > 1 and (K // 2) % 32 == 0 and gs % 16 == 0:
+        out = _a8_group_sum(xq.float(), w.float(), scale.float(), gs)
+    else:
+        accs = torch.einsum("mgk,gkn->mgn",
+                            xq.float().reshape(xq.shape[0], G, gs),
+                            w.float().reshape(G, gs, N))
+        out = (accs * scale.float()[None]).sum(dim=1)
     return (out * sx).to(out_dtype)
+
+
+A8_CLUSTER = 8   # blocks that split K in csrc/quant_matmul_a8.cu (kCluster)
+
+
+def _a8_group_sum(xq: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                  gs: int) -> torch.Tensor:
+    """sum_g (xq_g . w_g) * scale[g] in the grouped W4A8 kernel's order.
+    The kernel cuts the K / 2 packed rows into A8_CLUSTER ranges of 32-row
+    steps; each range walks its rows in 16-row units, keeping one exact
+    integer partial for the current group of each nibble plane (low: logical
+    rows < K / 2, high: the rest), and at each change of group (low before
+    high) and at the range's end adds partial x scale into an fp32 sum
+    (product, then sum, each rounded); the ranges' sums are added in rank
+    order."""
+    K2 = w.shape[0] // 2
+    steps = K2 // 32
+    tot = torch.zeros(xq.shape[0], w.shape[1], dtype=torch.float32,
+                      device=xq.device)
+    for r in range(A8_CLUSTER):
+        lo, hi = 32 * (r * steps // A8_CLUSTER), \
+            32 * ((r + 1) * steps // A8_CLUSTER)
+        facc = torch.zeros_like(tot)
+        # runs of rows in one group: (plane offset, first row, end row),
+        # in the order the kernel flushes them
+        runs, cur = [], {0: None, K2: None}
+        for row in range(lo, hi, 16):
+            for plane in (0, K2):
+                g = (plane + row) // gs
+                if cur[plane] is None or cur[plane][0] != g:
+                    if cur[plane] is not None:
+                        runs.append((plane, *cur[plane][1:], row))
+                    cur[plane] = (g, row)
+        for plane in (0, K2):
+            if cur[plane] is not None:
+                runs.append((plane, *cur[plane][1:], hi))
+        for plane, a, b in runs:
+            part = xq[:, plane + a:plane + b] @ w[plane + a:plane + b]
+            facc = facc + part * scale[(plane + a) // gs]
+        tot = tot + facc
+    return tot
 
 
 def reference_int4_matmul(x, q4, scale, out_dtype=None):

@@ -51,7 +51,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 PORT_KERNELS = ("ln_fwd_kernel", "paged_decode_kernel", "paged_prefill_kernel",
                 "paged_prefill_mma_kernel", "flash_fwd_kernel",
                 "flash_fwd_tma_kernel",
-                "decode_kernel", "flash_bwd_kernel", "flash_bwd_prologue",
+                "decode_split_kernel", "flash_bwd_kernel",
+                "flash_bwd_prologue",
                 "flash_bwd_epilogue", "flash_bwd_dq", "flash_bwd_dkv",
                 "adam_kernel", "quant_matmul_kernel",
                 "quant_matmul_a8_kernel",

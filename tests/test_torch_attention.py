@@ -31,6 +31,8 @@ from deepspeed_tpu_torch.models.transformer import (alibi_slopes,
 from deepspeed_tpu_torch.ops import (decode_attention, flash_attention,
                                      launch_counts, reference_decode_attention,
                                      reference_flash_attention)
+from deepspeed_tpu_torch.ops.decode_attention import (MAX_SPLITS, TILE,
+                                                      decode_split_plan)
 
 TOL = 2e-5
 HEADS = [(4, 4), (4, 2), (8, 2)]
@@ -211,6 +213,80 @@ class TestDecodePlainVsJax:
         out = reference_decode_attention(*(torch.from_numpy(a) for a in
                                            (q, kc, vc, valid)))
         assert (out[1] == 0).all() and torch.isfinite(out).all()
+
+
+class TestDecodeSplitPlan:
+    """The dense decode kernel's split, chosen on the host: every column
+    below kv_len falls in exactly one split, and the split-KV merge of the
+    kernel (each split's (m, l, acc), merged in split order) computes the
+    plain version's function."""
+
+    @pytest.mark.parametrize("B,K", [(1, 1), (1, 32), (8, 32), (2, 4),
+                                     (64, 8)])
+    @pytest.mark.parametrize("kv_len", [0, 1, 32, 33, 385, 1000, 4000,
+                                        4096, 32768])
+    @pytest.mark.parametrize("D,itemsize,sms", [(128, 2, 132),
+                                                (256, 4, 114)])
+    def test_every_column_in_one_split(self, B, K, kv_len, D, itemsize, sms):
+        splits, chunk, stages = decode_split_plan(B, K, D, itemsize, kv_len,
+                                                  sms)
+        assert 1 <= splits <= MAX_SPLITS and splits & (splits - 1) == 0
+        assert chunk >= TILE and chunk % TILE == 0
+        assert 2 <= stages <= 8
+        cover = np.zeros(max(kv_len, 1), np.int64)
+        for i in range(splits):
+            lo, hi = i * chunk, min((i + 1) * chunk, kv_len)
+            cover[lo:max(lo, hi)] += 1
+        assert (cover[:kv_len] == 1).all()
+        # no split is wholly past kv_len except those a power of two forces
+        assert splits == 1 or (splits // 2) * chunk < kv_len
+
+    def test_splits_at_llama_decode_shapes(self):
+        """B 1 at llama-7b's heads (K 32) over 4000 keys takes every split a
+        cluster allows (256 blocks); B 8 over 1000 keys takes 2 (512
+        blocks, within 4 an SM of 132); bf16 D 128 rings hold 2 stages."""
+        assert decode_split_plan(1, 32, 128, 2, 4000, 132) == (8, 512, 2)
+        assert decode_split_plan(8, 32, 128, 2, 1000, 132) == (2, 512, 2)
+        assert decode_split_plan(8, 32, 128, 2, 517, 132) == (2, 288, 2)
+
+    @pytest.mark.parametrize("kv_len", [0, 33, 200, 385])
+    def test_split_merge_matches_plain(self, kv_len):
+        """The kernel's arithmetic in float64 numpy: per split the online
+        softmax state over its live columns (none: l = 0, m = -1e30, acc =
+        0), then the merge in split order; a row with no live key gives 0."""
+        B, T, N, K, D = 3, 400, 8, 2, 16
+        q, kc, vc, valid, _ = decode_inputs(B, T, N, K, D, seed=kv_len)
+        valid[1, :] = 0                   # a row with no live key
+        valid[2, 64:160] = 0              # dead chunks between live ones
+        splits, chunk, _ = decode_split_plan(B, K, D, 4, kv_len, 132)
+        G, scale = N // K, D ** -0.5
+        live = (valid != 0) & (np.arange(T)[None] < kv_len)
+        want = reference_decode_attention(
+            *(torch.from_numpy(a) for a in (q, kc, vc, valid)),
+            kv_len=kv_len).numpy()
+        got = np.zeros_like(want, dtype=np.float64)
+        for b in range(B):
+            for n in range(N):
+                kh = n // G
+                parts = []
+                for i in range(splits):
+                    cols = [j for j in range(i * chunk,
+                                             min((i + 1) * chunk, kv_len))
+                            if live[b, j]]
+                    if not cols:
+                        parts.append((-1e30, 0.0, np.zeros(D)))
+                        continue
+                    s = (q[b, n].astype(np.float64) * scale) @ \
+                        kc[b, cols, kh].astype(np.float64).T
+                    m = s.max()
+                    p = np.exp(s - m)
+                    parts.append((m, p.sum(), p @ vc[b, cols, kh]))
+                M = max(m for m, _, _ in parts)
+                L = sum(l * np.exp(m - M) for m, l, _ in parts)
+                O = sum(a * np.exp(m - M) for m, _, a in parts)
+                got[b, n] = O / L if L > 0 else 0.0
+        assert (got[1] == 0).all()
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
 
 
 class TestDotProductAttentionVsJax:

@@ -22,8 +22,9 @@ type times the sum of its terms' magnitudes (``BWD_ROUND``); fused Adam
 1e-6 + 1e-5 relative (the same fp32 arithmetic, FMA-contracted). The
 quantized decode GEMMs (int8 / int4, weight-only and a8) run at small shapes
 and at llama-7b's decode sites against the same fp32 / bf16 tolerances; the
-a8 ones with one scale group must equal their plain versions bit for bit
-(exact integer sums, the same fp32 epilogue), and the three quantizers must
+a8 ones must equal their plain versions bit for bit (exact integer sums, the
+same fp32 epilogue, grouped int4's partials summed in the kernel's order),
+and the three quantizers must
 give the same q and scales on the card as on the CPU. The
 block-sparse kernels (the forward; the backward, one call for dq, dk and
 dv) run over DeepSpeed's layouts and
@@ -39,7 +40,12 @@ version bit for bit (q and scales); the flash forward at head_dim 264..512
 tolerances. The flash forward's TMA / wgmma routes (16-bit, D 16..128 and
 264..512) are also held with NaN in masked K / V rows, with key tiles past
 the last query, with 4 query heads a KV head, and to bit-equal outputs in
-two calls.
+two calls. The split-KV decode kernel is held at its edges: kv_len at a
+tile or split edge and one past it, dead chunks between live ones, kv_len
+0 and key-less rows, one long row (B 1, T 4096), 8 query heads a KV head
+with alibi over key positions, rows that no tensor map takes (not a
+multiple of 16 bytes), NaN in dead slots, and bit-equal repeats; each call
+is one launch.
 """
 
 import numpy as np
@@ -489,6 +495,154 @@ def test_decode_dense_rejects_bad_operands(dev):
         decode_attention(torch.zeros(2, 32, 32, device=dev), kc, kc, valid)
 
 
+# The split-KV kernel's edges: kv_len at a tile or split edge and one past
+# it, dead chunks between live ones, no live key, one long row, G 8 with
+# alibi and key positions, rows whose bytes are not a multiple of 16 (no
+# tensor map: plain loads), NaN in dead slots, bit-equal repeats. Each call
+# is one launch.
+def decode_once(dev, q, k, v, valid, **kw):
+    before = launch_counts()["decode_attention"]
+    got = decode_attention(q, k, v, valid, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention"] == before + 1
+    return got
+
+
+def decode_hold(dev, B, T, N, K, D, valid, dtype, atol, seed, **kw):
+    k, v = dense_kv(B, T, K, D, valid, seed=seed)
+    q = np.random.default_rng(seed + 1).normal(size=(B, N, D))
+    args = (t(q, dev, dtype), t(k, dev, dtype), t(v, dev, dtype),
+            t(valid, dev))
+    got = decode_once(dev, *args, **kw)
+    ref = reference_decode_attention(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+    return got, ref
+
+
+# B 1, K 2: 8 splits; 384 = 6 chunks of 64 (two splits past it), 385 puts
+# one column in the seventh; 512 = 8 x 64, 513 one past
+@pytest.mark.parametrize("kv_len", [31, 32, 33, 384, 385, 512, 513])
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_decode_dense_kv_len_edges(dev, kv_len, dtype, atol):
+    B, T, N, K, D = 1, 600, 4, 2, 128
+    decode_hold(dev, B, T, N, K, D, np.ones((B, T), np.int32), dtype, atol,
+                kv_len, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_decode_dense_dead_chunks(dev, dtype, atol):
+    """Whole chunks with no live column between live ones (the split of
+    columns 256..383, and 600..700 across two splits), in one row; the
+    other row keeps only its first and last tiles."""
+    B, T, N, K, D = 2, 1024, 8, 2, 128
+    valid = np.ones((B, T), np.int32)
+    valid[0, 256:384] = 0
+    valid[0, 600:701] = 0
+    valid[1, 32:992] = 0
+    decode_hold(dev, B, T, N, K, D, valid, dtype, atol, 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_decode_dense_no_live_key_gives_zeros(dev, dtype):
+    """kv_len 0 gives zeros; a row with no live key among live rows too."""
+    B, T, N, K, D = 3, 700, 8, 2, 128
+    rng = np.random.default_rng(4)
+    q, k, v = (t(rng.normal(size=shape), dev, dtype) for shape in
+               ((B, N, D), (B, T, K, D), (B, T, K, D)))
+    valid = np.ones((B, T), np.int32)
+    got = decode_once(dev, q, k, v, t(valid, dev), kv_len=0)
+    assert (got == 0).all()
+    valid[1] = 0
+    got = decode_once(dev, q, k, v, t(valid, dev), kv_len=650)
+    ref = reference_decode_attention(q, k, v, t(valid, dev), kv_len=650)
+    assert (got[1] == 0).all() and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               atol=dict(ATTN)[dtype], rtol=dict(ATTN)[dtype])
+
+
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_decode_dense_one_long_row(dev, dtype, atol):
+    """B 1 at T 4096, llama-7b's heads, kv_len 4000 with holes."""
+    B, T, N, K, D = 1, 4096, 32, 32, 128
+    valid = dense_mask(B, T, seed=9, lo=T)
+    decode_hold(dev, B, T, N, K, D, valid, dtype, atol, 9, kv_len=4000)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_decode_dense_eight_heads_a_group_alibi(dev, D, dtype, atol):
+    """G 8 (32 query heads over 4 KV heads), alibi over per-row key
+    positions, over 8 splits. Positions below 64 keep the bias where one
+    fp32 ulp (4e-6) is under the fp32 tolerance (``attn_params``)."""
+    B, T, N, K = 2, 500, 32, 4
+    valid = dense_mask(B, T, seed=D, lo=T // 2)
+    kpos = np.sort(np.random.default_rng(D).uniform(0, 64, (B, T)),
+                   axis=1).astype(np.float32)
+    decode_hold(dev, B, T, N, K, D, valid, dtype, atol, D,
+                alibi=alibi_slopes(N, device=dev),
+                key_positions=t(kpos, dev), kv_len=480)
+
+
+# rows of 40 (bf16 D 20), 66 (bf16 D 33) and 132 bytes (fp32 D 33): no
+# tensor map takes them; 96 bytes (bf16 D 48): a map, sliced reads
+@pytest.mark.parametrize("D,dtype,atol", [(20, torch.bfloat16, 2e-2),
+                                          (33, torch.bfloat16, 2e-2),
+                                          (33, torch.float16, 5e-3),
+                                          (33, torch.float32, 2e-5),
+                                          (48, torch.bfloat16, 2e-2)])
+def test_decode_dense_rows_not_16_bytes(dev, D, dtype, atol):
+    """With alibi over the columns in 16 bits (fp32: ``attn_params``)."""
+    B, T, N, K = 3, 300, 8, 2
+    valid = dense_mask(B, T, seed=D)
+    al = alibi_slopes(N, device=dev) if dtype != torch.float32 else None
+    decode_hold(dev, B, T, N, K, D, valid, dtype, atol, D, alibi=al,
+                kv_len=290)
+
+
+@pytest.mark.parametrize("D", [128, 20])
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_decode_dense_nan_in_dead_slots(dev, D, dtype, atol):
+    """Dead slots (holes inside live tiles, the padding, and columns past
+    kv_len) hold NaN: the output is finite and equals the plain version's
+    on the same inputs with those slots finite."""
+    B, T, N, K = 4, 700, 8, 2
+    valid = dense_mask(B, T, seed=3)
+    k, v = dense_kv(B, T, K, D, valid, seed=3)
+    q = t(np.random.default_rng(4).normal(size=(B, N, D)), dev, dtype)
+    kn, vn = k.copy(), v.copy()
+    kn[valid == 0] = np.nan
+    vn[valid == 0] = np.nan
+    kn[:, 650:] = np.nan
+    vn[:, 650:] = np.nan
+    got = decode_once(dev, q, t(kn, dev, dtype), t(vn, dev, dtype),
+                      t(valid, dev), kv_len=650)
+    ref = reference_decode_attention(q, t(k, dev, dtype), t(v, dev, dtype),
+                                     t(valid, dev), kv_len=650)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+
+
+@pytest.mark.parametrize("B,T,N,K,D,dtype", [
+    (8, 1024, 32, 32, 128, torch.bfloat16),
+    (2, 600, 16, 4, 64, torch.float32),
+    (1, 4096, 32, 32, 128, torch.float16)])
+def test_decode_dense_repeatable(dev, B, T, N, K, D, dtype):
+    """Two calls on the same inputs give equal bits: the splits merge in
+    rank order, with no atomics."""
+    valid = dense_mask(B, T, seed=T)
+    k, v = dense_kv(B, T, K, D, valid, seed=1)
+    q = np.random.default_rng(2).normal(size=(B, N, D))
+    args = (t(q, dev, dtype), t(k, dev, dtype), t(v, dev, dtype),
+            t(valid, dev))
+    a = decode_once(dev, *args, kv_len=T - 24)
+    b = decode_once(dev, *args, kv_len=T - 24)
+    assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # training kernels: flash backward (dq, dkv), fused Adam; the norm under
 # autograd
@@ -760,9 +914,10 @@ QCASES = [(name, K, N) for name in QUANT for K, N in QSHAPES
 @pytest.mark.parametrize("M", [1, 3, 8])
 @pytest.mark.parametrize("dtype,atol", LOW)
 def test_quant_matmul_matches_plain(dev, name, M, K, N, dtype, atol):
-    """The a8 kernels with one scale group equal their plain versions bit
-    for bit (exact integer sums, the same fp32 epilogue); the weight-only
-    ones and grouped int4 sum in fp32 in another order."""
+    """The a8 kernels equal their plain versions bit for bit (exact
+    integer sums, the same fp32 epilogue; grouped int4 scales and sums its
+    group partials in the kernel's order); the weight-only ones sum in fp32
+    in another order."""
     groups = [None] if name.startswith("int8") else [None, 128]
     if K == 384 and not name.startswith("int8"):
         groups = [None, 64]
@@ -775,7 +930,7 @@ def test_quant_matmul_matches_plain(dev, name, M, K, N, dtype, atol):
         assert launch_counts()[name] == before + 1
         ref = getattr(quant_matmul, "reference_" + name)(x, q, s)
         assert got.dtype == dtype and got.shape == (M, N)
-        if "_a8" in name and g is None:
+        if "_a8" in name:
             assert torch.equal(got, ref), float((got - ref).abs().max())
         else:
             torch.testing.assert_close(got.float(), ref.float(), atol=atol,
@@ -787,13 +942,14 @@ def test_quant_matmul_matches_plain(dev, name, M, K, N, dtype, atol):
 @pytest.mark.parametrize("dtype,atol", LOW)
 def test_int4_a8_small_groups(dev, M, K, N, group, dtype, atol):
     """W4A8 with groups that end inside a 32-row step (16, 48 rows: two
-    half steps) or on its edge."""
+    half steps) or on its edge: bit-equal to the plain version."""
     x, q, s = quant_operands(dev, "int4_a8_matmul", M, K, N, group, dtype,
                              K + group)
     got = quant_matmul.int4_a8_matmul(x, q, s)
     ref = quant_matmul.reference_int4_a8_matmul(x, q, s)
     torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                rtol=atol)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
 @pytest.mark.parametrize("K,N", [(384, 256), (4096, 11008)])
