@@ -20,9 +20,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    with an explicit mask for the dense attention kernels; timed here only,
    the port never calls it). The four quantized decode GEMMs run at
    llama-7b's weight sites, 1 and 8 rows, int4 with one group and with
-   groups of 128; the a8 ones must equal their plain versions bit for
-   bit, and they and ``torch._int_mm`` are also timed over weight copies
-   larger than the L2.
+   groups of 128, in bf16 and fp32, the weight-only ones (bf16 / fp16 on
+   the tensor-core ``quant_matmul_tc_kernel``, fp32 on the CUDA-core
+   ``quant_matmul_kernel``) also in fp16; the a8 ones must equal their
+   plain versions bit for bit. At 8 rows in bf16 every one of them and its
+   yardstick (the dense ``torch.matmul``, or ``torch._int_mm``) are also
+   timed over weight copies larger than the L2.
 4. ``serve``   — ``init_serving("llama-7b")`` at full width (H 4096, 32
    layers, 32 heads, D 128, FFN 11008, vocab 32000; seeded random bf16
    weights) serves 8 greedy requests (prompts of 64..700 tokens, two sharing
@@ -122,7 +125,8 @@ cross attention over 77 keys; SDPA as yardstick); and the flash forward at
 OPT-1.3B's training shape (causal, no mask; SDPA with ``is_causal`` as
 yardstick).
 
-Then one ``{"kernels": [...]}`` line (``launches``: each kernel's count over
+Then one ``{"kernels": [...]}`` line (``kernel``: the CUDA kernel that runs
+at the main path's shape; ``launches``: each wrapper's count over
 the serve run, the first generate call, the first call of each quantized
 mode, the int8 serve run, the 5 timed train steps, the 5 timed
 sparse_train steps, the 5 timed spatial calls and the quantize phase's
@@ -202,8 +206,10 @@ FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 # (atol, rtol): |kernel - plain| <= atol + rtol * |plain| elementwise. fp32:
 # the same arithmetic in another order; bf16: one bf16 rounding of outputs
 # of size up to ~4 (1 ulp = 2^-6 there) plus the plain version's own bf16
-# intermediates
-TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-5, 2e-5)}
+# intermediates; fp16 (the weight-only quantized GEMMs): one fp16 rounding
+# (at most 2^-10 relative) of fp32 sums taken in another order
+TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float16: (5e-3, 5e-3),
+       torch.float32: (2e-5, 2e-5)}
 E2E_TOL = 2e-4     # fp32 logits of |x| <= ~6 after 2 layers
 # the flash backward's 16-bit kernels round P and dS once to the input type
 # before their products: their error against the plain version is at most
@@ -262,41 +268,57 @@ E2E_TRAIN_TOL = {"loss_rel": 1e-4, "grad_rel": 1e-3, "update_rel": 3e-2,
 # (6e-2), and the loss limit between them and the faults (1e-5).
 E2E_SPARSE_TRAIN_TOL = dict(E2E_TRAIN_TOL, loss_rel=1e-5, update_rel=6e-2)
 
+# wrapper -> (its source, the TPU kernel it replaces, the CUDA kernel that
+# runs at the main path's shape in bf16)
 SOURCES = {
     "fused_layer_norm": ("deepspeed_tpu_torch/csrc/layer_norm.cu",
-                         "deepspeed_tpu/ops/normalization.py:59"),
+                         "deepspeed_tpu/ops/normalization.py:59",
+                         "ln_fwd_kernel"),
     "paged_decode_attention": ("deepspeed_tpu_torch/csrc/paged_attention.cu",
-                               "deepspeed_tpu/ops/paged_decode_attention.py:171"),
+                               "deepspeed_tpu/ops/paged_decode_attention.py:171",
+                               "paged_decode_kernel"),
     "paged_prefill_attention": ("deepspeed_tpu_torch/csrc/paged_attention.cu",
-                                "deepspeed_tpu/ops/paged_decode_attention.py:294"),
+                                "deepspeed_tpu/ops/paged_decode_attention.py:294",
+                                "paged_prefill_mma_kernel"),
     "flash_attention": ("deepspeed_tpu_torch/csrc/flash_attention.cu",
-                        "deepspeed_tpu/ops/flash_attention.py:135"),
+                        "deepspeed_tpu/ops/flash_attention.py:135",
+                        "flash_fwd_tma_kernel"),
     "decode_attention": ("deepspeed_tpu_torch/csrc/decode_attention.cu",
-                         "deepspeed_tpu/ops/decode_attention.py:161"),
+                         "deepspeed_tpu/ops/decode_attention.py:161",
+                         "decode_split_kernel"),
     "flash_attention_bwd": ("deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
-                            "deepspeed_tpu/ops/flash_attention.py:286,311"),
+                            "deepspeed_tpu/ops/flash_attention.py:286,311",
+                            "flash_bwd_kernel"),
     "fused_adam": ("deepspeed_tpu_torch/csrc/fused_adam.cu",
-                   "deepspeed_tpu/ops/fused_adam.py:72"),
+                   "deepspeed_tpu/ops/fused_adam.py:72", "adam_kernel"),
     "int8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
-                    "deepspeed_tpu/ops/quant_matmul.py:79"),
+                    "deepspeed_tpu/ops/quant_matmul.py:79",
+                    quant_matmul.weight_only_kernel(torch.bfloat16)),
     "int8_a8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul_a8.cu",
-                       "deepspeed_tpu/ops/quant_matmul.py:167"),
+                       "deepspeed_tpu/ops/quant_matmul.py:167",
+                       "quant_matmul_a8_kernel"),
     "int4_a8_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul_a8.cu",
-                       "deepspeed_tpu/ops/quant_matmul.py:250"),
+                       "deepspeed_tpu/ops/quant_matmul.py:250",
+                       "quant_matmul_a8_kernel"),
     "int4_matmul": ("deepspeed_tpu_torch/csrc/quant_matmul.cu",
-                    "deepspeed_tpu/ops/quant_matmul.py:394"),
+                    "deepspeed_tpu/ops/quant_matmul.py:394",
+                    quant_matmul.weight_only_kernel(torch.bfloat16)),
     "block_sparse_attention_fwd": (
         "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
-        "deepspeed_tpu/ops/block_sparse_attention.py:196"),
+        "deepspeed_tpu/ops/block_sparse_attention.py:196",
+        "sparse_fwd_mma_kernel"),
     "block_sparse_attention_bwd": (
         "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
-        "deepspeed_tpu/ops/block_sparse_attention.py:325,360"),
+        "deepspeed_tpu/ops/block_sparse_attention.py:325,360",
+        "sparse_bwd_kernel"),
     "fused_lamb": ("deepspeed_tpu_torch/csrc/fused_lamb.cu",
-                   "deepspeed_tpu/ops/fused_lamb.py:82"),
+                   "deepspeed_tpu/ops/fused_lamb.py:82", "lamb_phase1_kernel"),
     "quantize_symmetric": ("deepspeed_tpu_torch/csrc/quantization.cu",
-                           "deepspeed_tpu/ops/quantization.py:44"),
+                           "deepspeed_tpu/ops/quantization.py:44",
+                           "quant_sym_kernel"),
     "fused_group_norm": ("deepspeed_tpu_torch/csrc/group_norm.cu",
-                         "deepspeed_tpu/ops/spatial.py:101"),
+                         "deepspeed_tpu/ops/spatial.py:101",
+                         "gn_stats_kernel + gn_apply_kernel"),
 }
 # the quantized inference modes and the decode GEMM each one runs
 QUANT_MODES = {"int8": "int8_matmul", "w8a8": "int8_a8_matmul",
@@ -1503,17 +1525,18 @@ def int_mm_ms(dev, K: int, w8: torch.Tensor):
 
 def quant_cases(dev, gen):
     """The four quantized decode GEMMs at llama-7b's decode sites (K, N),
-    M 1 and 8 activation rows in bf16 and fp32, int4 with one group (G 1)
-    and with groups of 128 rows, on weights drawn N(0, 0.02) with one
-    all-zero column and quantized as the engine does. The a8 kernels must
-    equal their plain versions bit for bit (exact integer sums, the same
-    fp32 epilogue; grouped int4 sums its group partials in the kernel's
-    order); the others are held to TOL. Yardsticks
-    (timed here only): the bf16 ``torch.matmul`` of the dense weight for
-    the weight-only kernels, ``torch._int_mm`` of INT_MM_ROWS rows by the
-    int8 (for int4: unpacked to int8) weight for the a8 ones. The a8
-    kernels and ``torch._int_mm`` are also timed at M 8 in bf16 over weight
-    copies larger than the L2 (``ms_rotated``, ``library_ms_rotated``)."""
+    M 1 and 8 activation rows in bf16 and fp32 (the weight-only ones also
+    in fp16), int4 with one group (G 1) and with groups of 128 rows, on
+    weights drawn N(0, 0.02) with one all-zero column and quantized as the
+    engine does. The a8 kernels must equal their plain versions bit for
+    bit (exact integer sums, the same fp32 epilogue; grouped int4 sums its
+    group partials in the kernel's order); the others are held to TOL.
+    Yardsticks (timed here only): the ``torch.matmul`` of the dense weight
+    in x's dtype for the weight-only kernels (bf16, fp16), ``torch._int_mm``
+    of INT_MM_ROWS rows by the int8 (for int4: unpacked to int8) weight for
+    the a8 ones. At M 8 in bf16 every kernel and its yardstick are also
+    timed over weight copies larger than the L2 (``ms_rotated``,
+    ``library_ms_rotated``)."""
     out = {name: [] for name in QUANT_MODES.values()}
     for site, (K, N) in QUANT_SITES.items():
         w = 0.02 * torch.randn(K, N, generator=gen, device=dev)
@@ -1521,7 +1544,7 @@ def quant_cases(dev, gen):
         q8 = _quantize_int8(w)
         packs = {G: quant_matmul.quantize_int4(w, None if G == 1 else 128)
                  for G in (1, K // 128)}
-        dense = w.to(torch.bfloat16)
+        dense = {dt: w.to(dt) for dt in (torch.bfloat16, torch.float16)}
         del w
         lib8 = int_mm_ms(dev, K, q8["q8"])
         lib4 = int_mm_ms(dev, K, quant_matmul._unpack_nibbles(
@@ -1530,10 +1553,12 @@ def quant_cases(dev, gen):
             int4, a8 = name.startswith("int4"), "_a8" in name
             fn = getattr(quant_matmul, name)
             ref = getattr(quant_matmul, "reference_" + name)
+            dtypes = (torch.bfloat16, torch.float32) + (
+                () if a8 else (torch.float16,))
             for G in (packs if int4 else (1,)):
                 q, s = packs[G] if int4 else (q8["q8"], q8["s"])
                 for M in (1, 8):
-                    for dtype in (torch.bfloat16, torch.float32):
+                    for dtype in dtypes:
                         x = torch.randn(M, K, generator=gen,
                                         device=dev).to(dtype)
                         got, want = fn(x, q, s), ref(x, q, s)
@@ -1550,19 +1575,24 @@ def quant_cases(dev, gen):
                         item = x.element_size()
                         nbytes = (q.numel() + 4 * s.numel()
                                   + (M * K + M * N) * item)
-                        peak = (INT8_OPS if a8 else BF16_FLOPS
-                                if dtype == torch.bfloat16 else FP32_FLOPS)
+                        peak = (INT8_OPS if a8 else FP32_FLOPS
+                                if dtype == torch.float32 else BF16_FLOPS)
                         b_ms, b_by = bound_ms(nbytes, 2.0 * M * K * N, peak)
                         library, rot = None, {}
-                        if dtype == torch.bfloat16:
-                            library = (lib4 if int4 else lib8)[0] if a8 \
-                                else time_ms(lambda: torch.matmul(x, dense))
-                        if a8 and M == 8 and dtype == torch.bfloat16:
+                        if a8 and dtype == torch.bfloat16:
+                            library = (lib4 if int4 else lib8)[0]
+                        elif dtype in dense:
+                            library = time_ms(
+                                lambda: torch.matmul(x, dense[dtype]))
+                        if M == 8 and dtype == torch.bfloat16:
                             rot = dict(
                                 ms_rotated=rotated_ms(
                                     lambda qc: fn(x, qc, s), l2_copies(q)),
-                                library_ms_rotated=(lib4 if int4
-                                                    else lib8)[1])
+                                library_ms_rotated=(
+                                    (lib4 if int4 else lib8)[1] if a8
+                                    else rotated_ms(
+                                        lambda d: torch.matmul(x, d),
+                                        l2_copies(dense[dtype]))))
                         out[name].append(dict(
                             site=site, M=M, K=K, N=N, G=G, dtype=str(dtype),
                             max_abs_err=err, exact=exact,
@@ -1572,7 +1602,7 @@ def quant_cases(dev, gen):
                                              reps=3),
                             library_ms=library,
                             library=("torch._int_mm, 17 rows" if a8
-                                     else "torch.matmul, bf16 dense"),
+                                     else f"torch.matmul, dense {dtype}"),
                             bound_ms=b_ms, bound_by=b_by))
         del q8, packs, dense
         torch.cuda.empty_cache()
@@ -2602,11 +2632,12 @@ def main() -> int:
             "quantize_symmetric": lambda c: (c["case"] == "opt-1.3b"
                                              and c["bits"] == 8)}
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, (source, replaces, kernel) in SOURCES.items():
         bf16 = [c for c in cases[name] if c["dtype"] == str(torch.bfloat16)]
         main_case = next(c for c in bf16 if pick[name](c))
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, kernel=kernel, route="cuda", source=source,
+            replaces=replaces,
             launches=(counts.get(name, 0) + gen_counts.get(name, 0)
                       + quant_counts.get(name, 0)
                       + train_counts.get(name, 0)

@@ -1,7 +1,8 @@
 // Device helpers shared by the attention kernels of deepspeed_tpu_torch
-// (paged_attention.cu, flash_attention.cu, decode_attention.cu): type
-// conversion, warp reductions, vector row loads, and the mma.sync /
-// ldmatrix wrappers of the 16-bit tensor-core paths. Each .cu file is its
+// (paged_attention.cu, flash_attention.cu, decode_attention.cu; the
+// weight-only quantized GEMM, quant_matmul.cu, takes its conversions and
+// mma.sync wrappers): type conversion, warp reductions, vector row loads,
+// and the mma.sync / ldmatrix wrappers of the 16-bit tensor-core paths. Each .cu file is its
 // own library, so everything here has internal linkage.
 
 #pragma once

@@ -165,11 +165,7 @@ class InferenceEngine:
         if model.config is None:
             raise ValueError("model.config is required for inference (the "
                              "KV-cache arena is sized from it)")
-        if (config.quantize_bits and config.dtype == torch.float16
-                and self.device.type == "cuda"):
-            raise NotImplementedError(
-                "quantized weights with fp16 compute: the quantized decode "
-                "kernels take bf16 or fp32 activations")
+        check_quantized_compute(config, self.device)
         if config.quantize_activations:
             _a8_gate_preview(config, model.config)
         if params is None:
@@ -323,6 +319,21 @@ class InferenceEngine:
         self._arena[B] = cache
         tokens = torch.stack(out, dim=1)
         return (tokens, ttft) if return_ttft else tokens
+
+
+def check_quantized_compute(config: InferenceConfig,
+                            device: torch.device) -> None:
+    """Refuse what the quantized decode kernels do not take, before any
+    weight lands on the card: the W8A8 / W4A8 kernels take bf16 or fp32
+    activations, so fp16 with ``quantize_activations`` on CUDA raises
+    NotImplementedError; the weight-only kernels also take fp16, and a CPU
+    engine runs the plain versions at any dtype."""
+    if (config.quantize_bits and config.quantize_activations
+            and config.dtype == torch.float16 and device.type == "cuda"):
+        raise NotImplementedError(
+            "fp16 compute with quantized activations (w8a8 / w4a8): the a8 "
+            "decode kernels take bf16 or fp32 activations; weight-only int8 "
+            "/ int4 take fp16")
 
 
 def _a8_gate_preview(config: InferenceConfig, cfg) -> None:

@@ -5,10 +5,17 @@ Counterpart of ``deepspeed_tpu/ops/quant_matmul.py``. Each of
 launches its CUDA kernel on a CUDA tensor (the weight-only ones
 ``csrc/quant_matmul.cu``, the a8 ones ``csrc/quant_matmul_a8.cu``) and runs
 its plain version (``reference_*``, the JAX oracle's arithmetic) on a CPU
-tensor. The kernels take what the decode path gives them: x (M <= 8, K) in
-float32 or bfloat16, the output in x's dtype. Which call reaches them is
-decided by ``models.transformer._qeinsum`` (JAX's gate); a CUDA call the
-kernel does not take raises.
+tensor. The kernels take what the decode path gives them: x (M <= 8, K),
+the output in x's dtype; the weight-only ones take float32, bfloat16 or
+float16 x (JAX casts the weight to x's dtype), the a8 ones float32 or
+bfloat16. Which call reaches them is decided by
+``models.transformer._qeinsum`` (JAX's gate); a CUDA call the kernel does
+not take raises.
+
+The weight-only wrappers route by x's dtype (``weight_only_kernel``):
+bfloat16 and float16 run ``quant_matmul_tc_kernel`` on the tensor cores,
+with the cluster split and ring stages of ``tc_plan``; float32 runs the
+CUDA-core ``quant_matmul_kernel``. There is no fallback between them.
 
 Layouts (the JAX package's):
 
@@ -34,6 +41,7 @@ eager IEEE division.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,12 +49,17 @@ import torch
 from . import registry
 
 MAX_ROWS = 8              # activation rows the kernels take (decode-shaped)
-COL_TILE = 32             # output columns per thread block (weight-only)
+COL_ALIGN = 32            # the weight-only kernels' N multiple
+TC_COLS = 128             # quant_matmul_tc_kernel: output columns of a tile
+TC_ROWS = 64              # its weight rows of one ring stage
+TC_MAX_CLUSTER = 8        # its blocks a column tile (a portable cluster)
+TC_BLOCKS_PER_SM = 3      # its resident blocks an SM (__launch_bounds__)
 A8_ALIGN = 128            # JAX's a8 kernels' K / N (int4: K/2 / N) multiple
 A8_GROUP = 16             # the a8 kernel's int4 groups: a multiple of 16 rows
 A8_MAX_K = 32768          # the a8 kernel holds K/8 of x in shared memory
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_A8_DTYPES = (torch.float32, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -203,15 +216,60 @@ def reference_int4_matmul(x, q4, scale, out_dtype=None):
 # ---------------------------------------------------------------------------
 
 
-# both entry points: x, q, s, out, M, K, N, G, int4, dtype, stream
+# x, q, s, out, M, K, N, G, int4, dtype, stream (dstt_quant_matmul and the
+# a8 entry); dstt_quant_matmul_tc adds x's high-plane column (int4), the
+# cluster and the stages before the stream
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_TC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
-def _check_common(name: str, x: torch.Tensor, out_dtype) -> None:
+def weight_only_kernel(dtype: torch.dtype) -> str:
+    """The CUDA kernel a weight-only call with x of ``dtype`` runs:
+    ``quant_matmul_tc_kernel`` (tensor cores) for bfloat16 and float16,
+    ``quant_matmul_kernel`` (CUDA cores) for float32."""
+    if dtype == torch.float32:
+        return "quant_matmul_kernel"
+    if dtype in (torch.bfloat16, torch.float16):
+        return "quant_matmul_tc_kernel"
+    raise ValueError(f"weight-only quantized GEMMs take float32, bfloat16 "
+                     f"or float16 x, not {dtype}")
+
+
+def tc_plan(M: int, K: int, N: int, G: int, int4: bool,
+            sms: int) -> Tuple[int, int]:
+    """(cluster, stages) of ``quant_matmul_tc_kernel`` for x (M, K) times a
+    (K, N) weight in G scale groups, on a card of ``sms`` SMs; no device
+    needed. A column tile is TC_COLS wide and a ring stage TC_ROWS weight
+    rows (``K / 2`` rows for int4); ``cluster`` blocks split a tile's
+    stages, and a block whose share of K is empty still runs (it pushes
+    zeros). The cluster is the largest power of two, at most
+    TC_MAX_CLUSTER, whose grid fits in one wave of resident blocks
+    (TC_BLOCKS_PER_SM an SM; timed on the H100, a second wave cost more
+    than a smaller split); ``stages``: four, or fewer when a block has
+    fewer stages of rows. M and G do not change it."""
+    del M, G            # the weight's bytes set the split
+    rows = K // 2 if int4 else K
+    tiles = -(-N // TC_COLS)
+    slots = TC_BLOCKS_PER_SM * sms
+    cluster = TC_MAX_CLUSTER
+    while cluster > 1 and tiles * cluster > slots:
+        cluster //= 2
+    steps = -(-rows // TC_ROWS)
+    return cluster, max(1, min(4, -(-steps // cluster)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_common(name: str, x: torch.Tensor, out_dtype,
+                  dtypes=tuple(_DTYPES)) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"{name}: x must be float32 or bfloat16, got "
+    if x.dtype not in dtypes:
+        raise ValueError(f"{name}: x must be one of "
+                         f"{', '.join(str(d) for d in dtypes)}, got "
                          f"{x.dtype}")
     if out_dtype is not None and out_dtype != x.dtype:
         raise ValueError(f"{name}: the kernel writes x's dtype {x.dtype}, "
@@ -235,7 +293,8 @@ def _aligned(name: str, x: torch.Tensor, *others) -> torch.Tensor:
 
 def _launch(name: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             out_dtype, int4: bool) -> torch.Tensor:
-    """Check the operands of a weight-only CUDA call and launch the kernel."""
+    """Check the operands of a weight-only CUDA call and launch the kernel
+    of x's dtype (``weight_only_kernel``)."""
     _check_common(name, x, out_dtype)
     if x.dim() != 2 or q.dim() != 2 or scale.dim() != 2:
         raise ValueError(f"{name}: x, the weight and the scales must be 2-D; "
@@ -259,16 +318,32 @@ def _launch(name: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                          f", {N}) with G dividing K; got {scale.dtype} "
                          f"{tuple(scale.shape)}")
     gs = K // G
-    if N % COL_TILE or K % 8 or gs % 4 or (int4 and G > 1 and rows % gs):
-        raise ValueError(f"{name}: needs N % {COL_TILE} == 0, K % 8 == 0 and "
+    if N % COL_ALIGN or K % 8 or gs % 4 or (int4 and G > 1 and rows % gs):
+        raise ValueError(f"{name}: needs N % {COL_ALIGN} == 0, K % 8 == 0 and "
                          f"groups of a multiple of 4 rows inside each nibble "
                          f"plane; got K={K}, N={N}, G={G}")
     x = _aligned(name, x, q, scale)
+    tc = weight_only_kernel(x.dtype) == "quant_matmul_tc_kernel"
+    xh = -(-rows // 8) * 8 if int4 else K     # x's high-plane column (tc)
+    if tc and int4 and xh != rows:
+        # the kernel reads x's high plane in TMA boxes, which start on 16
+        # bytes: move it to column xh, a multiple of 8 elements
+        xp = x.new_zeros(M, 2 * xh)
+        xp[:, :rows] = x[:, :rows]
+        xp[:, xh:xh + rows] = x[:, rows:]
+        x = xp
     out = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    fn = registry.function("quant_matmul", "dstt_quant_matmul", _ARGS)
-    err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             M, K, N, G, int(int4), _DTYPES[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            M, K, N, G, int(int4), _DTYPES[x.dtype])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if tc:
+        fn = registry.function("quant_matmul", "dstt_quant_matmul_tc",
+                               _TC_ARGS)
+        err = fn(*args, xh, *tc_plan(M, K, N, G, int4, _sms(x.device.index)),
+                 stream)
+    else:
+        fn = registry.function("quant_matmul", "dstt_quant_matmul", _ARGS)
+        err = fn(*args, stream)
     registry.check_launch(name, err)
     return out
 
@@ -316,7 +391,7 @@ def check_a8_operands(name: str, x_shape, q_shape, scale_shape
 def _launch_a8(name: str, x: torch.Tensor, q: torch.Tensor,
                scale: torch.Tensor, out_dtype, int4: bool) -> torch.Tensor:
     """Check the operands of an a8 CUDA call and launch the kernel."""
-    _check_common(name, x, out_dtype)
+    _check_common(name, x, out_dtype, _A8_DTYPES)
     M, K, N, G = check_a8_operands(name, x.shape, q.shape, scale.shape)
     want = torch.uint8 if int4 else torch.int8
     if q.dtype != want or scale.dtype != torch.float32:

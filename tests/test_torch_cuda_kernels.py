@@ -21,11 +21,18 @@ intermediates. The 16-bit flash backward adds twice one rounding of the
 type times the sum of its terms' magnitudes (``BWD_ROUND``); fused Adam
 1e-6 + 1e-5 relative (the same fp32 arithmetic, FMA-contracted). The
 quantized decode GEMMs (int8 / int4, weight-only and a8) run at small shapes
-and at llama-7b's decode sites against the same fp32 / bf16 tolerances; the
+and at llama-7b's decode sites against the same fp32 / bf16 tolerances (the
+weight-only ones also in fp16, 5e-3); the
 a8 ones must equal their plain versions bit for bit (exact integer sums, the
 same fp32 epilogue, grouped int4's partials summed in the kernel's order),
 and the three quantizers must
-give the same q and scales on the card as on the CPU. The
+give the same q and scales on the card as on the CPU. The weight-only
+tensor-core kernel is also held at its edges (1, 3, 5 and 8 rows, a single
+ring stage of K 64 split over a cluster, a partial stage at K 392, partial
+column tiles, int4 groups of 4..128 rows, some ending inside a 16-row
+unit, a zero x row and weight column, a misaligned x), to equal bits in
+two calls, to one launch of the kernel of x's dtype, and through an fp16
+int8 / int4 engine. The
 block-sparse kernels (the forward; the backward, one call for dq, dk and
 dv) run over DeepSpeed's layouts and
 over layouts with a key-less q-tile, padded list slots and asymmetric
@@ -904,15 +911,25 @@ def quant_operands(dev, name, M, K, N, groups, dtype, seed):
     return t(x, dev, dtype), q, s
 
 
+# x dtypes: the weight-only kernels take fp16 too (one fp16 rounding of
+# outputs of size up to ~20, the fp32 sums in another order)
+QDTYPES = LOW + [(torch.float16, 5e-3)]
 # the a8 kernels take JAX's a8 shapes (K, N, for int4 K/2, multiples of
-# 128): (384, 96) is among the refused operands below
-QCASES = [(name, K, N) for name in QUANT for K, N in QSHAPES
-          if not ("_a8" in name and (K, N) == (384, 96))]
+# 128; (384, 96) is among the refused operands below) and no fp16
+QCASES = [(name, K, N, dtype, atol) for name in QUANT for K, N in QSHAPES
+          for dtype, atol in QDTYPES
+          if not ("_a8" in name
+                  and ((K, N) == (384, 96) or dtype == torch.float16))]
 
 
-@pytest.mark.parametrize("name,K,N", QCASES)
-@pytest.mark.parametrize("M", [1, 3, 8])
-@pytest.mark.parametrize("dtype,atol", LOW)
+def hold_quant(got, ref, dtype, atol):
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+    assert got.dtype == dtype and got.shape == ref.shape
+
+
+@pytest.mark.parametrize("name,K,N,dtype,atol", QCASES)
+@pytest.mark.parametrize("M", [1, 3, 5, 8])
 def test_quant_matmul_matches_plain(dev, name, M, K, N, dtype, atol):
     """The a8 kernels equal their plain versions bit for bit (exact
     integer sums, the same fp32 epilogue; grouped int4 scales and sums its
@@ -933,8 +950,127 @@ def test_quant_matmul_matches_plain(dev, name, M, K, N, dtype, atol):
         if "_a8" in name:
             assert torch.equal(got, ref), float((got - ref).abs().max())
         else:
-            torch.testing.assert_close(got.float(), ref.float(), atol=atol,
-                                       rtol=atol)
+            hold_quant(got, ref, dtype, atol)
+
+
+WEIGHT_ONLY = ("int8_matmul", "int4_matmul")
+TC_DTYPES = [(torch.bfloat16, 2e-2), (torch.float16, 5e-3)]
+
+
+# (K, N): one ring stage of K 64, so that most blocks of the cluster get no
+# rows; K 392 (int4: 196 packed rows), a partial last stage; N 96 and 416,
+# a partial column tile; N 384, whole tiles
+@pytest.mark.parametrize("K,N", [(64, 96), (64, 384), (392, 384),
+                                 (392, 416), (136, 160)])
+@pytest.mark.parametrize("name", WEIGHT_ONLY)
+@pytest.mark.parametrize("M", [1, 3, 5, 8])
+@pytest.mark.parametrize("dtype,atol", TC_DTYPES)
+def test_quant_matmul_tc_edges(dev, name, M, K, N, dtype, atol):
+    """The tensor-core kernel at its edges, with a zero x row (M > 2) and
+    an all-zero weight column; the same shapes in fp32 (the CUDA-core
+    kernel)."""
+    for dt, tol in ((dtype, atol), (torch.float32, 2e-5)):
+        x, q, s = quant_operands(dev, name, M, K, N, None, dt, K + N + M)
+        got = getattr(quant_matmul, name)(x, q, s)
+        ref = getattr(quant_matmul, "reference_" + name)(x, q, s)
+        hold_quant(got, ref, dt, tol)
+        assert not got[:, 1].any()                # the all-zero column
+        if M > 2:
+            assert not got[2].any()               # the zero x row
+
+
+# int4 groups of 4, 8, 12, 16, 24, 48, 64 and 128 rows over 384 packed rows
+# (6 ring stages over clusters of 8 blocks, some empty): groups of 4, 8, 12
+# and 24 end inside a 16-row unit
+@pytest.mark.parametrize("group", [4, 8, 12, 16, 24, 48, 64, 128])
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("dtype,atol", TC_DTYPES + [(torch.float32, 2e-5)])
+def test_int4_matmul_groups(dev, group, M, dtype, atol):
+    x, q, s = quant_operands(dev, "int4_matmul", M, 768, 416, group, dtype,
+                             group + M)
+    assert s.shape == (768 // group, 416)
+    got = quant_matmul.int4_matmul(x, q, s)
+    hold_quant(got, quant_matmul.reference_int4_matmul(x, q, s), dtype, atol)
+
+
+@pytest.mark.parametrize("name", WEIGHT_ONLY)
+@pytest.mark.parametrize("dtype,atol", TC_DTYPES + [(torch.float32, 2e-5)])
+def test_quant_matmul_misaligned_x(dev, name, dtype, atol):
+    """An x view that starts off a 16-byte boundary is copied to an aligned
+    buffer: the same bits as the aligned x."""
+    x, q, s = quant_operands(dev, name, 5, 4096, 4096, None, dtype, 9)
+    buf = torch.empty(5 * 4096 + 1, dtype=dtype, device=dev)
+    view = buf[1:].view(5, 4096)
+    view.copy_(x)
+    assert view.data_ptr() % 16
+    fn = getattr(quant_matmul, name)
+    assert torch.equal(fn(view, q, s), fn(x, q, s))
+
+
+@pytest.mark.parametrize("name,groups", [("int8_matmul", None),
+                                         ("int4_matmul", None),
+                                         ("int4_matmul", 128),
+                                         ("int4_matmul", 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_quant_matmul_repeatable(dev, name, groups, dtype):
+    """The K split meets in a fixed order (no atomics): two calls give the
+    same bits, at llama-7b's gate / up site."""
+    x, q, s = quant_operands(dev, name, 8, 4096, 11008, groups, dtype, 4)
+    fn = getattr(quant_matmul, name)
+    assert torch.equal(fn(x, q, s), fn(x, q, s))
+
+
+@pytest.mark.parametrize("name", WEIGHT_ONLY)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_quant_matmul_launches_its_route(dev, name, dtype):
+    """A weight-only call is one launch of the kernel of x's dtype: the
+    tensor-core kernel for bf16 / fp16, the CUDA-core one for fp32 (the
+    wrapper's route); the a8 wrappers' counts do not move."""
+    x, q, s = quant_operands(dev, name, 8, 4096, 4096, None, dtype, 5)
+    before = launch_counts()
+    getattr(quant_matmul, name)(x, q, s)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in QUANT} == {
+        k: int(k == name) for k in QUANT}
+    assert quant_matmul.weight_only_kernel(dtype) == (
+        "quant_matmul_kernel" if dtype == torch.float32
+        else "quant_matmul_tc_kernel")
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_fp16_weight_only_engine_generates(dev, bits):
+    """An fp16 int8 / int4 engine (tiny-llama widened so that every site
+    passes the kernel gate) generates on the card: in-vocab tokens, and
+    its decode forwards launch the weight-only GEMM at every site; w8a8 /
+    w4a8 with fp16 are refused there."""
+    from deepspeed_tpu_torch.inference import InferenceConfig, init_inference
+    from deepspeed_tpu_torch.ops import reset_launch_counts
+
+    wide = dict(hidden_size=256, ffn_hidden_size=512)
+    eng = init_inference("tiny-llama", config=InferenceConfig(
+        dtype=torch.float16, quantize_bits=bits, max_out_tokens=128),
+        device="cuda", **wide)
+    cfg = eng.model.config
+    rng = np.random.default_rng(bits)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 12)))
+    mask = torch.ones(4, 12, dtype=torch.int32)
+    mask[1, 7:] = 0
+    reset_launch_counts()
+    out = eng.generate(ids.to(dev), attention_mask=mask.to(dev),
+                       max_new_tokens=6)
+    torch.cuda.synchronize()
+    assert out.shape == (4, 6)
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    name = "int8_matmul" if bits == 8 else "int4_matmul"
+    per_forward = 7 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+    assert launch_counts()[name] == per_forward * 5
+    with pytest.raises(NotImplementedError, match="fp16"):
+        init_inference("tiny-llama", config=InferenceConfig(
+            dtype=torch.float16, quantize_bits=bits,
+            quantize_activations=True, max_out_tokens=128), device="cuda",
+            **wide)
 
 
 @pytest.mark.parametrize("M,K,N,group", [(3, 256, 128, 16), (8, 768, 256, 48),
@@ -986,8 +1122,11 @@ def test_quant_matmul_rejects_bad_operands(dev):
                              torch.float32, 0)
     with pytest.raises(ValueError):                   # 9 rows
         quant_matmul.int8_matmul(x.repeat(5, 1)[:9], q, s)
-    with pytest.raises(ValueError):                   # fp16 x
-        quant_matmul.int8_matmul(x.half(), q, s)
+    for name in ("int8_a8_matmul", "int4_a8_matmul"):  # fp16 x (a8)
+        xa, qa, sa = quant_operands(dev, name, 2, 256, 128, None,
+                                    torch.float16, 3)
+        with pytest.raises(ValueError, match="float16"):
+            getattr(quant_matmul, name)(xa, qa, sa)
     with pytest.raises(ValueError):                   # N % 32
         quant_matmul.int8_matmul(x, q[:, :112].contiguous(),
                                  s[:, :112].contiguous())

@@ -11,7 +11,10 @@ fp32 throughout:
   ``reference_int8_matmul`` / ``reference_int8_a8_matmul`` /
   ``reference_int4_matmul`` / ``reference_int4_a8_matmul`` within
   ``2e-5 + 2e-5 |ref|`` (the same fp32 arithmetic summed in another order;
-  the a8 integer parts are exact);
+  the a8 integer parts are exact), and with fp16 x within two fp16 ulps
+  (each side rounds its fp32 result to fp16 once);
+* ``tc_plan``, the tensor-core kernel's host plan, and the weight-only
+  wrappers' route by x's dtype;
 * the a8 kernels' shape rules (``check_a8_operands``) refuse exactly the
   shapes JAX's ``int8_a8_matmul`` / ``int4_a8_matmul`` refuse before their
   ``pallas_call``;
@@ -21,7 +24,7 @@ fp32 throughout:
 * engines on ``tiny-llama`` and ``tiny`` widened so that every weight site
   passes the kernel gate (H 256, FFN 512 / 1024, vocab 256): greedy
   ``generate`` tokens equal the JAX engine's for int8 and int4 (G = 1 and
-  group 128), W8A8 / W4A8 teacher-forced decode logits equal JAX's
+  group 128; fp32, and fp16 on ``tiny-llama``), W8A8 / W4A8 teacher-forced decode logits equal JAX's
   TPU-route logits within 1e-4, and int8 ``ServingEngine`` streams equal
   the JAX ``ServingEngine``'s.
 
@@ -50,12 +53,16 @@ from deepspeed_tpu.inference.engine import InferenceEngine as JaxInfEngine
 from deepspeed_tpu.models.presets import create_model as jax_create_model
 from deepspeed_tpu_torch.inference import (InferenceConfig, init_cache,
                                            init_inference)
+from deepspeed_tpu_torch.inference.engine import check_quantized_compute
 from deepspeed_tpu_torch.models import (params_from_jax, params_to_numpy,
                                         transformer_config)
 from deepspeed_tpu_torch.models import transformer as pt
 from deepspeed_tpu_torch.ops import quant_matmul as pq
 
 RTOL = ATOL = 2e-5         # op level: fp32, the same sums in another order
+# op level with fp16 x: both sides sum in fp32 and round once to fp16, so
+# they sit at most one fp16 ulp (2^-10 relative) apart; two for margin
+FP16_RTOL, FP16_ATOL = 2.0 ** -9, 1e-6
 LOGIT_TOL = 1e-4           # two layers of fp32 in two frameworks
 T_MAX = 128
 # every weight site passes the kernel gate (K, N and K/2 multiples of 128)
@@ -234,18 +241,43 @@ def gemm_inputs(M, K, N, seed):
     return x, weight(rng, K, N)
 
 
-@pytest.mark.parametrize("M", [1, 3, 8])
-@pytest.mark.parametrize("K,N", SHAPES)
-def test_int8_ops_match_jax_oracles(M, K, N):
+# x's dtype (numpy, so that both frameworks get the same values) and the
+# tolerance (atol, rtol) of the comparison
+X_DTYPES = {"float32": (np.float32, ATOL, RTOL),
+            "float16": (np.float16, FP16_ATOL, FP16_RTOL)}
+
+
+def assert_ops_match(pairs, xt, xj, q, s, qj, sj, atol, rtol):
+    for mine, oracle in pairs:
+        got = mine(xt, q, s)
+        want = np.asarray(oracle(xj, qj, sj))
+        assert got.dtype == xt.dtype and str(want.dtype) == str(
+            xt.dtype).split(".")[-1]
+        np.testing.assert_allclose(_np(got).astype(np.float32),
+                                   want.astype(np.float32), atol=atol,
+                                   rtol=rtol)
+
+
+def with_x_dtypes(cases):
+    """``cases`` (values, id) once for each x dtype; the fp16 ids end in
+    ``-float16``, the fp32 ones keep the bare id."""
+    return [pytest.param(*values, xd,
+                         id=ident + ("" if xd == "float32" else f"-{xd}"))
+            for xd in X_DTYPES for values, ident in cases]
+
+
+@pytest.mark.parametrize("K,N,M,xdtype", with_x_dtypes(
+    [((K, N, M), f"{K}-{N}-{M}") for K, N in SHAPES for M in (1, 3, 8)]))
+def test_int8_ops_match_jax_oracles(M, K, N, xdtype):
+    npdt, atol, rtol = X_DTYPES[xdtype]
     x, w = gemm_inputs(M, K, N, seed=M * 1000 + K + N)
+    x = x.astype(npdt)
     q8, s = pt._quantize_int8(torch.from_numpy(w)).values()
     xt, xj = torch.from_numpy(x), jnp.asarray(x)
     qj, sj = jnp.asarray(_np(q8)), jnp.asarray(_np(s))
-    for mine, oracle in ((pq.int8_matmul, jq.reference_int8_matmul),
-                         (pq.int8_a8_matmul, jq.reference_int8_a8_matmul)):
-        np.testing.assert_allclose(_np(mine(xt, q8, s)),
-                                   np.asarray(oracle(xj, qj, sj)),
-                                   atol=ATOL, rtol=RTOL)
+    assert_ops_match(((pq.int8_matmul, jq.reference_int8_matmul),
+                      (pq.int8_a8_matmul, jq.reference_int8_a8_matmul)),
+                     xt, xj, q8, s, qj, sj, atol, rtol)
     # the a8 integer part is exact
     xq, _ = pq.quantize_activation_rows(xt)
     np.testing.assert_array_equal(
@@ -254,22 +286,22 @@ def test_int8_ops_match_jax_oracles(M, K, N):
             np.float32))
 
 
-@pytest.mark.parametrize("M", [1, 3, 8])
-@pytest.mark.parametrize("K,N", SHAPES)
-@pytest.mark.parametrize("grouped", [False, True])
-def test_int4_ops_match_jax_oracles(M, K, N, grouped):
+@pytest.mark.parametrize("grouped,K,N,M,xdtype", with_x_dtypes(
+    [((grouped, K, N, M), f"{grouped}-{K}-{N}-{M}")
+     for grouped in (False, True) for K, N in SHAPES for M in (1, 3, 8)]))
+def test_int4_ops_match_jax_oracles(M, K, N, grouped, xdtype):
     # G = K / 128 where the groups fit the nibble planes (K / 2 % 128 == 0),
     # else groups of 64
+    npdt, atol, rtol = X_DTYPES[xdtype]
     group = (128 if (K // 2) % 128 == 0 else 64) if grouped else None
     x, w = gemm_inputs(M, K, N, seed=M * 1000 + K + N + 7)
+    x = x.astype(npdt)
     q4, s = pq.quantize_int4(torch.from_numpy(w), group)
     xt, xj = torch.from_numpy(x), jnp.asarray(x)
     qj, sj = jnp.asarray(_np(q4)), jnp.asarray(_np(s))
-    for mine, oracle in ((pq.int4_matmul, jq.reference_int4_matmul),
-                         (pq.int4_a8_matmul, jq.reference_int4_a8_matmul)):
-        np.testing.assert_allclose(_np(mine(xt, q4, s)),
-                                   np.asarray(oracle(xj, qj, sj)),
-                                   atol=ATOL, rtol=RTOL)
+    assert_ops_match(((pq.int4_matmul, jq.reference_int4_matmul),
+                      (pq.int4_a8_matmul, jq.reference_int4_a8_matmul)),
+                     xt, xj, q4, s, qj, sj, atol, rtol)
 
 
 # (name, M, K, N, G): aligned and unaligned K / N (int4: K/2), int4 groups
@@ -347,6 +379,58 @@ def test_wrappers_keep_dtype_and_route_cpu_to_plain():
         ref = getattr(pq, "reference_" + fn.__name__)(x, q, sc)
         assert torch.equal(out, ref)
         assert fn(x, q, sc, out_dtype=torch.float32).dtype == torch.float32
+
+
+def test_weight_only_route_by_dtype():
+    """bf16 / fp16 x run the tensor-core kernel, fp32 x the CUDA-core one
+    (the card tests hold the launches); nothing else is taken."""
+    assert pq.weight_only_kernel(torch.bfloat16) == "quant_matmul_tc_kernel"
+    assert pq.weight_only_kernel(torch.float16) == "quant_matmul_tc_kernel"
+    assert pq.weight_only_kernel(torch.float32) == "quant_matmul_kernel"
+    with pytest.raises(ValueError, match="float16"):
+        pq.weight_only_kernel(torch.float64)
+
+
+# (K, N): llama-7b's decode sites, a 7B lm_head of 50k columns, and small
+# shapes with a partial ring stage, a partial column tile or one stage
+PLAN_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+               (4096, 50304), (64, 96), (392, 416), (768, 384)]
+
+
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+@pytest.mark.parametrize("int4,grouped", [(False, False), (True, False),
+                                          (True, True)])
+@pytest.mark.parametrize("sms", [132, 16])
+def test_tc_plan(K, N, int4, grouped, sms):
+    """The tensor-core kernel's host plan: a cluster the kernel takes (a
+    power of two up to TC_MAX_CLUSTER), the largest whose grid fits in one
+    wave of resident blocks (one cluster when none does), and 1..4 ring
+    stages, no more than a block has stages of rows; the same for every
+    M and G."""
+    G = K // 8 if grouped else 1
+    cluster, stages = pq.tc_plan(8, K, N, G, int4, sms)
+    tiles = -(-N // pq.TC_COLS)
+    slots = pq.TC_BLOCKS_PER_SM * sms
+    steps = -(-(K // 2 if int4 else K) // pq.TC_ROWS)
+    assert cluster in (1, 2, 4, 8) and cluster <= pq.TC_MAX_CLUSTER
+    assert tiles * cluster <= slots or cluster == 1
+    assert cluster == pq.TC_MAX_CLUSTER or tiles * 2 * cluster > slots
+    assert 1 <= stages <= 4 and stages <= max(1, -(-steps // cluster))
+    for M in (1, 3):
+        for G2 in (1, K // 4):
+            assert pq.tc_plan(M, K, N, G2, int4, sms) == (cluster, stages)
+
+
+def test_tc_plan_at_llama_7b():
+    """The plans the H100 (132 SMs) runs at llama-7b's decode sites."""
+    plans = {(K, N): [pq.tc_plan(8, K, N, G, int4, 132)
+                      for int4, G in ((False, 1), (True, 1), (True, K // 128))]
+             for K, N in ((4096, 4096), (4096, 11008), (11008, 4096),
+                          (4096, 32000))}
+    assert plans == {(4096, 4096): [(8, 4)] * 3,
+                     (4096, 11008): [(4, 4)] * 3,
+                     (11008, 4096): [(8, 4)] * 3,
+                     (4096, 32000): [(1, 4)] * 3}
 
 
 # ---------------------------------------------------------------------------
@@ -442,23 +526,25 @@ def test_qeinsum_routes_by_the_gate(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def jax_engine(preset, bits, groups=None, a8=False):
+def jax_engine(preset, bits, groups=None, a8=False, dtype="float32"):
     """A JAX engine quantizing the widened preset's dense weights itself
     (a fresh model: an a8 engine sets ``a8_decode`` on its config)."""
     _, tree = wide_weights(preset)
-    model = jax_create_model(preset, dtype=jnp.float32, max_seq_len=T_MAX,
-                             **WIDE[preset])
+    model = jax_create_model(preset, dtype=getattr(jnp, dtype),
+                             max_seq_len=T_MAX, **WIDE[preset])
     return JaxInfEngine(model, JaxInfConfig(
-        dtype=jnp.float32, max_out_tokens=T_MAX, compile_cache=False,
+        dtype=getattr(jnp, dtype), max_out_tokens=T_MAX, compile_cache=False,
         quantize_bits=bits, quantize_groups=groups,
         quantize_activations=a8), params=tree)
 
 
-def port_engine(preset, params, bits, groups=None, a8=False):
+def port_engine(preset, params, bits, groups=None, a8=False,
+                dtype="float32"):
     return init_inference(preset, config=InferenceConfig(
-        dtype=torch.float32, max_out_tokens=T_MAX, quantize_bits=bits,
-        quantize_groups=groups, quantize_activations=a8), params=params,
-        device="cpu", **WIDE[preset])
+        dtype=getattr(torch, dtype), max_out_tokens=T_MAX,
+        quantize_bits=bits, quantize_groups=groups,
+        quantize_activations=a8), params=params, device="cpu",
+        **WIDE[preset])
 
 
 def dense_params(preset):
@@ -473,20 +559,42 @@ def ragged_batch(seed, S, lens):
     return ids * mask, mask
 
 
-@pytest.mark.parametrize("preset,bits,groups", [
-    ("tiny-llama", 8, None), ("tiny-llama", 4, None), ("tiny-llama", 4, 128),
-    ("tiny", 8, None), ("tiny", 4, 128)])
-def test_greedy_generate_matches_jax(preset, bits, groups):
-    """Both engines quantize the same dense weights; the port's decode runs
-    the plain kernel route on every site (8 rows), JAX's the dequant."""
-    port = port_engine(preset, dense_params(preset), bits, groups)
+@pytest.mark.parametrize("preset,bits,groups,dtype", [
+    pytest.param(preset, bits, groups, dtype,
+                 id=f"{preset}-{bits}-{groups}"
+                 + ("" if dtype == "float32" else f"-{dtype}"))
+    for preset, bits, groups, dtype in [
+        ("tiny-llama", 8, None, "float32"), ("tiny-llama", 4, None, "float32"),
+        ("tiny-llama", 4, 128, "float32"), ("tiny", 8, None, "float32"),
+        ("tiny", 4, 128, "float32"), ("tiny-llama", 8, None, "float16"),
+        ("tiny-llama", 4, None, "float16")]])
+def test_greedy_generate_matches_jax(preset, bits, groups, dtype):
+    """fp32: both engines quantize the same dense weights. fp16: the port
+    takes the JAX engine's quantized weights (JAX's jitted quantizer
+    multiplies by 1 / qmax, so its scales sit an ulp off the port's IEEE
+    division, and on fp16 weights some int4 values flip with them). The
+    port's decode runs the plain kernel route on every site (8 rows). JAX's
+    runs the dequant in fp32, the same function; in fp16 the dequant rounds
+    each scaled weight to fp16 before the product where the kernels (JAX's
+    Pallas ones and the port's) scale the fp32 sum, so there JAX runs its
+    kernel route (``tpu_route``)."""
+    jax_eng = jax_engine(preset, bits, groups, dtype=dtype)
+    if dtype == "float32":
+        params = dense_params(preset)
+    else:
+        params = params_from_jax(
+            jax.tree.map(np.asarray, jax_eng.params),
+            transformer_config(preset, dtype=torch.float16,
+                               max_seq_len=T_MAX, **WIDE[preset]))
+    port = port_engine(preset, params, bits, groups, dtype=dtype)
     site = port.params["layers"]["attn"]["wq"]
     assert ("q8" if bits == 8 else "q4") in site
     assert site["s"].dtype == torch.float32
-    jax_eng = jax_engine(preset, bits, groups)
+    assert port.params["embed"]["tokens"].dtype == getattr(torch, dtype)
     ids, mask = ragged_batch(3, 21, (21, 9, 15, 4, 21, 12, 17, 8))
-    want = np.asarray(jax_eng.generate(ids, attention_mask=mask,
-                                       max_new_tokens=6))
+    with (tpu_route() if dtype == "float16" else contextlib.nullcontext()):
+        want = np.asarray(jax_eng.generate(ids, attention_mask=mask,
+                                           max_new_tokens=6))
     got = _np(port.generate(ids, attention_mask=mask, max_new_tokens=6))
     np.testing.assert_array_equal(got, want)
 
@@ -574,19 +682,30 @@ def test_a8_config_is_per_engine():
 
 class TestConfig:
     def test_fp16_quantized_refused_on_cuda(self, monkeypatch):
-        """The decode kernels take bf16 / fp32 activations: an fp16
-        quantized engine is refused before anything lands on the card; on
-        the CPU (plain versions) it runs."""
-        cfg = dict(dtype=torch.float16, quantize_bits=8,
-                   max_out_tokens=T_MAX)
+        """fp16 compute with quantized activations (w8a8 / w4a8) is refused
+        on CUDA before anything lands on the card: the a8 kernels take bf16
+        / fp32 activations. Weight-only int8 / int4 with fp16 is taken
+        there (its kernel takes fp16), and on the CPU (plain versions)
+        every mode runs."""
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        with pytest.raises(NotImplementedError, match="fp16"):
-            init_inference("tiny", config=InferenceConfig(**cfg),
-                           device="cuda")
+        for bits in (8, 4):
+            cfg = InferenceConfig(dtype=torch.float16, quantize_bits=bits,
+                                  quantize_activations=True,
+                                  max_out_tokens=T_MAX)
+            with pytest.raises(NotImplementedError, match="fp16"):
+                init_inference("tiny", config=cfg, device="cuda")
+            weight_only = dataclasses.replace(cfg, quantize_activations=False)
+            check_quantized_compute(weight_only, torch.device("cuda"))
+            with pytest.raises(NotImplementedError, match="w8a8 / w4a8"):
+                check_quantized_compute(cfg, torch.device("cuda"))
         monkeypatch.undo()
-        eng = init_inference("tiny", config=InferenceConfig(**cfg),
-                             device="cpu")
-        assert eng.params["layers"]["attn"]["wq"]["q8"].dtype == torch.int8
+        for a8 in (False, True):
+            eng = init_inference("tiny", config=InferenceConfig(
+                dtype=torch.float16, quantize_bits=8, quantize_activations=a8,
+                max_out_tokens=T_MAX), device="cpu")
+            site = eng.params["layers"]["attn"]["wq"]
+            assert site["q8"].dtype == torch.int8
+            assert eng.model.config.a8_decode is a8
 
     def test_modes_normalise_like_jax(self):
         for mode in ("int8", "int4", "w8a8", "w4a8"):
