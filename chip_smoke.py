@@ -111,11 +111,14 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    scale plus one bf16 ulp; then int4 ``quantize_symmetric`` over the same
    leaves, bit-equal to its plain version.
 
-The ``kernels`` phase also holds the block-sparse forward and backward at the
-sparse_train shape (B 2, S 2048, 32 heads of 64) for the Fixed, sliding
-window and BSLongformer layouts, and at small shapes with a key-less q-tile
-and with BigBird's per-head layouts, beside the port's flash kernels at the
-same shape; the LAMB phase-1 kernel on a flat buffer of 64 Mi elements
+The ``kernels`` phase holds the paged decode kernel at the serve step
+(``serve8``: 8 rows of 0..1000 keys) and over one row of 4000 keys
+(``long1``), also over pool copies larger than the L2 and beside the dense
+decode kernel over the same keys. It also holds the block-sparse forward
+and backward at the sparse_train shape (B 2, S 2048, 32 heads of 64) for
+the Fixed, sliding window and BSLongformer layouts, and at small shapes
+with a key-less q-tile and with BigBird's per-head layouts, beside the
+port's flash kernels at the same shape; the LAMB phase-1 kernel on a flat buffer of 64 Mi elements
 and segmented over OPT-1.3B's leaves (1.3 B elements); the GroupNorm
 kernel at the mid block's shape and JAX's test shapes (``F.group_norm`` as
 yardstick) and on 300 + 0.01 N(0, 1) against float64; group quantization,
@@ -195,6 +198,7 @@ from deepspeed_tpu_torch.ops import (fake_quantize, fused_group_norm,
                                      reference_quantize_symmetric)
 from deepspeed_tpu_torch.ops import registry
 from deepspeed_tpu_torch.ops.decode_attention import decode_split_plan
+from deepspeed_tpu_torch.ops.paged_decode_attention import paged_split_plan
 from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
 from deepspeed_tpu_torch.serving import ServingConfig, init_serving
 
@@ -276,7 +280,7 @@ SOURCES = {
                          "ln_fwd_kernel"),
     "paged_decode_attention": ("deepspeed_tpu_torch/csrc/paged_attention.cu",
                                "deepspeed_tpu/ops/paged_decode_attention.py:171",
-                               "paged_decode_kernel"),
+                               "paged_split_kernel"),
     "paged_prefill_attention": ("deepspeed_tpu_torch/csrc/paged_attention.cu",
                                 "deepspeed_tpu/ops/paged_decode_attention.py:294",
                                 "paged_prefill_mma_kernel"),
@@ -510,31 +514,52 @@ def arena_pools(dev, gen, nb, bs, k, d, dtype):
 
 
 def decode_cases(dev, gen):
-    R, N, K, D, BS, MAXB = 8, 32, 32, 128, 16, 64
-    NB = R * MAXB + 1
-    lengths = torch.tensor([1, 1000, 0, 517, 64, 333, 800, 129],
-                           dtype=torch.int32, device=dev)
-    perm = torch.randperm(NB - 1, generator=gen, device=dev) + 1
-    table = perm.view(R, MAXB).int().contiguous()
-    results = []
-    for dtype in (torch.bfloat16, torch.float32):
+    """llama-7b's paged decode step (32 heads of 128, block 16):
+    ``serve8``, 8 rows of 0..1000 keys over 64-page tables, in bf16 and
+    fp32, with NaN in the page after row 3's last one and in that page's
+    tail; ``long1``, one row of 4000 keys over a 256-page table, in bf16,
+    with NaN in the pages after its last. Each bf16 case is also timed over
+    pool copies larger than the L2 (``rotated_ms``, ``l2_copies``: the live
+    bytes of serve8, 46.6 MB, fit the 50 MB L2 across repeats) and the
+    dense decode kernel over the same keys (``dense_kernel_ms``:
+    ``decode_attention`` on the gathered view, gathered before timing).
+    Each case records the kernel's split (``paged_split_plan``: splits,
+    ring stages)."""
+    N, K, D, BS = 32, 32, 128, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    serve = [1, 1000, 0, 517, 64, 333, 800, 129]
+    results, tables = [], {}
+    for case, dtype, lens, MAXB in (
+            ("serve8", torch.bfloat16, serve, 64),
+            ("serve8", torch.float32, serve, 64),
+            ("long1", torch.bfloat16, [4000], 256)):
+        R = len(lens)
+        NB = R * MAXB + 1
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if case not in tables:     # one table a case, every entry a page
+            perm = torch.randperm(NB - 1, generator=gen, device=dev) + 1
+            tables[case] = perm.view(R, MAXB).int().contiguous()
+        table = tables[case]
         kp, vp = arena_pools(dev, gen, NB, BS, K, D, dtype)
-        # non-finite residue outside every live range: the page after row
-        # 3's last resident page, and the tail of that last page
-        last = (517 - 1) // BS
+        # non-finite residue outside every live range: the page after a
+        # row's last resident page, and the tail of that last page
+        row = 3 if case == "serve8" else 0
+        last = (lens[row] - 1) // BS
         for p in (kp, vp):
-            p[table[3, last + 1]] = float("nan")
-            p[table[3, last], 517 % BS:] = float("nan")
+            p[table[row, last + 1:]] = float("nan")
+            p[table[row, last], lens[row] % BS or BS:] = float("nan")
         q = torch.randn(R, N, D, generator=gen, device=dev).to(dtype)
         got = paged_decode_attention(q, kp, vp, table, lengths)
         ref = reference_paged_attention(q[:, None], kp, vp, table,
                                         (lengths.long() - 1)[:, None])[:, 0]
         if not bool(torch.isfinite(got).all()):
-            raise AssertionError("paged_decode_attention: non-finite output")
-        if bool((got[2] != 0).any()):
+            raise AssertionError(f"paged_decode_attention {case}: "
+                                 "non-finite output")
+        if bool((got[lengths == 0] != 0).any()):
             raise AssertionError("paged_decode_attention: length-0 row "
                                  "is not zero")
-        err = check(f"paged_decode_attention {dtype}", got, ref, TOL[dtype])
+        err = check(f"paged_decode_attention {case} {dtype}", got, ref,
+                    TOL[dtype])
         item = q.element_size()
         tokens = int(lengths.sum())
         pages = int(((lengths + BS - 1) // BS).sum())
@@ -543,12 +568,30 @@ def decode_cases(dev, gen):
         b_ms, b_by = bound_ms(nbytes, 4.0 * tokens * N * D,
                               BF16_FLOPS if dtype != torch.float32
                               else FP32_FLOPS)
+        extra = {}
+        if dtype == torch.bfloat16:
+            pairs = l2_copies(torch.stack([kp, vp]))
+            extra["rotated_ms"] = rotated_ms(
+                lambda kv: paged_decode_attention(q, kv[0], kv[1], table,
+                                                  lengths), pairs)
+            extra["l2_copies"] = len(pairs)
+            del pairs
+            T = MAXB * BS
+            kk = kp[table.long()].reshape(R, T, K, D)
+            vv = vp[table.long()].reshape(R, T, K, D)
+            valid = (torch.arange(T, device=dev)[None]
+                     < lengths[:, None]).int()
+            extra["dense_kernel_ms"] = time_ms(
+                lambda: decode_attention(q, kk, vv, valid,
+                                         kv_len=max(lens)))
+            del kk, vv
         results.append(dict(
-            R=R, N=N, K=K, D=D, BS=BS, MAXB=MAXB,
-            lengths=lengths.tolist(), dtype=str(dtype), max_abs_err=err,
+            case=case, R=R, N=N, K=K, D=D, BS=BS, MAXB=MAXB, lengths=lens,
+            dtype=str(dtype), max_abs_err=err,
             tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+            split=paged_split_plan(R, K, D, item, BS, MAXB, sms),
             ms=time_ms(lambda: paged_decode_attention(q, kp, vp, table,
-                                                      lengths)),
+                                                      lengths)), **extra,
             plain_ms=time_ms(lambda: reference_paged_attention(
                 q[:, None], kp, vp, table, (lengths.long() - 1)[:, None])),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
@@ -2619,7 +2662,7 @@ def main() -> int:
                             and c["M"] == 8 and c["G"] == 1)
     pick = {**{name: quant_main for name in QUANT_MODES.values()},
             "fused_layer_norm": lambda c: c["rows"] == 256 and c["rms"],
-            "paged_decode_attention": lambda c: True,
+            "paged_decode_attention": lambda c: c["case"] == "serve8",
             "paged_prefill_attention": lambda c: c["start"] == 256,
             "flash_attention": lambda c: c["case"] == "prefill",
             "decode_attention": lambda c: c["case"] == "decode",

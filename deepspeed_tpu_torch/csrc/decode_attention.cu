@@ -23,7 +23,10 @@
 // the bound is ~0.015 ms. A TMA box moves all 32 rows of a live tile, dead
 // ones too (PERF.md: the kernel moves its bytes at ~75% of HBM's rate).
 //
-// Design: decode_split_kernel, one launch a call (flash-decoding).
+// Design: decode_split_kernel, one launch a call (flash-decoding). The
+// consumer warps, the merge and the cluster launch below are shared with
+// the paged decode kernel (csrc/decode_split.cuh); the producer is this
+// file's.
 // * Split-KV: the columns below kv_len are cut into `splits` chunks of
 //   `chunk` columns (a multiple of the 32-key tile; the wrapper picks both,
 //   and the ring's stages, from B, K and kv_len: up to 8 splits, the grid
@@ -59,18 +62,12 @@
 //   its "empty" mbarrier. The block merges the sub-warps' states through
 //   shared memory (the drained ring) in a fixed order.
 
-#include "attention_common.cuh"
-#include "hopper.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int kTile = 32;                 // keys of a stage: one a lane
-constexpr int kConsumerWarps = 4;
-constexpr int kConsumers = 32 * kConsumerWarps;
-constexpr int kThreads = kConsumers + 32;  // and a producer warp
-constexpr int kMaxStages = 8;
-constexpr int kMaxSplits = 8;             // a portable cluster
-constexpr int kMaxGroup = 8;              // query heads per KV head
+namespace sk = split_kv;
+using sk::kTile;
 constexpr int kReadAhead = 8;             // tiles of valid words in flight
 
 struct DecodeArgs {
@@ -89,75 +86,35 @@ struct DecodeArgs {
   float scale;
 };
 
-// grid (splits * B * K) in clusters of `splits` along x, block kThreads;
-// dynamic shared memory: 128 bytes of alignment slack, region_bytes, then
-// (splits > 1) the cluster's partials o[splits][G][D], m[splits][G],
-// l[splits][G]. SUB lanes hold one key, NI dims each; MAXG >= G.
+// grid (splits * B * K) in clusters of `splits` along x, block
+// sk::kThreads; shared memory as decode_split.cuh lays it out. SUB lanes
+// hold one key, NI dims each; MAXG >= G.
 template <typename T, int NI, int SUB, int MAXG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(sk::kThreads)
 decode_split_kernel(const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     const DecodeArgs a) {
-  constexpr int NSW = kConsumerWarps * (32 / SUB);   // sub-warps of a block
-  constexpr int KG = kTile / NSW;       // keys of a tile a sub-warp takes
-  constexpr int KB = KG < 4 ? KG : 4;   // keys an online-softmax step takes
-  constexpr int DW = NI * SUB;          // dims a sub-warp holds
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
-  __shared__ __align__(8) uint64_t merge_bar;   // block 0: partials in
-  __shared__ uint32_t live_s[kMaxStages];       // 0: end marker
-  __shared__ float kp_s[kMaxStages][kTile];     // alibi key positions
-  __shared__ float bm_m[NSW][MAXG], bm_l[NSW][MAXG];
+  __shared__ __align__(8) sk::Smem<SUB, MAXG> sm;
 
   const int S = a.splits, D = a.D, K = a.K, G = a.N / a.K;
   const int split = blockIdx.x % S, pair = blockIdx.x / S;
   const int row = pair / K, kh = pair % K;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(a.kv_len, a.T);
-  const int c0 = split * a.chunk, c1 = min(c0 + a.chunk, len);
-  const int ntiles = c1 > c0 ? (c1 - c0 + kTile - 1) / kTile : 0;
-  uint8_t* region = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  float* part_o = reinterpret_cast<float*>(region + a.region_bytes);
-  float* part_m = part_o + S * G * D;
-  float* part_l = part_m + S * G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const sk::Layout lay = sk::layout(smem_raw, a.region_bytes, S, G, D);
+  sk::start(sm, a.stages, S, split, G, D);
 
-  if (tid == 0) {
-    for (int i = 0; i < a.stages; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], kConsumerWarps);
-    }
-    mbar_init(&merge_bar, 1);
-    fence_barrier_init();
-    if (S > 1 && split == 0)
-      mbar_expect_tx(&merge_bar, (uint32_t)((S - 1) * G * (D + 2) * 4));
-  }
-  // block 0's barrier is initialised before another block pushes to it:
-  // every block arrives now and waits before its first push
-  __syncwarp();
-  if (S > 1)
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  __syncthreads();
-
-  if (warp == kConsumerWarps) {
+  if (warp == sk::kConsumerWarps) {
     // ---------------- producer warp ----------------
+    const int len = min(a.kv_len, a.T);
+    const int c0 = split * a.chunk, c1 = min(c0 + a.chunk, len);
+    const int ntiles = c1 > c0 ? (c1 - c0 + kTile - 1) / kTile : 0;
     const int* vrow = a.valid + (int64_t)row * a.T;
     const float* prow =
         a.kpos != nullptr ? a.kpos + (int64_t)row * a.T : nullptr;
     const bool bias = a.alibi != nullptr;
     const size_t isz = sizeof(T);
-    int slot = 0, issued = 0;
-    uint32_t phase = 0;
-    auto claim = [&]() {   // the next stage, once its consumers are done
-      if (issued >= a.stages) mbar_wait(&empty[slot], phase ^ 1);
-    };
-    auto advance = [&]() {
-      ++issued;
-      if (++slot == a.stages) {
-        slot = 0;
-        phase ^= 1;
-      }
-    };
+    sk::Producer ring{sm.full, sm.empty, sm.live, a.stages};
     for (int t0 = 0; t0 < ntiles; t0 += kReadAhead) {
       int v[kReadAhead];
       float kp[kReadAhead];
@@ -175,11 +132,14 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap,
         const uint32_t live = __ballot_sync(0xffffffffu, v[u] != 0);
         if (live == 0) continue;          // warp-uniform: skip a dead tile
         const int col0 = c0 + (t0 + u) * kTile;
-        claim();
-        kp_s[slot][lane] = kp[u];
-        if (lane == 0) live_s[slot] = live;
-        T* ks = reinterpret_cast<T*>(region + (size_t)slot * 2 * a.tile_bytes);
-        T* vs = reinterpret_cast<T*>(region + (size_t)slot * 2 * a.tile_bytes
+        ring.claim();
+        const int slot = ring.slot;
+        sm.kpos[slot][lane] = kp[u];
+        if (lane == 0) sm.live[slot] = live;
+        T* ks = reinterpret_cast<T*>(lay.region
+                                     + (size_t)slot * 2 * a.tile_bytes);
+        T* vs = reinterpret_cast<T*>(lay.region
+                                     + (size_t)slot * 2 * a.tile_bytes
                                      + a.tile_bytes);
         if (!a.tma) {
           // plain loads of the live rows (dead rows keep stale bytes; the
@@ -200,188 +160,25 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap,
         __syncwarp();   // the lanes' stage writes, ordered before the arrive
         if (lane == 0) {
           if (a.tma) {
-            mbar_expect_tx(&full[slot], (uint32_t)(2 * kTile * D * isz));
-            tma_load_4d(ks, &kmap, 0, kh, col0, row, &full[slot]);
-            tma_load_4d(vs, &vmap, 0, kh, col0, row, &full[slot]);
+            mbar_expect_tx(&sm.full[slot], (uint32_t)(2 * kTile * D * isz));
+            tma_load_4d(ks, &kmap, 0, kh, col0, row, &sm.full[slot]);
+            tma_load_4d(vs, &vmap, 0, kh, col0, row, &sm.full[slot]);
           } else {
-            mbar_arrive(&full[slot]);
+            mbar_arrive(&sm.full[slot]);
           }
         }
-        advance();
+        ring.advance();
       }
     }
-    claim();
-    if (lane == 0) {
-      live_s[slot] = 0;                   // end marker
-      mbar_arrive(&full[slot]);
-    }
-    __syncwarp();
-    if (S > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    ring.finish(lane, S);
     return;
   }
 
-  // ---------------- consumer warps ----------------
-  const int sw = warp * (32 / SUB) + lane / SUB;      // this lane's sub-warp
-  const int d0 = (lane % SUB) * NI;  // this lane's dims d0 .. d0 + NI - 1
-  const bool vec = D == DW;
-  float qr[MAXG][NI], acc[MAXG][NI], m[MAXG], l[MAXG], slope[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    const bool gv = g < G;
-    if (gv)
-      load_slice<T, NI>(static_cast<const T*>(a.q)
-                            + ((int64_t)row * a.N + kh * G + g) * D,
-                        d0, D, vec, qr[g]);
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      qr[g][i] = gv ? qr[g][i] * a.scale : 0.f;
-      acc[g][i] = 0.f;
-    }
-    m[g] = kNegInf;
-    l[g] = 0.f;
-    slope[g] = (gv && a.alibi != nullptr) ? a.alibi[kh * G + g] : 0.f;
-  }
-
-  int slot = 0;
-  uint32_t phase = 0;
-  for (;;) {
-    mbar_wait(&full[slot], phase);
-    const uint32_t live = live_s[slot];
-    if (live == 0) break;
-    const T* ks = reinterpret_cast<const T*>(
-        region + (size_t)slot * 2 * a.tile_bytes);
-    const T* vs = reinterpret_cast<const T*>(
-        region + (size_t)slot * 2 * a.tile_bytes + a.tile_bytes);
-    // this sub-warp's keys of the tile: sw, sw + NSW, ...
-#pragma unroll
-    for (int u0 = 0; u0 < KG; u0 += KB) {
-      float s[MAXG][KB];
-      bool lv[KB];
-#pragma unroll
-      for (int u = 0; u < KB; ++u) {
-        const int j = sw + NSW * (u0 + u);
-        lv[u] = (live >> j) & 1u;
-        float kr[NI];
-        load_slice<T, NI, false>(ks + j * D, d0, D, vec, kr);
-        const float kp = kp_s[slot][j];
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g >= G) break;
-          float dot = 0.f;
-#pragma unroll
-          for (int i = 0; i < NI; ++i) dot = fmaf(qr[g][i], kr[i], dot);
-          dot = sub_sum<SUB>(dot) + slope[g] * kp;
-          s[g][u] = lv[u] ? dot : kNegInf;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g >= G) break;
-        float mx = m[g];
-#pragma unroll
-        for (int u = 0; u < KB; ++u) mx = fmaxf(mx, s[g][u]);
-        const float corr = fast_exp2((m[g] - mx) * kLog2e);
-        float psum = 0.f;
-#pragma unroll
-        for (int u = 0; u < KB; ++u) {
-          s[g][u] = lv[u] ? fast_exp2((s[g][u] - mx) * kLog2e) : 0.f;
-          psum += s[g][u];
-        }
-        l[g] = l[g] * corr + psum;
-        m[g] = mx;
-#pragma unroll
-        for (int i = 0; i < NI; ++i) acc[g][i] *= corr;
-      }
-#pragma unroll
-      for (int u = 0; u < KB; ++u) {
-        const int j = sw + NSW * (u0 + u);
-        float vr[NI];
-        load_slice<T, NI, false>(vs + j * D, d0, D, vec, vr);
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g >= G) break;
-#pragma unroll
-          for (int i = 0; i < NI; ++i)
-            acc[g][i] = lv[u] ? fmaf(s[g][u], vr[i], acc[g][i]) : acc[g][i];
-        }
-      }
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[slot]);
-    if (++slot == a.stages) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-
-  // merge the sub-warps' states through the drained ring, sub-warp order
-  float* bm_acc = reinterpret_cast<float*>(region);   // [NSW][G][DW]
-  named_barrier(1, kConsumers);   // every consumer is done with the ring
-  if (lane % SUB == 0) {
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g >= G) break;
-      bm_m[sw][g] = m[g];
-      bm_l[sw][g] = l[g];
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g >= G) break;
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-      bm_acc[(sw * G + g) * DW + d0 + i] = acc[g][i];
-  }
-  named_barrier(1, kConsumers);
-  __syncwarp();
-  if (S > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  T* out = static_cast<T*>(a.out) + ((int64_t)row * a.N + kh * G) * D;
-  const uint32_t bar0 = S > 1 ? cluster_addr(&merge_bar, 0) : 0u;
-  for (int o = tid; o < G * D; o += kConsumers) {
-    const int g = o / D, d = o - g * D;
-    float M = kNegInf;
-#pragma unroll
-    for (int w = 0; w < NSW; ++w) M = fmaxf(M, bm_m[w][g]);
-    float L = 0.f, O = 0.f;
-#pragma unroll
-    for (int w = 0; w < NSW; ++w) {
-      const float e = fast_exp2((bm_m[w][g] - M) * kLog2e);
-      L += bm_l[w][g] * e;
-      O += bm_acc[(w * G + g) * DW + d] * e;
-    }
-    if (S == 1) {
-      out[o] = from_f<T>(L > 0.f ? O / L : 0.f);
-    } else if (split == 0) {
-      part_o[o] = O;
-      if (d == 0) {
-        part_m[g] = M;
-        part_l[g] = L;
-      }
-    } else {
-      st_async(cluster_addr(&part_o[split * G * D + o], 0), O, bar0);
-      if (d == 0) {
-        st_async(cluster_addr(&part_m[split * G + g], 0), M, bar0);
-        st_async(cluster_addr(&part_l[split * G + g], 0), L, bar0);
-      }
-    }
-  }
-  if (S == 1 || split != 0) return;
-
-  // block 0: the splits' states in rank order
-  named_barrier(1, kConsumers);   // this block's own partial is written
-  mbar_wait(&merge_bar, 0);       // and every other block's has arrived
-  for (int o = tid; o < G * D; o += kConsumers) {
-    const int g = o / D;
-    float M = kNegInf;
-    for (int r = 0; r < S; ++r) M = fmaxf(M, part_m[r * G + g]);
-    float L = 0.f, O = 0.f;
-    for (int r = 0; r < S; ++r) {
-      const float e = fast_exp2((part_m[r * G + g] - M) * kLog2e);
-      L += part_l[r * G + g] * e;
-      O += part_o[r * G * D + o] * e;
-    }
-    out[o] = from_f<T>(L > 0.f ? O / L : 0.f);
-  }
+  const int64_t head = (int64_t)row * a.N + kh * G;   // first query head
+  sk::consume<T, NI, SUB, MAXG>(
+      sm, lay, a.stages, a.tile_bytes, static_cast<const T*>(a.q) + head * D,
+      a.alibi != nullptr ? a.alibi + kh * G : nullptr, a.scale, G, D, S,
+      split, static_cast<T*>(a.out) + head * D);
 }
 
 // The 4-D map of a (B, T, K, D) cache in boxes of (D, 1, kTile, 1): one KV
@@ -403,72 +200,29 @@ cudaError_t row_map(CUtensorMap* map, const void* p, int B, int Tk, int K,
 }
 
 template <typename T, int NI, int SUB, int MAXG>
-cudaError_t launch(DecodeArgs a, int B, cudaStream_t st) {
-  constexpr int NSW = kConsumerWarps * (32 / SUB);
-  constexpr int DW = NI * SUB;
-  auto kern = decode_split_kernel<T, NI, SUB, MAXG>;
-  const int G = a.N / a.K;
-  CUtensorMap km, vm;
-  std::memset(&km, 0, sizeof(km));
-  std::memset(&vm, 0, sizeof(vm));
-  a.tma = (a.D * (int)sizeof(T)) % 16 == 0;
-  if (a.tma) {
-    cudaError_t e = row_map<T>(&km, a.kc, B, a.T, a.K, a.D);
-    if (e == cudaSuccess) e = row_map<T>(&vm, a.vc, B, a.T, a.K, a.D);
-    if (e != cudaSuccess) return e;
+struct Launch {
+  static cudaError_t run(DecodeArgs a, int B, cudaStream_t st) {
+    constexpr int NSW = sk::kConsumerWarps * (32 / SUB);
+    static int smem_set = 48 * 1024;   // per instantiation: opt in above it
+    const int G = a.N / a.K;
+    CUtensorMap km, vm;
+    std::memset(&km, 0, sizeof(km));
+    std::memset(&vm, 0, sizeof(vm));
+    a.tma = (a.D * (int)sizeof(T)) % 16 == 0;
+    if (a.tma) {
+      cudaError_t e = row_map<T>(&km, a.kc, B, a.T, a.K, a.D);
+      if (e == cudaSuccess) e = row_map<T>(&vm, a.vc, B, a.T, a.K, a.D);
+      if (e != cudaSuccess) return e;
+    }
+    a.tile_bytes = (kTile * a.D * (int)sizeof(T) + 127) & ~127;
+    a.region_bytes = sk::region_bytes(a.stages, a.tile_bytes, NSW, G,
+                                      NI * SUB);
+    return sk::launch(decode_split_kernel<T, NI, SUB, MAXG>, smem_set,
+                      a.splits * B * a.K, a.splits,
+                      sk::smem_bytes(a.region_bytes, a.splits, G, a.D), st,
+                      km, vm, a);
   }
-  a.tile_bytes = (kTile * a.D * (int)sizeof(T) + 127) & ~127;
-  const int ring = a.stages * 2 * a.tile_bytes;
-  const int merge = NSW * G * DW * 4;
-  a.region_bytes = ring > merge ? ring : merge;
-  const int smem = 128 + a.region_bytes
-                   + (a.splits > 1 ? a.splits * G * (a.D + 2) * 4 : 0);
-  static int smem_set = 48 * 1024;   // per instantiation: opt in above it
-  if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    smem_set = smem;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(a.splits * B * a.K));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = a.splits > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, km, vm, a);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
-// MAXG 1, 4 or 8 (G 2 takes 4: three instantiations a row layout keep the
-// source's build time down)
-template <typename T, int NI, int SUB>
-cudaError_t launch_g(const DecodeArgs& a, int B, cudaStream_t st) {
-  const int G = a.N / a.K;
-  if (G <= 1) return launch<T, NI, SUB, 1>(a, B, st);
-  if (G <= 4) return launch<T, NI, SUB, 4>(a, B, st);
-  return launch<T, NI, SUB, 8>(a, B, st);
-}
-
-template <typename T>
-cudaError_t launch_d(const DecodeArgs& a, int B, cudaStream_t st) {
-  const int D = a.D;
-  if constexpr (sizeof(T) == 2) {
-    // 16-byte vectors per lane: 8 dims, 16 (or 8) lanes per key
-    if (D == 128) return launch_g<T, 8, 16>(a, B, st);
-    if (D == 64) return launch_g<T, 8, 8>(a, B, st);
-  }
-  if (D <= 32) return launch_g<T, 1, 32>(a, B, st);
-  if (D <= 64) return launch_g<T, 2, 32>(a, B, st);
-  if (D <= 128) return launch_g<T, 4, 32>(a, B, st);
-  return launch_g<T, 8, 32>(a, B, st);
-}
+};
 
 }  // namespace
 
@@ -488,9 +242,9 @@ extern "C" int dstt_decode_attention(const void* q, const void* kc,
                                      int stages, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || K <= 0) return (int)cudaGetLastError();
-  if (splits < 1 || splits > kMaxSplits || chunk < kTile || chunk % kTile
-      || (int64_t)splits * chunk < kv_len || stages < 2
-      || stages > kMaxStages || N % K || N / K > kMaxGroup || D < 1
+  if (splits < 1 || splits > sk::kMaxSplits || chunk < kTile
+      || chunk % kTile || (int64_t)splits * chunk < kv_len || stages < 2
+      || stages > sk::kMaxStages || N % K || N / K > sk::kMaxGroup || D < 1
       || D > 256)
     return (int)cudaErrorInvalidValue;
   DecodeArgs a = {};
@@ -510,7 +264,9 @@ extern "C" int dstt_decode_attention(const void* q, const void* kc,
   a.chunk = chunk;
   a.stages = stages;
   a.scale = scale;
-  if (dtype == 0) return (int)launch_d<float>(a, B, st);
-  if (dtype == 1) return (int)launch_d<__nv_bfloat16>(a, B, st);
-  return (int)launch_d<__half>(a, B, st);
+  const int G = N / K;
+  if (dtype == 0) return (int)sk::dispatch<Launch, float>(D, G, a, B, st);
+  if (dtype == 1)
+    return (int)sk::dispatch<Launch, __nv_bfloat16>(D, G, a, B, st);
+  return (int)sk::dispatch<Launch, __half>(D, G, a, B, st);
 }

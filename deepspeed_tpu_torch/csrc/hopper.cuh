@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's kernels that stream tiles
 // with the Tensor Memory Accelerator (quant_matmul.cu, quant_matmul_a8.cu,
-// flash_attention.cu, flash_attention_bwd.cu, decode_attention.cu):
+// flash_attention.cu, flash_attention_bwd.cu, and through decode_split.cuh
+// decode_attention.cu and paged_attention.cu):
 // * device: shared-memory addresses, mbarriers, TMA tensor loads and stores
 //   and bulk copies, stores into another block's shared memory of the
 //   cluster, proxy fences, named barriers, the TMA swizzle of a tile's

@@ -20,19 +20,44 @@
 //
 // Bound on the H100:
 //   * decode is memory-bound: the least time is the bytes of the resident
-//     K and V (sum over rows of len * K * D * 2 * itemsize) over 3.35 TB/s.
-//     Design: one block per (row, KV head) serving that head's G query
-//     heads, so each K/V row is read once for all G heads (GQA-native). The
-//     block walks only pages 0 .. ceil(len / BS) - 1 with 8 warps. A key
-//     is held by a sub-warp of lanes, each lane reading its slice of the
-//     row as one vector: 16 lanes x 8 dims (16 bytes) for 16-bit rows of
-//     D = 128, so one warp load covers two keys; 32 lanes x D / 32 dims
-//     otherwise. (Per-lane 2-byte loads made bf16 decode 4x slower than
-//     fp32 on the H100; 8-byte loads 2.4x.) Each sub-warp keeps 8 keys of
-//     K and V loads in flight and its own online softmax; the block merges
-//     the sub-warps' (max, sum, acc) through shared memory at the end.
-//     Splitting a long row across blocks (flash-decoding) is left to a
-//     later change.
+//     K and V (sum over rows of len * K * D * 2 * itemsize) plus q, out and
+//     the table entries read, over 3.35 TB/s; the operations (4 N D a live
+//     key) are a few microseconds of fp32 FMAs at llama-7b's serve step.
+//     Design: paged_split_kernel, one launch a call (flash-decoding over
+//     pages; the consumer warps, the merge and the launch are the dense
+//     decode kernel's, csrc/decode_split.cuh).
+//     - Split-KV: the blocks of a (row, KV head) are a thread-block cluster
+//       of `splits` (a power of two up to 8, chosen on the host from R, K,
+//       D, the table's capacity and the SM count only: the grid within ~4
+//       blocks an SM). The row's pages are divided among its splits on the
+//       device, from lengths[row], in near-equal runs of whole units: a
+//       unit is one page when a page holds 32 rows or more, else the
+//       32 / BS pages that fill one 32-key stage. The wrapper never reads
+//       lengths on the host (the serve loop calls it once a layer).
+//     - A producer warp reads its run's table entries 32 at a time (one
+//       a lane) and streams each stage into a ring: per page of the stage
+//       a TMA box (D, 1 head, min(BS, 32) rows, 1 page) of K and one of V
+//       from 4-D tensor maps over the layer's pools (D, K, BS, NB) at
+//       (0, head, first row, table entry), completion counted in bytes on
+//       the stage's "full" mbarrier, with the stage's live bits (its first
+//       `n` rows, n = min(rows of the stage, len - first column)) and its
+//       keys' columns beside it; an end marker follows the last stage.
+//       Only pages below ceil(len / BS) are dereferenced: table entries
+//       past them (0 = scratch, or stale) are never read. Rows that no
+//       tensor map takes (bytes not a multiple of 16, or a box of several
+//       pages not a multiple of 128 bytes) are copied by the producer's
+//       lanes with plain loads, live rows only.
+//     - Four consumer warps on the CUDA cores in fp32 (G <= 8 query rows a
+//       KV head is far too little for wgmma's 64-row tiles): 16 lanes x 8
+//       dims a key for 16-bit D 128, an online softmax per sub-warp; a dead
+//       key (the tail of the last page) is selected out. The sub-warps
+//       merge through the drained ring, the splits in block 0 by st.async,
+//       in a fixed order: the same bits on every call.
+//     Trouble spots: a tensor map per layer pool (from the bounded cache of
+//     hopper.cuh: the serve loop reuses 2 x layers of them); a TMA box
+//     starts on 128 bytes of shared memory; a split's fixed cost (start,
+//     the first table read and TMA round trip, the cluster exchange) is
+//     what a short row pays, so the split stays within ~4 blocks an SM.
 //   * chunked prefill: the least time is the larger of its bytes (K+V up
 //     to the chunk's last position, q, out) over 3.35 TB/s and its 4 * N * D
 //     flops per visible (query, key) pair over the bf16 tensor-core peak;
@@ -46,7 +71,7 @@
 //     (query, key) pair), which keeps fp32 within 2e-5 of the plain
 //     version. wgmma / TMA pipelines are for a later change.
 
-#include "attention_common.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -54,137 +79,142 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
 // ---------------------------------------------------------------------------
-// decode: grid (R * K), block 256 threads. A key is held by a sub-warp of
-// SUB lanes, NI dims each (SUB = 16, NI = 8 for 16-bit rows of D = 128: a
-// 16-byte vector per lane, two keys per warp load); MAXG >= G query heads
-// per KV head. Every sub-warp runs its own online softmax over its keys;
-// the block merges them at the end.
+// decode: paged_split_kernel
 // ---------------------------------------------------------------------------
-constexpr int kDecWarps = 8;
+namespace sk = split_kv;
 
+struct PagedArgs {
+  const void* q;
+  const void* kp;        // the pools, read by the plain-load route
+  const void* vp;
+  const int* bt;         // (R, MAXB)
+  const int* lengths;    // (R,)
+  const float* alibi;    // (N,) or null
+  void* out;
+  int N, K, D, BS, MAXB;
+  int splits, stages;
+  int unit_pages;        // pages of a unit: 32 / BS below 32 rows, else 1
+  int box_rows;          // rows of a TMA box (and of a page's share of a
+                         // stage): min(BS, 32)
+  int tile_bytes;        // one K (V) tile in shared memory, 128-aligned
+  int region_bytes;      // the ring, or the block merge once it is drained
+  int tma;               // pages by TMA (else plain loads)
+  float scale;
+};
+
+// The pages [p0, p1) of split `split` of a row of `len` keys: the row's
+// units (unit_pages pages each, the last one cut at the row's last page)
+// in runs of ceil(units / splits), split i taking the i-th run.
+// ops/paged_decode_attention.py split_pages repeats this arithmetic.
+__device__ __forceinline__ void split_pages(int len, int BS, int UP,
+                                            int splits, int split, int& p0,
+                                            int& p1) {
+  const int npages = (len + BS - 1) / BS;
+  const int units = (npages + UP - 1) / UP;
+  const int per = (units + splits - 1) / splits;
+  const int u0 = min(split * per, units);
+  p0 = min(u0 * UP, npages);
+  p1 = min(min(u0 + per, units) * UP, npages);
+}
+
+// grid (splits * R * K) in clusters of `splits` along x, block
+// sk::kThreads; shared memory as decode_split.cuh lays it out. SUB lanes
+// hold one key, NI dims each; MAXG >= G.
 template <typename T, int NI, int SUB, int MAXG>
-__global__ void __launch_bounds__(kDecWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ bt,
-                    const int* __restrict__ lengths,
-                    const float* __restrict__ alibi, T* __restrict__ out,
-                    int N, int K, int D, int BS, int MAXB, float scale) {
-  constexpr int KG = (NI <= 4 || MAXG == 1) ? 8 : 4;  // keys per sub-warp step
-  constexpr int NSW = kDecWarps * (32 / SUB);         // sub-warps per block
-  constexpr int DW = NI * SUB;                        // dims a sub-warp holds
-  __shared__ float sm_m[NSW][MAXG];
-  __shared__ float sm_l[NSW][MAXG];
-  __shared__ float sm_acc[NSW][DW];
+__global__ void __launch_bounds__(sk::kThreads)
+paged_split_kernel(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const PagedArgs a) {
+  constexpr int kTile = sk::kTile;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) sk::Smem<SUB, MAXG> sm;
 
-  const int row = blockIdx.x / K, kh = blockIdx.x % K;
-  const int G = N / K;
+  const int S = a.splits, D = a.D, K = a.K, BS = a.BS, G = a.N / a.K;
+  const int split = blockIdx.x % S, pair = blockIdx.x / S;
+  const int row = pair / K, kh = pair % K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sw = warp * (32 / SUB) + lane / SUB;      // this lane's sub-warp
-  const int d0 = (lane % SUB) * NI;  // this lane's dims d0 .. d0 + NI - 1
-  const bool vec = D == DW;
-  const int len = min(lengths[row], MAXB * BS);
-  const int* tab = bt + (int64_t)row * MAXB;
+  const sk::Layout lay = sk::layout(smem_raw, a.region_bytes, S, G, D);
+  sk::start(sm, a.stages, S, split, G, D);
 
-  float qr[MAXG][NI], acc[MAXG][NI], m[MAXG], l[MAXG], slope[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    const bool gv = g < G;
-    if (gv) load_slice<T, NI>(q + ((int64_t)row * N + kh * G + g) * D, d0, D,
-                              vec, qr[g]);
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      qr[g][i] = gv ? qr[g][i] * scale : 0.f;
-      acc[g][i] = 0.f;
+  if (warp == sk::kConsumerWarps) {
+    // ---------------- producer warp ----------------
+    const int len = max(0, min(__ldg(a.lengths + row), a.MAXB * BS));
+    const int UP = a.unit_pages, BR = a.box_rows;
+    int p0, p1;
+    split_pages(len, BS, UP, S, split, p0, p1);
+    const int* tab = a.bt + (int64_t)row * a.MAXB;
+    const T* kpool = static_cast<const T*>(a.kp);
+    const T* vpool = static_cast<const T*>(a.vp);
+    const bool bias = a.alibi != nullptr;
+    const int stage_rows = UP * BS;        // BS >= 32: a page's rows
+    const int batch = (32 / UP) * UP;      // pages of one table read
+    const uint32_t box_bytes = (uint32_t)(BR * D * (int)sizeof(T));
+    sk::Producer ring{sm.full, sm.empty, sm.live, a.stages};
+    for (int pb = p0; pb < p1; pb += batch) {
+      const int pe = min(pb + batch, p1);
+      // the table entries of pages pb .. pe - 1, one a lane
+      const int page = pb + lane < pe ? __ldg(tab + pb + lane) : 0;
+      for (int pu = pb; pu < pe; pu += UP) {
+        const int nb = min(UP, pe - pu);   // pages of this unit
+        // a unit is one stage, or (BS > 32) one stage a 32-row tile
+        for (int r0 = 0; r0 < stage_rows; r0 += kTile) {
+          const int col0 = pu * BS + r0;
+          const int n = min(min(stage_rows - r0, kTile), len - col0);
+          if (n <= 0) break;               // past the row's last key
+          ring.claim();
+          const int slot = ring.slot;
+          sm.kpos[slot][lane] = bias ? (float)(col0 + lane) : 0.f;
+          if (lane == 0)
+            sm.live[slot] = n >= kTile ? 0xffffffffu : (1u << n) - 1u;
+          T* ks = reinterpret_cast<T*>(lay.region
+                                       + (size_t)slot * 2 * a.tile_bytes);
+          T* vs = reinterpret_cast<T*>(lay.region
+                                       + (size_t)slot * 2 * a.tile_bytes
+                                       + a.tile_bytes);
+          if (!a.tma) {
+            // plain loads of the live rows (the rest keep stale bytes; the
+            // consumers select them out)
+            for (int j = 0; j < n; ++j) {
+              const int pg = __shfl_sync(0xffffffffu, page,
+                                         pu - pb + j / BR);
+              const int64_t o =
+                  (((int64_t)pg * BS + r0 + j % BR) * K + kh) * D;
+              for (int d = lane; d < D; d += 32) {
+                ks[j * D + d] = kpool[o + d];
+                vs[j * D + d] = vpool[o + d];
+              }
+            }
+          }
+          __syncwarp();  // the lanes' stage writes, ordered before the arrive
+          if (a.tma) {
+            if (lane == 0)
+              mbar_expect_tx(&sm.full[slot], 2u * (uint32_t)nb * box_bytes);
+            __syncwarp();
+            // lane i < nb: the box of the unit's page i
+            const int pg = __shfl_sync(0xffffffffu, page,
+                                       pu - pb + min(lane, nb - 1));
+            if (lane < nb) {
+              tma_load_4d(ks + lane * BR * D, &kmap, 0, kh, r0, pg,
+                          &sm.full[slot]);
+              tma_load_4d(vs + lane * BR * D, &vmap, 0, kh, r0, pg,
+                          &sm.full[slot]);
+            }
+          } else if (lane == 0) {
+            mbar_arrive(&sm.full[slot]);
+          }
+          ring.advance();
+        }
+      }
     }
-    m[g] = kNegInf;
-    l[g] = 0.f;
-    slope[g] = (gv && alibi != nullptr) ? alibi[kh * G + g] : 0.f;
+    ring.finish(lane, S);
+    return;
   }
 
-  // the loop bound is warp-uniform (sub_sum shuffles need the full warp);
-  // a sub-warp past the row's end masks its keys instead
-  for (int wbase = warp * (32 / SUB) * KG; wbase < len;
-       wbase += NSW * KG) {
-    const int base = wbase + (lane / SUB) * KG;
-    float kr[KG][NI], vr[KG][NI];
-#pragma unroll
-    for (int j = 0; j < KG; ++j) {
-      const int col = base + j;
-      if (col < len) {
-        const int64_t o =
-            (((int64_t)tab[col / BS] * BS + col % BS) * K + kh) * D;
-        load_slice<T, NI>(kp + o, d0, D, vec, kr[j]);
-        load_slice<T, NI>(vp + o, d0, D, vec, vr[j]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < NI; ++i) kr[j][i] = vr[j][i] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g >= G) break;
-      float s[KG];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < KG; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < NI; ++i) dot += qr[g][i] * kr[j][i];
-        dot = sub_sum<SUB>(dot) + slope[g] * (float)(base + j);
-        s[j] = (base + j < len) ? dot : kNegInf;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float m_new = fmaxf(m[g], mx);
-      const float corr = expf(m[g] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KG; ++j) {
-        s[j] = (base + j < len) ? expf(s[j] - m_new) : 0.f;
-        psum += s[j];
-      }
-      l[g] = l[g] * corr + psum;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        float a = acc[g][i] * corr;
-#pragma unroll
-        for (int j = 0; j < KG; ++j)
-          if (base + j < len) a += s[j] * vr[j][i];
-        acc[g][i] = a;
-      }
-      m[g] = m_new;
-    }
-  }
-
-  // merge the sub-warps' partial softmax states, one query head at a time
-  if (lane % SUB == 0) {
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      sm_m[sw][g] = m[g];
-      sm_l[sw][g] = l[g];
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g >= G) break;  // block-uniform
-    __syncthreads();    // the previous head's sm_acc reads are done
-#pragma unroll
-    for (int i = 0; i < NI; ++i) sm_acc[sw][d0 + i] = acc[g][i];
-    __syncthreads();
-    for (int d = threadIdx.x; d < D; d += kDecWarps * 32) {
-      float M = kNegInf;
-#pragma unroll
-      for (int w = 0; w < NSW; ++w) M = fmaxf(M, sm_m[w][g]);
-      float L = 0.f, O = 0.f;
-#pragma unroll
-      for (int w = 0; w < NSW; ++w) {
-        const float e = expf(sm_m[w][g] - M);
-        L += sm_l[w][g] * e;
-        O += sm_acc[w][d] * e;
-      }
-      out[((int64_t)row * N + kh * G + g) * D + d] =
-          from_f<T>(L > 0.f ? O / L : 0.f);
-    }
-  }
+  const int64_t head = (int64_t)row * a.N + kh * G;   // first query head
+  sk::consume<T, NI, SUB, MAXG>(
+      sm, lay, a.stages, a.tile_bytes, static_cast<const T*>(a.q) + head * D,
+      a.alibi != nullptr ? a.alibi + kh * G : nullptr, a.scale, G, D, S,
+      split, static_cast<T*>(a.out) + head * D);
 }
 
 // ---------------------------------------------------------------------------
@@ -533,47 +563,53 @@ paged_prefill_mma_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int NI, int SUB>
-void decode_g(int G, dim3 grid, cudaStream_t st, const void* q,
-              const void* kp, const void* vp, const int* bt,
-              const int* lengths, const float* alibi, void* out, int N,
-              int K, int D, int BS, int MAXB, float scale) {
-#define DSTT_DECODE(MG)                                                     \
-  paged_decode_kernel<T, NI, SUB, MG><<<grid, kDecWarps * 32, 0, st>>>(     \
-      (const T*)q, (const T*)kp, (const T*)vp, bt, lengths, alibi, (T*)out, \
-      N, K, D, BS, MAXB, scale)
-  if (G <= 1) DSTT_DECODE(1);
-  else if (G <= 2) DSTT_DECODE(2);
-  else if (G <= 4) DSTT_DECODE(4);
-  else DSTT_DECODE(8);
-#undef DSTT_DECODE
+// The 4-D map of a (NB, BS, K, D) pool in boxes of (D, 1, min(BS, 32), 1):
+// one KV head's rows of a page, dense in shared memory (no swizzle), zeros
+// past the page's last row; from the cache of tensor_map (the serve loop
+// calls each layer's pools again every step).
+template <typename T>
+cudaError_t pool_map(CUtensorMap* map, const void* p, int NB, int BS, int K,
+                     int D, int box_rows) {
+  const cuuint64_t isz = sizeof(T);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)K, (cuuint64_t)BS,
+                              (cuuint64_t)NB};
+  const cuuint64_t strides[3] = {D * isz, (cuuint64_t)K * D * isz,
+                                 (cuuint64_t)BS * K * D * isz};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)box_rows, 1};
+  return tensor_map(map, map_type<T>(), 4, p, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
-template <typename T>
-void decode_d(int G, dim3 grid, cudaStream_t st, const void* q,
-              const void* kp, const void* vp, const int* bt,
-              const int* lengths, const float* alibi, void* out, int N,
-              int K, int D, int BS, int MAXB, float scale) {
-  if constexpr (sizeof(T) == 2) {
-    // 16-byte vectors per lane: 8 dims, 16 (or 8) lanes per key
-    if (D == 128) {
-      decode_g<T, 8, 16>(G, grid, st, q, kp, vp, bt, lengths, alibi, out, N, K, D, BS, MAXB, scale);
-      return;
+template <typename T, int NI, int SUB, int MAXG>
+struct PagedLaunch {
+  static cudaError_t run(PagedArgs a, int R, int NB, cudaStream_t st) {
+    constexpr int NSW = sk::kConsumerWarps * (32 / SUB);
+    static int smem_set = 48 * 1024;   // per instantiation: opt in above it
+    const int G = a.N / a.K, isz = (int)sizeof(T);
+    CUtensorMap km, vm;
+    std::memset(&km, 0, sizeof(km));
+    std::memset(&vm, 0, sizeof(vm));
+    // a box lands on 128 bytes of shared memory: the second page of a
+    // stage too
+    a.tma = (a.D * isz) % 16 == 0
+            && (a.unit_pages == 1 || (a.box_rows * a.D * isz) % 128 == 0);
+    if (a.tma) {
+      cudaError_t e = pool_map<T>(&km, a.kp, NB, a.BS, a.K, a.D,
+                                  a.box_rows);
+      if (e == cudaSuccess)
+        e = pool_map<T>(&vm, a.vp, NB, a.BS, a.K, a.D, a.box_rows);
+      if (e != cudaSuccess) return e;
     }
-    if (D == 64) {
-      decode_g<T, 8, 8>(G, grid, st, q, kp, vp, bt, lengths, alibi, out, N, K, D, BS, MAXB, scale);
-      return;
-    }
+    a.tile_bytes = (sk::kTile * a.D * isz + 127) & ~127;
+    a.region_bytes = sk::region_bytes(a.stages, a.tile_bytes, NSW, G,
+                                      NI * SUB);
+    return sk::launch(paged_split_kernel<T, NI, SUB, MAXG>, smem_set,
+                      a.splits * R * a.K, a.splits,
+                      sk::smem_bytes(a.region_bytes, a.splits, G, a.D), st,
+                      km, vm, a);
   }
-  if (D <= 32)
-    decode_g<T, 1, 32>(G, grid, st, q, kp, vp, bt, lengths, alibi, out, N, K, D, BS, MAXB, scale);
-  else if (D <= 64)
-    decode_g<T, 2, 32>(G, grid, st, q, kp, vp, bt, lengths, alibi, out, N, K, D, BS, MAXB, scale);
-  else if (D <= 128)
-    decode_g<T, 4, 32>(G, grid, st, q, kp, vp, bt, lengths, alibi, out, N, K, D, BS, MAXB, scale);
-  else
-    decode_g<T, 8, 32>(G, grid, st, q, kp, vp, bt, lengths, alibi, out, N, K, D, BS, MAXB, scale);
-}
+};
 
 template <typename T>
 void prefill_d(dim3 grid, cudaStream_t st, const void* q, const void* kp,
@@ -609,29 +645,52 @@ void prefill_d(dim3 grid, cudaStream_t st, const void* q, const void* kp,
 
 }  // namespace
 
-// The wrapper (ops/paged_decode_attention.py) checks every shape, dtype and
-// contiguity; these entry points assume N % K == 0, N / K <= 8, D <= 256.
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. alibi: (N,) fp32 or null.
-// Both return cudaGetLastError() after the launch.
+// The wrapper (ops/paged_decode_attention.py) checks every shape, dtype,
+// alignment and contiguity; these entry points assume N % K == 0, N / K <=
+// 8, D <= 256, 16-byte aligned q / pools. dtype: 0 = float32, 1 =
+// bfloat16, 2 = float16. alibi: (N,) fp32 or null. Both return the CUDA
+// error of the launch.
 
+// decode: NB pool blocks; splits (1, 2, 4 or 8) and stages (2..8) from
+// paged_split_plan
 extern "C" int dstt_paged_decode(const void* q, const void* kp,
                                  const void* vp, const int* bt,
                                  const int* lengths, const float* alibi,
                                  void* out, int R, int N, int K, int D,
-                                 int BS, int MAXB, float scale, int dtype,
+                                 int BS, int MAXB, int NB, float scale,
+                                 int dtype, int splits, int stages,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (R > 0) {
-    dim3 grid((unsigned)(R * K));
-    const int G = N / K;
-    if (dtype == 0)
-      decode_d<float>(G, grid, st, q, kp, vp, bt, lengths, alibi, out, N, K, D, BS, MAXB, scale);
-    else if (dtype == 1)
-      decode_d<__nv_bfloat16>(G, grid, st, q, kp, vp, bt, lengths, alibi, out, N, K, D, BS, MAXB, scale);
-    else
-      decode_d<__half>(G, grid, st, q, kp, vp, bt, lengths, alibi, out, N, K, D, BS, MAXB, scale);
-  }
-  return (int)cudaGetLastError();
+  if (R <= 0 || K <= 0) return (int)cudaGetLastError();
+  if (splits < 1 || splits > sk::kMaxSplits || (splits & (splits - 1))
+      || stages < 2 || stages > sk::kMaxStages || N % K
+      || N / K > sk::kMaxGroup || D < 1 || D > 256 || BS < 1 || MAXB < 0
+      || NB < 1)
+    return (int)cudaErrorInvalidValue;
+  PagedArgs a = {};
+  a.q = q;
+  a.kp = kp;
+  a.vp = vp;
+  a.bt = bt;
+  a.lengths = lengths;
+  a.alibi = alibi;
+  a.out = out;
+  a.N = N;
+  a.K = K;
+  a.D = D;
+  a.BS = BS;
+  a.MAXB = MAXB;
+  a.splits = splits;
+  a.stages = stages;
+  a.unit_pages = BS < sk::kTile ? sk::kTile / BS : 1;
+  a.box_rows = BS < sk::kTile ? BS : sk::kTile;
+  a.scale = scale;
+  const int G = N / K;
+  if (dtype == 0)
+    return (int)sk::dispatch<PagedLaunch, float>(D, G, a, R, NB, st);
+  if (dtype == 1)
+    return (int)sk::dispatch<PagedLaunch, __nv_bfloat16>(D, G, a, R, NB, st);
+  return (int)sk::dispatch<PagedLaunch, __half>(D, G, a, R, NB, st);
 }
 
 extern "C" int dstt_paged_prefill(const void* q, const void* kp,

@@ -82,14 +82,28 @@ def decode_split_plan(B: int, K: int, D: int, itemsize: int, kv_len: int,
     H100 at llama-7b's decode shapes (PERF.md, the dense decode kernel's
     findings)."""
     tiles = -(-kv_len // TILE)
-    splits = 1
-    while (splits < MAX_SPLITS and 2 * splits <= tiles
-           and 2 * splits * B * K <= BLOCKS_PER_SM * sms):
-        splits *= 2
+    splits = split_count(tiles, B * K, sms)
     chunk = TILE * max(1, -(-tiles // splits))
+    return splits, chunk, ring_stages(D, itemsize)
+
+
+def split_count(units: int, pairs: int, sms: int) -> int:
+    """Blocks a (row, KV head) of a split-KV decode launch over ``pairs``
+    (row, KV head) pairs whose rows hold at most ``units`` units of work:
+    the largest power of two up to MAX_SPLITS whose grid stays within
+    BLOCKS_PER_SM blocks an SM and whose splits each keep a unit."""
+    splits = 1
+    while (splits < MAX_SPLITS and 2 * splits <= units
+           and 2 * splits * pairs <= BLOCKS_PER_SM * sms):
+        splits *= 2
+    return splits
+
+
+def ring_stages(D: int, itemsize: int) -> int:
+    """Stages of a split-KV decode ring: K / V tile pairs of TILE rows
+    (each tile 128-byte aligned) that fill RING_BYTES, at least two."""
     stage = 2 * (-(-TILE * D * itemsize // 128) * 128)
-    stages = max(2, min(8, RING_BYTES // stage))
-    return splits, chunk, stages
+    return max(2, min(8, RING_BYTES // stage))
 
 
 @lru_cache(maxsize=None)

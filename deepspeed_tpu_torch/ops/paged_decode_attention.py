@@ -8,7 +8,11 @@ LEFT-ALIGNED: the token at absolute position ``p`` sits in block
 position and causality over true positions is the entire validity story.
 
 * ``paged_decode_attention`` — one query per row, CUDA kernel
-  ``csrc/paged_attention.cu::paged_decode_kernel`` on a CUDA tensor.
+  ``csrc/paged_attention.cu::paged_split_kernel`` on a CUDA tensor: the
+  blocks of a (row, KV head) are a cluster of ``splits`` that divide the
+  row's pages among themselves on the device (``split_pages``) and merge in
+  the same launch; ``paged_split_plan`` picks ``splits`` on the host from
+  shapes alone, so the wrapper never reads ``lengths`` there.
 * ``paged_prefill_attention`` — C chunk queries per row at positions
   ``start + c``, CUDA kernel ``paged_prefill_kernel``.
 * ``reference_paged_attention`` — the plain version of both (what each
@@ -18,11 +22,12 @@ position and causality over true positions is the entire validity story.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from . import registry
+from .decode_attention import TILE, _sm_count, ring_stages, split_count
 
 NEG_INF = -1e30
 MAX_GROUP = 8        # query heads per KV head the kernels take
@@ -112,12 +117,58 @@ def _check(fn: str, q: torch.Tensor, k_pool: torch.Tensor,
             raise ValueError(f"{fn}: {name} must be int32, got {t.dtype}")
 
 
-def _entry(name: str, n_ptr: int, n_int: int):
-    fn = getattr(registry.library("paged_attention"), name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def unit_pages(block_size: int) -> int:
+    """Pages of the decode kernel's unit of work: the 32 // BS pages that
+    fill one 32-key ring stage when a page holds fewer than 32 rows, else
+    one page (of ceil(BS / 32) stages)."""
+    return TILE // block_size if block_size < TILE else 1
+
+
+def paged_split_plan(R: int, K: int, D: int, itemsize: int, block_size: int,
+                     max_blocks: int, sms: int) -> Tuple[int, int]:
+    """(splits, stages) of the decode kernel's launch, from host integers
+    only: the dense decode kernel's rule (``decode_split_plan``; PERF.md,
+    its findings) over the units of a full table (max_blocks pages):
+    ``splits`` blocks a (row, KV head), the largest power of two up to 8
+    whose grid stays within 4 blocks an SM and whose splits each keep a
+    unit; ``stages`` K / V tile pairs of 32 keys in a 32 KB ring (at least
+    two)."""
+    units = -(-max_blocks // unit_pages(block_size))
+    return split_count(units, R * K, sms), ring_stages(D, itemsize)
+
+
+def split_pages(length: int, block_size: int, max_blocks: int,
+                splits: int) -> List[Tuple[int, int]]:
+    """The pages ``[p0, p1)`` each split of a row of ``length`` keys reads
+    (``csrc/paged_attention.cu::split_pages``, the same integer arithmetic
+    on the device): the row's units (``unit_pages`` pages each, the last
+    cut at the row's last page) in runs of ceil(units / splits), split i
+    taking the i-th run. Lengths past the table are clamped to it."""
+    length = max(0, min(length, max_blocks * block_size))
+    up = unit_pages(block_size)
+    npages = -(-length // block_size)
+    units = -(-npages // up)
+    per = -(-units // splits)
+    out = []
+    for i in range(splits):
+        u0 = min(i * per, units)
+        out.append((min(u0 * up, npages),
+                    min(min(u0 + per, units) * up, npages)))
+    return out
+
+
+def _decode_fn():
+    return registry.function(
+        "paged_attention", "dstt_paged_decode",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def _prefill_fn():
+    return registry.function(
+        "paged_attention", "dstt_paged_prefill",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        + [ctypes.c_int] + [ctypes.c_void_p])
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -142,15 +193,18 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"lengths (R,) must match q's R={R}")
     _check("paged_decode_attention", q, k_pool, v_pool, block_table, alibi,
            [("lengths", lengths)])
-    BS, K = k_pool.shape[1], k_pool.shape[2]
+    NB, BS, K = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    MAXB = block_table.shape[1]
+    splits, stages = paged_split_plan(R, K, D, q.element_size(), BS, MAXB,
+                                      _sm_count(q.device.index))
     out = torch.empty_like(q)
-    err = _entry("dstt_paged_decode", 7, 6)(
+    err = _decode_fn()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(),
         alibi.data_ptr() if alibi is not None else None, out.data_ptr(),
-        R, N, K, D, BS, block_table.shape[1],
+        R, N, K, D, BS, MAXB, NB,
         float(scale if scale is not None else D ** -0.5), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        splits, stages, torch.cuda.current_stream(q.device).cuda_stream)
     registry.check_launch("paged_decode_attention", err)
     return out
 
@@ -189,7 +243,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
            [("start", start), ("n_valid", n_valid)])
     BS, K = k_pool.shape[1], k_pool.shape[2]
     out = torch.empty_like(q)
-    err = _entry("dstt_paged_prefill", 8, 7)(
+    err = _prefill_fn()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), start.data_ptr(), n_valid.data_ptr(),
         alibi.data_ptr() if alibi is not None else None, out.data_ptr(),

@@ -52,7 +52,11 @@ tile or split edge and one past it, dead chunks between live ones, kv_len
 0 and key-less rows, one long row (B 1, T 4096), 8 query heads a KV head
 with alibi over key positions, rows that no tensor map takes (not a
 multiple of 16 bytes), NaN in dead slots, and bit-equal repeats; each call
-is one launch.
+is one launch. The split-KV paged decode kernel likewise: rows of 0, 1, BS
+and BS + 1 keys with splits left without a page, blocks of 8..64 rows, G
+1 / 4 / 8 with alibi, one long row with NaN in the scratch block, the tail
+of its last page and the pages after it, rows that no tensor map takes,
+bit-equal repeats, one launch a call and no host sync.
 """
 
 import numpy as np
@@ -246,6 +250,143 @@ def test_paged_rejects_misaligned_rows(dev):
     with pytest.raises(ValueError, match="aligned"):
         paged_decode_attention(q, kp, kp, bt,
                                torch.ones(2, dtype=torch.int32, device=dev))
+
+
+# The split-KV paged decode kernel's edges: rows of 0, 1, BS and BS + 1 keys
+# and rows whose later splits get no page; blocks of 8, 16, 32 and 64 rows;
+# 1, 4 and 8 query heads a KV head with alibi; one long row over 8 splits
+# with NaN in the scratch block, the tail of its last page and the page
+# after it; rows that no tensor map takes; bit-equal repeats; one launch a
+# call and no host sync (the wrapper never reads ``lengths``).
+def paged_case(dev, lengths, BS, MAXB, n, k, D, dtype, seed, nan=True,
+               stale=False):
+    """Pools, table and q for rows of ``lengths``: each row's pages drawn
+    from a shuffled pool, unfilled entries 0 (scratch) or, with ``stale``,
+    pages no row reaches (a recycled table); with ``nan`` the scratch
+    block, every page no row reaches and the tail of each row's last page
+    hold NaN."""
+    R = len(lengths)
+    rng = np.random.default_rng(seed)
+    NB = R * MAXB + 2
+    kp = rng.normal(size=(NB, BS, k, D)).astype(np.float32)
+    vp = rng.normal(size=(NB, BS, k, D)).astype(np.float32)
+    bt = np.zeros((R, MAXB), np.int32)
+    perm = rng.permutation(np.arange(1, NB))
+    used = set()
+    for r, length in enumerate(lengths):
+        npages = -(-min(length, MAXB * BS) // BS)
+        bt[r, :npages] = perm[r * MAXB:r * MAXB + npages]
+        if stale:
+            bt[r, npages:] = perm[r * MAXB + npages:(r + 1) * MAXB]
+        used.update(bt[r, :npages].tolist())
+        if nan and npages and length < npages * BS:
+            for p in (kp, vp):
+                p[bt[r, npages - 1], length % BS:] = np.nan
+    if nan:
+        for p in (kp, vp):
+            p[0] = np.nan
+            p[[b for b in range(1, NB) if b not in used]] = np.nan
+    q = rng.normal(size=(R, n, D))
+    return (t(q, dev, dtype), t(kp, dev, dtype), t(vp, dev, dtype),
+            t(bt, dev), t(np.array(lengths, np.int32), dev))
+
+
+def paged_once(q, kp, vp, bt, lengths, al=None):
+    before = launch_counts()["paged_decode_attention"]
+    got = paged_decode_attention(q, kp, vp, bt, lengths, al)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_decode_attention"] == before + 1
+    return got
+
+
+def paged_hold(args, atol, al=None):
+    got = paged_once(*args, al)
+    q, kp, vp, bt, lengths = args
+    ref = reference_paged_attention(
+        q[:, None], torch.nan_to_num(kp), torch.nan_to_num(vp), bt,
+        (lengths.long() - 1)[:, None], al)[:, 0]
+    assert torch.isfinite(got).all()
+    assert (got[lengths == 0] == 0).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+    return got
+
+
+@pytest.mark.parametrize("BS", [8, 16, 32, 64])
+@pytest.mark.parametrize("n,k", [(4, 4), (16, 4), (32, 4)])
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_paged_decode_edge_lengths(dev, BS, n, k, dtype, atol):
+    """Rows of 0, 1, BS, BS + 1 keys, a full table and one past it, G 1 / 4
+    / 8 with alibi; R 6 x K 4 takes 8 splits, so the short rows leave most
+    splits without a page. fp32 without alibi: over these 96..768 columns
+    the bias reaches ~100, where one fp32 ulp of a score (~8e-6) moves the
+    weights by more than the fp32 tolerance (as ``attn_params``)."""
+    MAXB = 12
+    lengths = [0, 1, BS, BS + 1, MAXB * BS, MAXB * BS + 5]
+    args = paged_case(dev, lengths, BS, MAXB, n, k, 128, dtype, BS + n)
+    al = alibi_slopes(n, device=dev) if dtype != torch.float32 else None
+    paged_hold(args, atol, al)
+
+
+@pytest.mark.parametrize("dtype,atol", ATTN)
+def test_paged_decode_long_row_nan(dev, dtype, atol):
+    """One row of 3990 keys over a full 256-page table (llama-7b's heads: 8
+    splits of 32 pages), NaN in the scratch block, in the tail of the last
+    page (positions 3990..3999 of page 249) and in the pages after it."""
+    args = paged_case(dev, [3990], 16, 256, 32, 32, 128, dtype, 11,
+                      stale=True)
+    q, kp, vp, bt, lengths = args
+    for p in (kp, vp):
+        assert bool(torch.isnan(p[bt[0, 250:].long()]).all())
+        assert bool(torch.isnan(p[bt[0, 249], 3990 % 16:]).all())
+        assert not bool(torch.isnan(p[bt[0, :249].long()]).any())
+    paged_hold(args, atol)
+
+
+# rows of 40 (bf16 D 20), 66 (fp16 D 33) and 132 bytes (fp32 D 33): no
+# tensor map takes them; 16-byte rows in boxes of 64 bytes (bf16 D 8, block
+# 4: 8 pages a stage, a box off 128 bytes); 96-byte rows (bf16 D 48) by TMA
+@pytest.mark.parametrize("D,BS,dtype,atol", [
+    (20, 16, torch.bfloat16, 2e-2), (33, 16, torch.float16, 5e-3),
+    (33, 8, torch.float32, 2e-5), (8, 4, torch.bfloat16, 2e-2),
+    (48, 16, torch.bfloat16, 2e-2)])
+def test_paged_decode_rows_not_16_bytes(dev, D, BS, dtype, atol):
+    lengths = [3 * BS + 1, 0, 7, 10 * BS]
+    args = paged_case(dev, lengths, BS, 10, 8, 2, D, dtype, D)
+    al = alibi_slopes(8, device=dev) if dtype != torch.float32 else None
+    paged_hold(args, atol, al)
+
+
+@pytest.mark.parametrize("R,MAXB,BS,n,k,D,dtype", [
+    (8, 64, 16, 32, 32, 128, torch.bfloat16),
+    (3, 20, 32, 16, 4, 64, torch.float32),
+    (1, 256, 16, 32, 32, 128, torch.float16)])
+def test_paged_decode_repeatable(dev, R, MAXB, BS, n, k, D, dtype):
+    """Two calls on the same inputs give equal bits: the splits merge in
+    rank order, with no atomics."""
+    rng = np.random.default_rng(R)
+    lengths = rng.integers(0, MAXB * BS + 1, R).tolist()
+    args = paged_case(dev, lengths, BS, MAXB, n, k, D, dtype, R, nan=False)
+    a = paged_once(*args)
+    b = paged_once(*args)
+    assert torch.equal(a, b)
+
+
+def test_paged_decode_one_launch_no_host_sync(dev):
+    """llama-7b's serve step (R 8, 32 heads of 128, block 16): one launch a
+    call, and no device value read on the host (CUDA's sync debug mode
+    raises on a synchronising call)."""
+    lengths = [1, 1000, 0, 517, 64, 333, 800, 129]
+    args = paged_case(dev, lengths, 16, 64, 32, 32, 128, torch.bfloat16, 3)
+    paged_once(*args)                      # build and bind first
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        before = launch_counts()["paged_decode_attention"]
+        paged_decode_attention(*args)
+        assert launch_counts()["paged_decode_attention"] == before + 1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
