@@ -310,7 +310,7 @@ SOURCES = {
     "block_sparse_attention_fwd": (
         "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
         "deepspeed_tpu/ops/block_sparse_attention.py:196",
-        "sparse_fwd_mma_kernel"),
+        "sparse_fwd_tma_kernel"),
     "block_sparse_attention_bwd": (
         "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
         "deepspeed_tpu/ops/block_sparse_attention.py:325,360",
@@ -1162,6 +1162,7 @@ def sparse_case(case, plan, causal, q, k, v, do, flash):
                   active_tiles=plan.active_tiles,
                   pair_density=visible / (B * N * S * S),
                   list_width=plan.kidx.shape[2],
+                  packed_stages=int(plan.stage_plan()[1].sum()),
                   transposed_width=plan.qidx_t.shape[2],
                   unique_masks=plan.masks.shape[0],
                   tol=dict(zip(("atol", "rtol"), TOL[dtype]),

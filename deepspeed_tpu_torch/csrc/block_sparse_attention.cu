@@ -40,12 +40,51 @@
 // read once and dq, dk, dv written once, 134.7 MB, 40.2 us at 3.35 TB/s:
 // bytes bound (chip_smoke.py's sparse cases count both from the plan).
 //
-// Forward, bf16 / fp16 with D in {16, 32, 64, 128}: the flash kernels'
-// mma.sync m16n8k16 blocking with fp32 accumulation: one block per (64
-// query rows, head, batch row), 4 warps of 16 rows, K / V sub-tiles of 64
-// keys staged in shared memory with the matching 64-row slice of the
-// tile's mask. A 64 x 64 quadrant whose mask is all zero and a sub-tile
-// wholly above the causal diagonal are skipped block-uniformly.
+// Forward, bf16 / fp16 with D in {16, 32, 64, 128}: sparse_fwd_tma_kernel,
+// the flash forward's block (flash_attention.cu) over packed key groups.
+// Under Fixed an off-diagonal tile holds 32 live keys of 128, so a kernel
+// that visits whole tiles computes products and exp for 3.9x the visible
+// pairs, and at D 64 a key tile's softmax sets the pace. So the host packs
+// (TilePlan.stage_plan, once per plan): for each (head, q-tile) its list
+// walked in order, each 16-key group of a tile that some row of the q-tile
+// sees, 8 groups to a 128-key stage (Fixed at S 2048: 52 stages a head
+// where 136 tiles were, 1.48x the visible pairs), with per slot the group's
+// first key, mask id, column offset and a flag per 64-row half (0 no row
+// sees it, 1 all pairs visible, 2 partial).
+// * A producer warp (setmaxnreg 40 / 232) loads the work tile's Q once by
+//   TMA, then for each stage lane l < 8 reads slot l, writes it into the
+//   stage's work item and issues one TMA box of 16 keys a panel of K and of
+//   V into rows 16 l..16 l + 15 of the stage (a 16-row box of SW-byte rows
+//   is whole swizzle atoms, so packed rows keep the layout the wgmma
+//   descriptors read); lane 0 arrives with the stage's bytes, and an end
+//   item follows the last stage. Under causality a group past every row of
+//   the tile is not loaded.
+// * Two consumer warpgroups of 64 rows: S = Q K^T over the stage's 128
+//   packed keys by wgmma SS; while it runs, each slot's visibility for the
+//   thread's elements, from the flags, the query-major mask words rowbits
+//   (partial slots only) and the slot's absolute keys (c <= row, only where
+//   the slot straddles the warpgroup's diagonal); then an exp2 softmax in
+//   the accumulator's layout (a stage whose 8 slots are all visible takes
+//   one FFMA and one ex2 an element, others select invisible pairs to
+//   -inf and skip the ex2 of slots no row sees), O += P V by wgmma RS. A
+//   stage that no row of a warpgroup sees is skipped by it (uniformly).
+// * A slot left empty in a stage's tail is never loaded; the V ring is
+//   zeroed once, so it holds zeros or V rows loaded before, and p is
+//   selected to 0 there.
+// * Epilogue as the flash forward's: o = O / l by TMA store from the Q
+//   tile's shared memory, lse = (m + log2 l) ln 2, o = 0 and lse = -inf for
+//   a key-less row (every row of a q-tile whose list is empty).
+// * D <= 64: persistent, one block an SM over the work tiles (q-tiles in
+//   qorder, the heaviest first, each over every head and batch row), two Q
+//   buffers, 4 stages; D 128 (224 KB: one Q buffer, 3 stages): one block a
+//   work tile on a (N, B, q-tiles) grid, the heaviest q-tiles first.
+// What holds it back (H100 80GB HBM3, 700 W; PERF.md): at the sparse_train
+// shape under Fixed it takes ~0.070 ms (one block a work tile at D 64:
+// 0.083), ~2.8 us a stage where the flash forward spends ~1.7 us a key
+// tile at the same shape; where it goes is not located (the card's machine
+// has no stall profiler). Trial builds of a fast softmax path that also
+// takes stages with dead slots, and of a packing with the diagonal tile's
+// groups first, each ran slower.
 //
 // Backward, bf16 / fp16 with D in {16, 32, 64, 128}: three launches, the
 // design of the flash backward (flash_attention_bwd.cu), walking the
@@ -115,185 +154,398 @@ constexpr int kTileElems = kTile * kTile;
 
 __device__ __forceinline__ float neg_infinity() { return -__int_as_float(0x7f800000); }
 
-// mask bytes of rows [r0, r0 + ROWS) and columns [c0, c0 + COLS) of one
-// 128 x 128 mask into shared rows of MP bytes (16-byte copies)
-template <int ROWS, int COLS, int MP>
-__device__ __forceinline__ void stage_mask(uint8_t (*dst)[MP],
-                                           const uint8_t* __restrict__ mask,
-                                           int r0, int c0) {
-  for (int e = threadIdx.x; e < ROWS * (COLS / 16); e += kThreads) {
-    const int r = e / (COLS / 16), c = (e % (COLS / 16)) * 16;
-    *reinterpret_cast<uint4*>(&dst[r][c]) = __ldg(
-        reinterpret_cast<const uint4*>(mask + (r0 + r) * kTile + c0 + c));
-  }
+// ---------------------------------------------------------------------------
+// forward, TMA + wgmma path (16-bit, D in {16, 32, 64, 128}); see the note
+// above
+// ---------------------------------------------------------------------------
+
+constexpr int kGroup = 16;                // keys of a packed group
+constexpr int kSlots = kKeys / kGroup;    // groups of a stage
+// registers a thread after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 64 K
+constexpr int kFwdConsumerRegs = 232;
+constexpr int kFwdProducerRegs = 40;
+
+template <int D>
+struct SpFwd {
+  static constexpr int P = D < 64 ? D : 64;   // columns of a panel
+  static constexpr int SW = 2 * P;            // bytes of a panel row
+  static constexpr int NP = D / P;            // panels
+  // one block an SM walking work tiles, with a second Q buffer (the next
+  // tile's Q loads while this one runs), where shared memory holds it
+  static constexpr bool kPersistent = D <= 64;
+  static constexpr int QBUF = kPersistent ? 2 : 1;
+  static constexpr int STAGES = D == 128 ? 3 : 4;   // K / V ring
+  static constexpr int QB = kKeys * D * 2;          // bytes of a Q tile
+  static constexpr int KVB = kKeys * D * 2;         // bytes of a stage's K (V)
+  static constexpr int GB = kGroup * SW;            // a group's box in a panel
+  // the Q tiles, the stages' K and V (all 1024-byte multiples), and room to
+  // align the base to 1024
+  static constexpr int SMEM = 1024 + QBUF * QB + STAGES * 2 * KVB;
+};
+
+// A work tile: 128 query rows (from i0) of head n, batch row b.
+struct SpWork {
+  int i0, n, b;
+};
+// Work tile w of the persistent route: the q-tiles in qorder (heaviest
+// first), each over every (head, batch row); block u takes w = u, u +
+// gridDim.x, ...
+__device__ __forceinline__ SpWork sp_work(int w, const int* qorder, int N,
+                                          int B) {
+  const int r = w / (N * B), nb = w % (N * B);
+  return {qorder[r] * kKeys, nb % N, nb / N};
 }
 
-// ---------------------------------------------------------------------------
-// forward, tensor-core path: grid (S / 64, N, B), 4 warps of 16 query rows
-// ---------------------------------------------------------------------------
+// Grid: persistent min(work tiles, SMs), else (N, B, S / 128) with the
+// q-tile qorder[blockIdx.z]; block kFusedThreads, dynamic shared memory
+// SpFwd<D>::SMEM. Maps (head_map, panels of P columns): q and out (D, N, S,
+// B) in boxes of (P, 1, 64, 1), k and v in boxes of (P, 1, kGroup, 1).
+// slots (N, S / 128, SMAX, kSlots) int4: per slot (first key or -1, mask
+// id, column offset in its tile, flags: bits 2 h..2 h + 1 of half h, 0 no
+// row sees the group, 1 all pairs visible, 2 partial); scount (N, S / 128):
+// stages a list; rowbits (U, 128, 2): bit c of rowbits[m][r][h] is mask m's
+// (r, 64 h + c).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-sparse_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ kidx,
-                      const int* __restrict__ mid,
-                      const int* __restrict__ kcount,
-                      const uint8_t* __restrict__ masks,
-                      const uint8_t* __restrict__ quad, T* __restrict__ out,
-                      float* __restrict__ lse, int S, int N, int A,
-                      int causal, float scale) {
-  constexpr int KT = 64;          // keys per sub-tile
-  constexpr int QT = 16 * kWarps; // query rows per block
-  constexpr int DP = D + 8;       // padded row: conflict-free ldmatrix
-  constexpr int MP = KT + 16;     // padded mask row (bytes)
-  constexpr int NT = KT / 8;
-  constexpr int DT = D / 8;
-  constexpr int KD = D / 16;
-  constexpr int CH = 8;           // 16-bit elements per 16-byte load
-  __shared__ __align__(16) T ks[KT][DP];
-  __shared__ __align__(16) T vs[KT][DP];
-  __shared__ __align__(16) uint8_t ms[QT][MP];
+__global__ void __launch_bounds__(kFusedThreads, 1)
+sparse_fwd_tma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap,
+                      const int4* __restrict__ slots,
+                      const int* __restrict__ scount,
+                      const unsigned long long* __restrict__ rowbits,
+                      const int* __restrict__ qorder, float* __restrict__ lse,
+                      int B, int S, int N, int SMAX, int causal,
+                      float scale) {
+  using C = SpFwd<D>;
+  constexpr int P = C::P, SW = C::SW, ST = C::STAGES, QBUF = C::QBUF;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full[QBUF], q_empty[QBUF], full[ST],
+      empty[ST];
+  // each stage's work item: its slots; bit h of wstate: a row of half h
+  // sees a key of the stage (-1: the end of the work tile)
+  __shared__ int4 work[ST][kSlots];
+  __shared__ int wstate[ST];
+  uint8_t* qbuf = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* kvs = qbuf + QBUF * C::QB;  // stage st: K at kvs + st 2 KVB, then V
 
-  const int nq = S / kTile;
-  const int it = blockIdx.x >> 1, qh = blockIdx.x & 1;  // q-tile, its half
-  const int n = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * QT;
-  const int wlast = q0 + warp * 16 + 15;   // the warp's last row
-  const int64_t rs = (int64_t)N * D;       // row stride
-  const int64_t hb = ((int64_t)b * S * N + n) * D;  // (b, row 0, head n)
+  const int nq = S / kKeys, total = nq * N * B;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the warpgroup as a value the compiler sees is warp-uniform (one lane's,
+  // shuffled): wgmma under a branch it cannot prove uniform is serialized
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const SpWork own = {qorder[blockIdx.z] * kKeys, (int)blockIdx.x,
+                      (int)blockIdx.y};
 
-  int row[2], rl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    rl[h] = warp * 16 + grp + 8 * h;
-    row[h] = q0 + rl[h];
-  }
-  uint32_t qa[KD][4];  // A fragments of Q (row grp / grp + 8, dims tig * 2)
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int h = j & 1, d = kk * 16 + tig * 2 + (j >> 1) * 8;
-      qa[kk][j] = *reinterpret_cast<const uint32_t*>(q + hb + row[h] * rs + d);
+  // The V ring zeroed once: a slot left empty in a stage is never loaded,
+  // so its rows hold zeros or V rows this block loaded before (finite
+  // wherever the plain version is finite), which p = 0 multiplies.
+  for (int e = tid; e < ST * C::KVB / 16; e += kFusedThreads)
+    reinterpret_cast<uint4*>(kvs + (e / (C::KVB / 16)) * 2 * C::KVB +
+                             C::KVB)[e % (C::KVB / 16)] =
+        make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();
+  if (tid == 0) {
+    for (int i = 0; i < QBUF; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], kConsumers / 128);
     }
-
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  const int list = n * nq + it;
-  const int cnt = kcount[list];
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
-  for (int a = 0; a < cnt; ++a) {
-    const int j = kidx[list * A + a];
-    const int mk = mid[list * A + a];
-    for (int kh = 0; kh < kTile / KT; ++kh) {
-      const int t0 = j * kTile + kh * KT;
-      // block-uniform: the quadrant's mask is empty, or every key is past
-      // every row of the block
-      if (!quad[mk * 4 + qh * 2 + kh] || (causal && t0 > q0 + QT - 1)) continue;
-      __syncthreads();  // the previous sub-tile is consumed
-      for (int e = threadIdx.x; e < KT * (D / CH); e += kThreads) {
-        const int jr = e / (D / CH), d = (e % (D / CH)) * CH;
-        const int64_t off = hb + (t0 + jr) * rs + d;
-        *reinterpret_cast<uint4*>(&ks[jr][d]) =
-            __ldg(reinterpret_cast<const uint4*>(k + off));
-        *reinterpret_cast<uint4*>(&vs[jr][d]) =
-            __ldg(reinterpret_cast<const uint4*>(v + off));
-      }
-      stage_mask<QT, KT, MP>(ms, masks + (int64_t)mk * kTileElems, qh * QT,
-                             kh * KT);
-      __syncthreads();
-      if (causal && t0 > wlast) continue;  // warp-uniform
-
-      float s[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t kb[4];
-          ldsm_x4(kb, &ks[(np * 2 + (mi >> 1)) * 8 + mr][kk * 16 + (mi & 1) * 8]);
-          Mma<T>::run(s[np * 2], qa[kk], kb[0], kb[1]);
-          Mma<T>::run(s[np * 2 + 1], qa[kk], kb[2], kb[3]);
-        }
-
-      uint32_t vis = 0;  // bit nt * 4 + j: the pair is visible
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int h = jj >> 1, c = nt * 8 + tig * 2 + (jj & 1);
-          const bool on = ms[rl[h]][c] && (!causal || t0 + c <= row[h]);
-          vis |= (uint32_t)on << (nt * 4 + jj);
-          const float x = on ? s[nt][jj] * scale : kNegInf;
-          s[nt][jj] = x;
-          mx[h] = fmaxf(mx[h], x);
-        }
-      float corr[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(m[h], mx[h]);
-        corr[h] = expf(m[h] - m_new);
-        m[h] = m_new;
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int h = jj >> 1;
-          const float p = (vis >> (nt * 4 + jj)) & 1u ? expf(s[nt][jj] - m[h]) : 0.f;
-          s[nt][jj] = p;
-          psum[h] += p;
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 1);
-        psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], 2);
-        l[h] = l[h] * corr[h] + psum[h];
-      }
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        o[dt][0] *= corr[0];
-        o[dt][1] *= corr[0];
-        o[dt][2] *= corr[1];
-        o[dt][3] *= corr[1];
-      }
-#pragma unroll
-      for (int k2 = 0; k2 < KT / 16; ++k2) {
-        const uint32_t pa[4] = {
-            Mma<T>::pack(s[2 * k2][0], s[2 * k2][1]),
-            Mma<T>::pack(s[2 * k2][2], s[2 * k2][3]),
-            Mma<T>::pack(s[2 * k2 + 1][0], s[2 * k2 + 1][1]),
-            Mma<T>::pack(s[2 * k2 + 1][2], s[2 * k2 + 1][3])};
-#pragma unroll
-        for (int dp = 0; dp < DT / 2; ++dp) {
-          uint32_t vb[4];
-          ldsm_x4_t(vb, &vs[k2 * 16 + (mi & 1) * 8 + mr][(dp * 2 + (mi >> 1)) * 8]);
-          Mma<T>::run(o[dp * 2], pa, vb[0], vb[1]);
-          Mma<T>::run(o[dp * 2 + 1], pa, vb[2], vb[3]);
-        }
-      }
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers / 32);
     }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      store_pair(out + hb + row[h] * rs + dt * 8 + tig * 2, o[dt][2 * h] * inv,
-                 o[dt][2 * h + 1] * inv);
-    if (tig == 0)
-      lse[((int64_t)b * N + n) * S + row[h]] =
-          l[h] > 0.f ? m[h] + logf(l[h]) : neg_infinity();
+  if (wg == kConsumers / 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kFwdProducerRegs));
+    if (warp != kConsumers / 32) return;
+    // one warp: lane 0 the Q tile and the stage's arrival, lane l < kSlots
+    // slot l of each stage (its work item entry and its K / V boxes)
+    int it = 0;   // ring position, across work tiles
+    auto produce = [&](const SpWork wk, int wt) {
+      if (lane == 0) {
+        const int qb = wt % QBUF;
+        if (wt >= QBUF) mbar_wait(&q_empty[qb], (wt / QBUF - 1) & 1);
+        mbar_expect_tx(&q_full[qb], C::QB);
+        uint8_t* qs = qbuf + qb * C::QB;
+        for (int p = 0; p < C::NP; ++p)
+          for (int h = 0; h < 2; ++h)
+            tma_load_4d(qs + p * kKeys * SW + h * 64 * SW, &qmap, p * P, wk.n,
+                        wk.i0 + 64 * h, wk.b, &q_full[qb]);
+      }
+      const int list = wk.n * nq + wk.i0 / kKeys;
+      const int cnt = scount[list];
+      const int4* sl = slots + (int64_t)list * SMAX * kSlots;
+      for (int s = 0; s <= cnt; ++s) {
+        const int st = it % ST;
+        if (it >= ST) mbar_wait(&empty[st], (it / ST - 1) & 1);
+        ++it;
+        if (s == cnt) {   // the end of the work tile
+          if (lane == 0) {
+            wstate[st] = -1;
+            mbar_arrive(&full[st]);
+          }
+          break;
+        }
+        int4 e = make_int4(-1, 0, 0, 0);
+        int halves = 0;
+        if (lane < kSlots) {
+          e = __ldg(sl + s * kSlots + lane);
+          // under causality a group past every row of the tile is not loaded
+          if (causal && e.x > wk.i0 + kKeys - 1) e.x = -1;
+          work[st][lane] = e;
+          for (int h = 0; h < 2; ++h)
+            if (e.x >= 0 && ((e.w >> (2 * h)) & 3) &&
+                (!causal || e.x <= wk.i0 + 64 * h + 63))
+              halves |= 1 << h;
+        }
+        const int loaded = __popc(__ballot_sync(0xffffffffu, e.x >= 0));
+        halves = (int)__reduce_or_sync(0xffffffffu, (unsigned)halves);
+        __syncwarp();   // the entries are written before the stage arrives
+        if (lane == 0) {
+          wstate[st] = halves;
+          mbar_expect_tx(&full[st], loaded * 2 * C::NP * C::GB);
+        }
+        __syncwarp();
+        if (e.x >= 0) {
+          uint8_t* kd = kvs + st * 2 * C::KVB + lane * C::GB;
+          for (int p = 0; p < C::NP; ++p) {
+            tma_load_4d(kd + p * kKeys * SW, &kmap, p * P, wk.n, e.x, wk.b,
+                        &full[st]);
+            tma_load_4d(kd + C::KVB + p * kKeys * SW, &vmap, p * P, wk.n, e.x,
+                        wk.b, &full[st]);
+          }
+        }
+      }
+    };
+    if constexpr (C::kPersistent) {
+      int wt = 0;
+      for (int w = blockIdx.x; w < total; w += gridDim.x)
+        produce(sp_work(w, qorder, N, B), wt++);
+    } else {
+      produce(own, 0);
+    }
+    return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kFwdConsumerRegs));
+
+  const int ctid = tid & 127, wi = warp & 3, g = lane >> 2, t = lane & 3;
+  const int rl0 = 64 * wg;   // the warpgroup's first row of the tile
+  const float scale2 = scale * kLog2e;
+  // a stage whose pairs are all visible may take the max of the raw scores
+  const bool plain = scale > 0.f;
+  float o[D / 2], m[2], l[2], s[kKeys / 2];
+  uint32_t pa[kKeys / 16][4];
+
+  // K-major descriptor of k16 step kk of a 128-row tile, from row r0
+  auto kdesc = [&](const uint8_t* tile, int r0, int kk) {
+    return wgmma_desc<SW>(tile + (kk * 16 / P) * kKeys * SW + r0 * SW +
+                              (kk * 16 % P) * 2,
+                          16, 8 * SW);
+  };
+  auto release = [&](int it) {
+    if (lane == 0) mbar_arrive(&empty[it % ST]);
+  };
+
+  int it = 0;   // ring position, as the producer's
+  auto consume = [&](const SpWork wk, int wt) {
+    const int wrow0 = wk.i0 + rl0;
+    int row[2];   // this thread's two rows, absolute
+    row[0] = wrow0 + 16 * wi + g;
+    row[1] = row[0] + 8;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = neg_infinity();
+    l[0] = l[1] = 0.f;
+    const int qb = wt % QBUF;
+    const uint8_t* qs = qbuf + qb * C::QB;
+    mbar_wait(&q_full[qb], (wt / QBUF) & 1);
+
+    for (;; ++it) {
+      const int st = it % ST;
+      mbar_wait(&full[st], (it / ST) & 1);
+      const int state = __shfl_sync(0xffffffffu, wstate[st], 0);
+      if (state < 0) break;
+      if (!((state >> wg) & 1)) {   // no row of this warpgroup sees a key
+        release(it);
+        continue;
+      }
+      const uint8_t* kt = kvs + st * 2 * C::KVB;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, kKeys>::template ss<0, 0>(s, kdesc(qs, rl0, kk),
+                                           kdesc(kt, 0, kk), kk > 0);
+      wgmma_commit();
+
+      // while S runs: the visibility of this thread's elements. Element e
+      // of s is row h = e / 2 % 2, column 8 (e / 4) + 2 t + e % 2 of the
+      // stage: slot e / 8, column cc = 8 (e / 4 % 2) + 2 t + e % 2 of the
+      // slot's group; bit e % 32 of vis[e / 32] says it is visible.
+      uint32_t vis[2] = {0u, 0u};
+      int lives = 0, wholes = 0;   // slots: a pair visible / all visible
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        const int4 e = work[st][j];
+        const int fl = (e.w >> (2 * wg)) & 3;
+        if (e.x < 0 || fl == 0 || (causal && e.x > wrow0 + 63)) continue;
+        lives |= 1 << j;
+        uint32_t bits = 0xFFu;
+        if (fl == 1 && (!causal || e.x + kGroup - 1 <= wrow0)) {
+          wholes |= 1 << j;
+        } else {
+          bits = 0u;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // bits 0, 1, 8, 9: columns 2 t, 2 t + 1, 8 + 2 t, 9 + 2 t
+            uint32_t w = 0xFFFFu;
+            if (fl == 2)
+              w = (uint32_t)(__ldg(rowbits + ((int64_t)e.y * kKeys + row[h] -
+                                              wk.i0) * 2 + (e.z >> 6)) >>
+                             (e.z & 63));
+            w >>= 2 * t;
+            if (causal) {   // key e.x + cc <= row
+              const int lim = row[h] - e.x - 2 * t;
+              w &= (lim >= 0 ? 1u : 0u) | (lim >= 1 ? 2u : 0u) |
+                   (lim >= 8 ? 0x100u : 0u) | (lim >= 9 ? 0x200u : 0u);
+            }
+            bits |= ((w & 1u) | ((w >> 1) & 1u) << 1 | ((w >> 8) & 1u) << 4 |
+                     ((w >> 9) & 1u) << 5) << (2 * h);
+          }
+        }
+        vis[j >> 2] |= bits << (8 * (j & 3));
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // s -> p = 2^(s scale log2 e - m); m, l updated, corr the factor of O
+      float corr[2], mx[2] = {neg_infinity(), neg_infinity()};
+      if (__shfl_sync(0xffffffffu, (int)(plain && wholes == (1 << kSlots) - 1),
+                      0)) {
+#pragma unroll
+        for (int e = 0; e < kKeys / 2; ++e)
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float mn = fmaxf(m[h], mx[h] * scale2);
+          corr[h] = fast_exp2(m[h] - mn);
+          m[h] = mn;
+        }
+#pragma unroll
+        for (int e = 0; e < kKeys / 2; ++e)
+          s[e] = fast_exp2(fmaf(s[e], scale2, -m[(e >> 1) & 1]));
+      } else {
+        // invisible pairs selected to -inf (never multiplied: a slot that
+        // was not loaded may hold anything in K)
+#pragma unroll
+        for (int e = 0; e < kKeys / 2; ++e) {
+          s[e] = (vis[e >> 5] >> (e & 31)) & 1u ? s[e] * scale2
+                                                : neg_infinity();
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float mn = fmaxf(m[h], mx[h]);
+          // a row that has seen no key yet: subtract 0, so -inf - (-inf)
+          // never makes NaN (2^-inf = 0)
+          const float mu = mn == neg_infinity() ? 0.f : mn;
+          corr[h] = fast_exp2(m[h] - mu);
+          m[h] = mn;
+          mx[h] = mu;
+        }
+        // p = 0 without an ex2 on a slot no row of the warpgroup sees
+#pragma unroll
+        for (int j = 0; j < kSlots; ++j) {
+          const bool on = (lives >> j) & 1;
+#pragma unroll
+          for (int e = 8 * j; e < 8 * j + 8; ++e)
+            s[e] = on ? fast_exp2(s[e] - mx[(e >> 1) & 1]) : 0.f;
+        }
+      }
+      float rs[2] = {0.f, 0.f};  // this thread's columns; quad sums at the end
+#pragma unroll
+      for (int e = 0; e < kKeys / 2; ++e) rs[(e >> 1) & 1] += s[e];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pa[kk][j] = Mma<T>::pack(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+
+      // O += P V (V MN-major through the transpose bit)
+      const uint8_t* vt = kt + C::KVB;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        Wgmma<T, D>::template rs<1>(
+            o, pa[kk], wgmma_desc<SW>(vt + kk * 16 * SW, kKeys * SW, 8 * SW),
+            1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      release(it);
+    }
+    release(it++);  // the end item's stage
+
+    // o = O / l in the input type, into this warpgroup's rows of the Q tile
+    // (its S products are done), swizzled as the output's map; then one TMA
+    // store a panel
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      inv[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    }
+    uint8_t* os = qbuf + qb * C::QB;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int h = (i >> 1) & 1, r = rl0 + 16 * wi + g + 8 * h;
+      const int col = 8 * (i >> 2) + 2 * t;
+      const int a = r * SW + (col % P) * 2;
+      *reinterpret_cast<uint32_t*>(os + (col / P) * kKeys * SW +
+                                   swizzle_offset(a, SW)) =
+          Mma<T>::pack(o[i] * inv[h], o[i + 1] * inv[h]);
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (ctid == 0) {
+      for (int p = 0; p < C::NP; ++p)
+        tma_store_4d(&omap, os + p * kKeys * SW + rl0 * SW, p * P, wk.n,
+                     wrow0, wk.b);
+      bulk_commit();
+      bulk_wait_read<0>();  // the tile's shared memory is free again
+      mbar_arrive(&q_empty[qb]);
+    }
+    if (t == 0) {
+      constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        lse[((int64_t)wk.b * N + wk.n) * S + row[h]] =
+            l[h] > 0.f ? (m[h] + log2f(l[h])) * kLn2 : neg_infinity();
+    }
+  };
+  if constexpr (C::kPersistent) {
+    int wt = 0;
+    for (int w = blockIdx.x; w < total; w += gridDim.x)
+      consume(sp_work(w, qorder, N, B), wt++);
+  } else {
+    consume(own, 0);
+  }
+  if (ctid == 0) bulk_wait<0>();  // every store written
 }
 
 // ---------------------------------------------------------------------------
@@ -972,24 +1224,61 @@ struct Plan {
 
 bool mma_dim(int D) { return D == 16 || D == 32 || D == 64 || D == 128; }
 
+// the forward's packed stages (TilePlan.stage_plan) and query-major mask
+// words, and the q-tiles in dispatch order
+struct Stages {
+  const int4* slots;
+  const int* scount;
+  const unsigned long long* rowbits;
+  const int* qorder;
+  int smax;
+};
+
+template <typename T, int D>
+cudaError_t fwd_tma(cudaStream_t st, const void* q, const void* k,
+                    const void* v, const Stages& g, void* out, float* lse,
+                    int B, int S, int N, int causal, float scale) {
+  using C = SpFwd<D>;
+  CUtensorMap qm, km, vm, om;
+  cudaError_t e = head_map<T>(&qm, q, B, S, N, D, C::P, 64);
+  if (e == cudaSuccess) e = head_map<T>(&om, out, B, S, N, D, C::P, 64);
+  if (e == cudaSuccess) e = head_map<T>(&km, k, B, S, N, D, C::P, kGroup);
+  if (e == cudaSuccess) e = head_map<T>(&vm, v, B, S, N, D, C::P, kGroup);
+  if (e != cudaSuccess) return e;
+  auto kern = sparse_fwd_tma_kernel<T, D>;
+  static bool smem_set = false;   // per instantiation: above 48 KB, opt in
+  if (!smem_set) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  dim3 grid((unsigned)N, (unsigned)B, (unsigned)(S / kKeys));
+  if constexpr (C::kPersistent) {
+    int dev = 0, sms = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    const int64_t tiles = (int64_t)(S / kKeys) * N * B;
+    grid = dim3((unsigned)(tiles < sms ? tiles : sms));
+  }
+  kern<<<grid, kFusedThreads, C::SMEM, st>>>(
+      qm, km, vm, om, g.slots, g.scount, g.rowbits, g.qorder, lse, B, S, N,
+      g.smax, causal, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
-void fwd_d(cudaStream_t st, const void* q, const void* k, const void* v,
-           const Plan& p, void* out, float* lse, int B, int S, int N, int D,
-           int A, int causal, float scale) {
+cudaError_t fwd_d(cudaStream_t st, const void* q, const void* k,
+                  const void* v, const Plan& p, const Stages& g, void* out,
+                  float* lse, int B, int S, int N, int D, int A, int causal,
+                  float scale) {
   if constexpr (sizeof(T) == 2) {
-    if (mma_dim(D)) {
-      const dim3 grid((unsigned)(S / 64), (unsigned)N, (unsigned)B);
-#define DSTT_SP_FWD_MMA(DD)                                                   \
-  sparse_fwd_mma_kernel<T, DD><<<grid, kThreads, 0, st>>>(                    \
-      (const T*)q, (const T*)k, (const T*)v, p.idx, p.mid, p.count, p.masks, \
-      p.quad, (T*)out, lse, S, N, A, causal, scale)
-      if (D == 16) DSTT_SP_FWD_MMA(16);
-      else if (D == 32) DSTT_SP_FWD_MMA(32);
-      else if (D == 64) DSTT_SP_FWD_MMA(64);
-      else DSTT_SP_FWD_MMA(128);
-#undef DSTT_SP_FWD_MMA
-      return;
-    }
+    if (D == 16) return fwd_tma<T, 16>(st, q, k, v, g, out, lse, B, S, N, causal, scale);
+    if (D == 32) return fwd_tma<T, 32>(st, q, k, v, g, out, lse, B, S, N, causal, scale);
+    if (D == 64) return fwd_tma<T, 64>(st, q, k, v, g, out, lse, B, S, N, causal, scale);
+    if (D == 128) return fwd_tma<T, 128>(st, q, k, v, g, out, lse, B, S, N, causal, scale);
   }
   const dim3 grid((unsigned)(S / 16), (unsigned)N, (unsigned)B);
 #define DSTT_SP_FWD(NI)                                                       \
@@ -1001,6 +1290,7 @@ void fwd_d(cudaStream_t st, const void* q, const void* k, const void* v,
   else if (D <= 128) DSTT_SP_FWD(4);
   else DSTT_SP_FWD(8);
 #undef DSTT_SP_FWD
+  return cudaGetLastError();
 }
 
 struct Bwd {
@@ -1105,26 +1395,35 @@ cudaError_t fused_d(cudaStream_t st, const Bwd& a) {
 // transposed lists); kcount / qcount_t: (N, S / 128) int32; masks: (U, 128,
 // 128) uint8; quad: (U, 2, 2) uint8, each 64 x 64 quadrant 0 empty, 1 full,
 // 2 partial; bits (U, 128, 2) uint64: bit r of bits[m][c][h] is masks[m][64
-// h + r][c]; korder (S / 128) int32: the key tiles by falling list length.
-// lse: (B, N, S) fp32. Each returns the first CUDA error of its launches
-// (tensor maps included).
+// h + r][c]; korder (S / 128) int32: the key tiles by falling list length;
+// the forward's slots (N, S / 128, smax, 8, 4) int32 and scount (N, S /
+// 128) int32 (TilePlan.stage_plan), rowbits (U, 128, 2) uint64: bit c of
+// rowbits[m][r][h] is masks[m][r][64 h + c]; qorder (S / 128) int32: the
+// q-tiles by falling stage count. lse: (B, N, S) fp32. Each returns the
+// first CUDA error of its launches (tensor maps included).
 extern "C" int dstt_sparse_fwd(const void* q, const void* k, const void* v,
                                const int* kidx, const int* mid,
                                const int* kcount, const uint8_t* masks,
-                               const uint8_t* quad, void* out, float* lse,
-                               int B, int S, int N, int D, int A, int causal,
-                               float scale, int dtype, void* stream) {
+                               const uint8_t* quad, const int* slots,
+                               const int* scount,
+                               const unsigned long long* rowbits,
+                               const int* qorder, void* out, float* lse,
+                               int B, int S, int N, int D, int A, int smax,
+                               int causal, float scale, int dtype,
+                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Plan p{kidx, mid, kcount, masks, quad};
-  if (B > 0 && S > 0 && N > 0) {
-    if (dtype == 0)
-      fwd_d<float>(st, q, k, v, p, out, lse, B, S, N, D, A, causal, scale);
-    else if (dtype == 1)
-      fwd_d<__nv_bfloat16>(st, q, k, v, p, out, lse, B, S, N, D, A, causal, scale);
-    else
-      fwd_d<__half>(st, q, k, v, p, out, lse, B, S, N, D, A, causal, scale);
-  }
-  return (int)cudaGetLastError();
+  const Stages g{reinterpret_cast<const int4*>(slots), scount, rowbits,
+                 qorder, smax};
+  if (B <= 0 || S <= 0 || N <= 0) return (int)cudaGetLastError();
+  cudaError_t e;
+  if (dtype == 0)
+    e = fwd_d<float>(st, q, k, v, p, g, out, lse, B, S, N, D, A, causal, scale);
+  else if (dtype == 1)
+    e = fwd_d<__nv_bfloat16>(st, q, k, v, p, g, out, lse, B, S, N, D, A, causal, scale);
+  else
+    e = fwd_d<__half>(st, q, k, v, p, g, out, lse, B, S, N, D, A, causal, scale);
+  return (int)e;
 }
 
 // dq, dk and dv from the forward's lse and o. workspace (fp32): B S N D +

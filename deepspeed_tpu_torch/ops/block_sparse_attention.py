@@ -10,7 +10,8 @@ lists (q-tiles per k-tile) that the backward walks. The port's plan adds
 each list's true length (``kcount``, ``qcount_t``), so the kernels stop at
 it instead of visiting the padded slots, which JAX points at k-tile 0 with
 the all-zero mask (they add exp(-inf) = 0, so skipping them gives the same
-result).
+result); and, for the 16-bit forward kernel, each list's live 16-key groups
+packed 8 to a 128-key stage (``TilePlan.stage_plan``).
 
 ``block_sparse_attention`` launches the forward CUDA kernel of
 ``csrc/block_sparse_attention.cu`` on a CUDA tensor and, under autograd,
@@ -50,6 +51,8 @@ from .flash_attention import (_bwd_workspace_floats, _check_grad_operands,
 
 TILE = 128          # kernel tile edge (q and kv)
 QUAD = 64           # the kernels' sub-tile edge: mask quadrants
+GROUP = 16          # keys of a group: the forward packs live groups
+SLOTS = TILE // GROUP   # groups of a forward stage
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -83,6 +86,45 @@ class TilePlan:
     def active_tiles(self) -> int:
         return int(self.kcount.sum())
 
+    def stage_plan(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The forward's packed stages, numpy, made once: for each (head,
+        q-tile), its list walked in order, each 16-key group of a tile that
+        some row of the 128-row q-tile sees, packed ``SLOTS`` to a stage.
+        Returns ``slots`` (N, nq, SMAX, SLOTS, 4) int32, per slot (the
+        group's first key, absolute, or -1 for an empty slot; its mask id;
+        its column offset in the tile; flags: bits 2 h .. 2 h + 1 say of
+        the 64-row half h 0 no row sees the group, 1 every pair is visible,
+        2 partial, from the mask alone), and ``scount`` (N, nq) int32, the
+        stages of each list: ceil(live groups / SLOTS)."""
+        key = ("stages",)
+        if key not in self._cache:
+            N, nq, A = self.kidx.shape
+            live = (self.masks != 0).reshape(-1, 2, QUAD, SLOTS, GROUP)
+            gflag = np.where(live.all(axis=(2, 4)), 1,
+                             np.where(live.any(axis=(2, 4)), 2, 0))
+            fl = gflag[self.mid].transpose(0, 1, 2, 4, 3)  # (N, nq, A, 8, 2)
+            valid = (fl.any(axis=-1)
+                     & (np.arange(A)[:, None] < self.kcount[..., None, None]))
+            valid = valid.reshape(N, nq, A * SLOTS)
+            count = valid.sum(axis=-1)
+            scount = (count + SLOTS - 1) // SLOTS
+            smax = max(1, int(scount.max()))
+            pos = np.cumsum(valid, axis=-1) - 1
+            grp = np.arange(A * SLOTS) % SLOTS
+            entry = np.stack([
+                np.repeat(self.kidx, SLOTS, axis=-1) * TILE + grp * GROUP,
+                np.repeat(self.mid, SLOTS, axis=-1),
+                np.broadcast_to(grp * GROUP, valid.shape),
+                (fl[..., 0] | fl[..., 1] << 2).reshape(N, nq, A * SLOTS)],
+                axis=-1)
+            slots = np.zeros((N, nq, smax * SLOTS, 4), np.int32)
+            slots[..., 0] = -1
+            n, i, a = np.nonzero(valid)
+            slots[n, i, pos[n, i, a]] = entry[n, i, a]
+            self._cache[key] = (slots.reshape(N, nq, smax, SLOTS, 4),
+                                scount.astype(np.int32))
+        return self._cache[key]
+
     def device_arrays(self, device: torch.device) -> Dict[str, torch.Tensor]:
         """The kernels' operands on ``device``, made once per device: the
         lists and counts as int32; the mask table as uint8 (U, 128, 128);
@@ -92,29 +134,40 @@ class TilePlan:
         uint64 words: bit r of ``bits[m, c, h]`` is ``masks[m, 64 h + r,
         c]``); ``korder`` (S / 128,) int32, the key tiles by falling
         transposed-list length summed over heads (the backward's dispatch
-        order, heaviest first)."""
+        order, heaviest first). For the forward: ``slots`` and ``scount``
+        (``stage_plan``); ``rowbits`` (U, 128, 2), the masks query-major
+        (bit c of ``rowbits[m, r, h]`` is ``masks[m, r, 64 h + c]``);
+        ``qorder`` (S / 128,) int32, the q-tiles by falling stage count
+        summed over heads."""
         key = ("kernel", str(device))
         if key not in self._cache:
             live = self.masks != 0
             quads = live.reshape(-1, 2, QUAD, 2, QUAD)
             quad = np.where(quads.all(axis=(2, 4)), 1,
                             np.where(quads.any(axis=(2, 4)), 2, 0))
-            rows = live.transpose(0, 2, 1).reshape(-1, TILE, 2, QUAD)
-            bits = np.bitwise_or.reduce(
-                rows.astype(np.uint64) << np.arange(QUAD, dtype=np.uint64),
-                axis=-1)
+            shift = np.arange(QUAD, dtype=np.uint64)
+            words = {
+                name: np.bitwise_or.reduce(
+                    m.reshape(-1, TILE, 2, QUAD).astype(np.uint64) << shift,
+                    axis=-1)
+                for name, m in (("bits", live.transpose(0, 2, 1)),
+                                ("rowbits", live))}
             korder = np.argsort(-self.qcount_t.sum(axis=0), kind="stable")
+            slots, scount = self.stage_plan()
+            qorder = np.argsort(-scount.sum(axis=0), kind="stable")
             arrs = dict(kidx=self.kidx, mid=self.mid, kcount=self.kcount,
                         qidx_t=self.qidx_t, mid_t=self.mid_t,
-                        qcount_t=self.qcount_t, korder=korder)
+                        qcount_t=self.qcount_t, korder=korder, slots=slots,
+                        scount=scount, qorder=qorder)
             out = {k: torch.from_numpy(np.ascontiguousarray(a, np.int32)
                                        ).to(device) for k, a in arrs.items()}
             out["masks"] = torch.from_numpy(
                 np.ascontiguousarray(live, np.uint8)).to(device)
             out["quad"] = torch.from_numpy(
                 np.ascontiguousarray(quad, np.uint8)).to(device)
-            out["bits"] = torch.from_numpy(
-                np.ascontiguousarray(bits).view(np.int64)).to(device)
+            for name, w in words.items():
+                out[name] = torch.from_numpy(
+                    np.ascontiguousarray(w).view(np.int64)).to(device)
             self._cache[key] = out
         return self._cache[key]
 
@@ -322,11 +375,10 @@ def _check(name: str, q, k, v, plan: TilePlan):
 
 
 def _fn(symbol: str, n_ptrs: int, n_ints: int):
-    fn = getattr(registry.library("block_sparse_attention"), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return registry.function(
+        "block_sparse_attention", symbol,
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _launch_fwd(q, k, v, plan, causal, scale):
@@ -335,13 +387,14 @@ def _launch_fwd(q, k, v, plan, causal, scale):
     out = torch.empty_like(q)
     lse = torch.empty(B, N, S, dtype=torch.float32, device=q.device)
     arrs = plan.device_arrays(q.device)
-    err = _fn("dstt_sparse_fwd", 10, 6)(
+    err = _fn("dstt_sparse_fwd", 14, 7)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *(arrs[n].data_ptr() for n in ("kidx", "mid", "kcount", "masks",
-                                       "quad")),
+                                       "quad", "slots", "scount", "rowbits",
+                                       "qorder")),
         out.data_ptr(), lse.data_ptr(), B, S, N, D, plan.kidx.shape[2],
-        int(causal), _scale(D, scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        arrs["slots"].shape[2], int(causal), _scale(D, scale),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     registry.check_launch("block_sparse_attention_fwd", err)
     return out, lse
 

@@ -1470,6 +1470,110 @@ def test_block_sparse_bwd_repeatable(dev, dtype):
     assert bool(((a[0].float() - b[0].float()).abs() <= bound).all())
 
 
+def hold_sparse_fwd(q, k, v, plan, causal, atol):
+    """One forward call (one launch) against the plain version: o within
+    atol + atol |plain|, the same key-less rows, lse likewise."""
+    before = launch_counts()["block_sparse_attention_fwd"]
+    o, lse = block_sparse_attention_fwd(q, k, v, plan, causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["block_sparse_attention_fwd"] == before + 1
+    ro, rlse = reference_block_sparse_attention(q, k, v, plan, causal)
+    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=atol)
+    live = torch.isfinite(rlse)
+    assert torch.equal(torch.isfinite(lse), live)
+    torch.testing.assert_close(lse[live], rlse[live], atol=atol, rtol=atol)
+    return o, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_block_sparse_fwd_repeatable(dev, D, dtype):
+    """Two calls on the same inputs (the Fixed layout, causal, S 1024): o
+    and lse bit-equal (each row's stages are summed by one block in a fixed
+    order)."""
+    B, S, N = 2, 1024, 4
+    layout, block, causal = sparse_layout("fixed", N, S)
+    plan = build_tile_plan(layout, block, S)
+    rng = np.random.default_rng(29)
+    q, k, v = (t(rng.normal(size=(B, S, N, D)), dev, dtype)
+               for _ in range(3))
+    a = block_sparse_attention_fwd(q, k, v, plan, causal)
+    b = block_sparse_attention_fwd(q, k, v, plan, causal)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype,atol", ATTN[1:])
+def test_block_sparse_fwd_partial_stage(dev, D, dtype, atol):
+    """Lists whose live group counts are not multiples of 8 (1, 3, 5, 9 and
+    13 groups: a stage's tail slots are never loaded), and V rows of large
+    magnitude in every key row that no query sees, right after the live
+    groups: o and lse as the plain version, causal and not."""
+    B, S, N = 1, 512, 2
+    n = S // 16
+    layout = np.zeros((N, n, n), np.int64)
+    counts = [1, 3, 5, 9, 13]
+    for h in range(N):
+        for i in range(n // 8):
+            c = counts[(i + h) % len(counts)]
+            cols = [(8 * i + 7 - 2 * a) % n for a in range(c)]
+            layout[h, 8 * i:8 * i + 8, cols] = 1
+    plan = build_tile_plan(layout, 16, S)
+    _, scount = plan.stage_plan()
+    assert (scount > 1).any()
+    rng = np.random.default_rng(31)
+    q, k, v = (rng.normal(size=(B, S, N, D)) for _ in range(3))
+    seen = plan.token_mask(torch.device("cpu")).any(dim=1).numpy()  # (N, S)
+    for h in range(N):
+        v[:, ~seen[h], h] = 3e4
+    q, k, v = (t(x, dev, dtype) for x in (q, k, v))
+    for causal in (False, True):
+        hold_sparse_fwd(q, k, v, plan, causal, atol)
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("dtype,atol", ATTN[1:])
+def test_block_sparse_fwd_keyless_rows(dev, D, dtype, atol):
+    """Rows that see no key on the new route: a q-tile whose list is empty,
+    and inside live q-tiles rows whose 16-row block sees nothing (with
+    block 8 groups that are partly dead): o exactly 0 and lse -inf there,
+    the rest as the plain version."""
+    B, S, N = 2, 512, 2
+    n = S // 8
+    layout = np.tile(np.tril(np.ones((n, n), np.int64)), (N, 1, 1))
+    layout[:, 16:32] = 0                 # q-tile 1: an empty list
+    layout[0, 40:42] = 0                 # rows 320..335 of head 0
+    layout[1, ::5, 1::2] = 0             # block-8 holes inside live groups
+    plan = build_tile_plan(layout, 8, S)
+    assert plan.kcount[:, 1].sum() == 0
+    rng = np.random.default_rng(37)
+    q, k, v = (t(rng.normal(size=(B, S, N, D)), dev, dtype)
+               for _ in range(3))
+    for causal in (False, True):
+        o, lse = hold_sparse_fwd(q, k, v, plan, causal, atol)
+        dead = torch.isneginf(lse)                          # (B, N, S)
+        assert bool(dead[:, :, 128:256].all()) and bool(dead[:, 0, 320:336]
+                                                        .all())
+        assert (o.transpose(1, 2)[dead] == 0).all()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,atol", ATTN[1:])
+def test_block_sparse_fwd_long_lists(dev, D, causal, dtype, atol):
+    """The Fixed layout at S 2048 (up to 16 tiles, 5 stages a list), 2
+    heads, causal and bidirectional (the unidirectional layout's tiles
+    above the diagonal under causality too)."""
+    B, S, N = 2, 2048, 2
+    layout, block, _ = sparse_layout("fixed", N, S)
+    plan = build_tile_plan(layout, block, S)
+    assert int(plan.stage_plan()[1].max()) == 5
+    rng = np.random.default_rng(41 + D)
+    q, k, v = (t(rng.normal(size=(B, S, N, D)), dev, dtype)
+               for _ in range(3))
+    hold_sparse_fwd(q, k, v, plan, causal, atol)
+
+
 @pytest.mark.parametrize("sizes", [[1 << 20], [5, 8193, 3, 40000, 1],
                                    [2048 * 2048 * 3 + 7, 2048]])
 @pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16,

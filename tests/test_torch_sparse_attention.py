@@ -359,6 +359,205 @@ def test_device_arrays_quadrants_and_bits(name, kw, S, block):
     assert (np.diff(lengths) <= 0).all()
 
 
+STAGE_CASES = (
+    SPARSE_BWD_CPU_CASES
+    + [(name, kw, S, 16) for name, kw, S, _ in KERNEL_CASES]
+    + [("FixedSparsityConfig", dict(num_local_blocks=4,
+                                    attention="unidirectional"), 256, 8),
+       ("BigBirdSparsityConfig", dict(num_random_blocks=3, seed=11,
+                                      different_layout_per_head=True), 256,
+        8),
+       ("empty_q_tile", {}, 384, 16)])
+
+
+def _stage_case(name, kw, S, block, N=4):
+    """(JAX config or None, plan, causal, the fine layout) of a STAGE_CASES
+    entry; ``empty_q_tile``: a causal lower-triangular layout whose q-tile
+    1 sees no key."""
+    if name == "empty_q_tile":
+        n = S // block
+        layout = np.tile(np.tril(np.ones((n, n), np.int64)), (N, 1, 1))
+        layout[:, 128 // block:256 // block] = 0
+        return None, build_tile_plan(layout, block, S), True, layout
+    jc, pc = _configs(name, kw, heads=N, block=block)
+    causal = kw.get("attention", getattr(pc, "attention")) == "unidirectional"
+    return jc, P.tile_plan_for(pc, S), causal, pc.make_layout(S)
+
+
+def _cases_id(case):
+    return f"{_id(case[:2])}-S{case[2]}-b{case[3]}"
+
+
+@pytest.mark.parametrize("case", STAGE_CASES, ids=_cases_id)
+def test_stage_plan_covers_each_visible_pair_once(case):
+    """The forward's packed stages: every visible pair of every (head,
+    q-tile) lies in exactly one slot column, each slot's mask id and column
+    offset are its tile's, no slot holds a group that no row of the q-tile
+    sees, each half's flag matches the mask, slots fill in list order with
+    the empty ones last, and each ``scount`` is ceil(live groups / 8)."""
+    _, plan, _, layout = _stage_case(*case)
+    slots, scount = plan.stage_plan()
+    N, nq = plan.kcount.shape
+    S = plan.seq_len
+    tok = plan.token_mask(torch.device("cpu")).numpy()
+    masks = plan.masks != 0
+    for n in range(N):
+        for i in range(nq):
+            rows = tok[n, 128 * i:128 * i + 128]
+            seen = np.zeros((128, S), np.int64)
+            live = rows.reshape(128, S // 16, 16).any(axis=(0, 2))
+            assert scount[n, i] == -(-int(live.sum()) // 8)
+            ent = slots[n, i].reshape(-1, 4)
+            keys = ent[:, 0]
+            used = int((keys >= 0).sum())
+            assert used == live.sum() and (keys[:used] >= 0).all()
+            assert (keys[used:] == -1).all()
+            assert (np.diff(keys[:used]) > 0).all()  # list order
+            for key0, mk, coff, fl in ent[:used]:
+                assert coff == key0 % 128 and coff % 16 == 0
+                sub = masks[mk, :, coff:coff + 16]
+                np.testing.assert_array_equal(sub,
+                                              rows[:, key0:key0 + 16])
+                assert sub.any()
+                for h in range(2):
+                    half = sub[64 * h:64 * h + 64]
+                    want = 1 if half.all() else 2 if half.any() else 0
+                    assert (fl >> 2 * h) & 3 == want
+                seen[:, key0:key0 + 16] += sub
+            np.testing.assert_array_equal(seen, rows.astype(np.int64))
+    assert slots.shape[2] == max(1, int(scount.max()))
+    if case[0] == "empty_q_tile":
+        assert (scount[:, 1] == 0).all()
+
+
+@pytest.mark.parametrize("case", STAGE_CASES, ids=_cases_id)
+def test_forward_operands_rowbits_and_qorder(case):
+    """``rowbits`` equals the mask table bit for bit (bit c of ``rowbits[m,
+    r, h]`` is ``masks[m, r, 64 h + c]``); ``qorder`` is a permutation of
+    the q-tiles by falling stage count summed over heads."""
+    _, plan, _, _ = _stage_case(*case)
+    arrs = plan.device_arrays(torch.device("cpu"))
+    masks = (plan.masks != 0).astype(np.uint64)
+    words = arrs["rowbits"].numpy().view(np.uint64)
+    assert words.shape == (masks.shape[0], 128, 2)
+    for h in range(2):
+        for c in range(64):
+            np.testing.assert_array_equal((words[..., h] >> np.uint64(c))
+                                          & np.uint64(1),
+                                          masks[:, :, 64 * h + c])
+    slots, scount = plan.stage_plan()
+    assert torch.equal(arrs["slots"], torch.from_numpy(slots))
+    assert torch.equal(arrs["scount"], torch.from_numpy(scount))
+    qorder = arrs["qorder"].numpy()
+    assert sorted(qorder.tolist()) == list(range(plan.kcount.shape[1]))
+    assert (np.diff(scount.sum(axis=0)[qorder]) <= 0).all()
+
+
+def emulate_packed_forward(q, k, v, plan, causal, scale=None):
+    """fp32 emulation of ``sparse_fwd_tma_kernel``'s walk: per (batch row,
+    head, q-tile) the packed stages in order, each a 128-key block of 8
+    group slots (empty ones and, under causality, groups past every row of
+    the tile never loaded: zeros), scores of the stage scaled by scale *
+    log2 e, invisible pairs selected to -inf from the slot's flags, the
+    query-major mask words and the slot's absolute keys, the online softmax
+    in base 2 (a row that has seen no key subtracts 0), p selected to 0
+    where invisible, O += P V; o = O / l (0 without a key), lse = (m +
+    log2 l) ln 2 (-inf without a key)."""
+    B, S, N, D = q.shape
+    scale2 = (D ** -0.5 if scale is None else scale) * np.log2(np.e)
+    slots, scount = plan.stage_plan()
+    words = plan.device_arrays(torch.device("cpu"))["rowbits"].numpy().view(
+        np.uint64)
+    o = torch.zeros(B, S, N, D)
+    lse = torch.full((B, N, S), float("-inf"))
+    cc = np.arange(16)
+    for n in range(N):
+        for i in range(S // 128):
+            i0 = 128 * i
+            rows = np.arange(i0, i0 + 128)
+            m = torch.full((B, 128), float("-inf"))
+            l = torch.zeros(B, 128)
+            acc = torch.zeros(B, 128, D)
+            qf = q[:, i0:i0 + 128, n].float()
+            for st in range(scount[n, i]):
+                kk, vv = torch.zeros(B, 128, D), torch.zeros(B, 128, D)
+                vis = np.zeros((128, 128), bool)
+                for j, (key0, mk, coff, fl) in enumerate(slots[n, i, st]):
+                    if key0 < 0 or (causal and key0 > i0 + 127):
+                        continue
+                    kk[:, 16 * j:16 * j + 16] = k[:, key0:key0 + 16, n]
+                    vv[:, 16 * j:16 * j + 16] = v[:, key0:key0 + 16, n]
+                    for h in range(2):
+                        if not (fl >> 2 * h) & 3:
+                            continue
+                        w = words[mk, 64 * h:64 * h + 64, coff >> 6] >> \
+                            np.uint64(coff & 63)
+                        bits = (w[:, None] >> cc.astype(np.uint64)) & \
+                            np.uint64(1)
+                        sub = bits.astype(bool)
+                        if causal:
+                            sub &= key0 + cc[None] <= rows[64 * h:64 * h + 64,
+                                                           None]
+                        vis[64 * h:64 * h + 64, 16 * j:16 * j + 16] = sub
+                tv = torch.from_numpy(vis)
+                s = torch.einsum("brd,bcd->brc", qf, kk) * scale2
+                s = torch.where(tv, s, torch.full_like(s, float("-inf")))
+                mn = torch.maximum(m, s.max(-1).values)
+                mu = torch.where(torch.isneginf(mn), torch.zeros_like(mn), mn)
+                corr = torch.exp2(m - mu)
+                p = torch.where(tv, torch.exp2(s - mu[..., None]),
+                                torch.zeros_like(s))
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum("brc,bcd->brd", p,
+                                                           vv)
+                m = mn
+            inv = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
+            o[:, i0:i0 + 128, n] = acc * inv[..., None]
+            lse[:, n, i0:i0 + 128] = torch.where(
+                l > 0, (m + torch.log2(l)) * np.log(2.0),
+                torch.full_like(l, float("-inf")))
+    return o, lse
+
+
+@pytest.mark.parametrize("case", STAGE_CASES, ids=_cases_id)
+def test_packed_stage_emulation_matches_jax(case):
+    """The kernel's packed-stage walk (``emulate_packed_forward``: stage
+    order, slot order, select-to-zero) against JAX's dense-mask route
+    ``J.sparse_self_attention(..., use_kernel=False)`` (fp32, ATOL), and
+    its lse against the plain version's; the empty q-tile case against
+    JAX's attention over each row's visible keys, its key-less rows 0 and
+    lse -inf."""
+    jc, plan, causal, layout = _stage_case(*case)
+    S, N, D = plan.seq_len, plan.num_heads, 32
+    rng = np.random.default_rng(S + case[3])
+    q, k, v = _qkv(rng, 2, S, N, D)
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    o, lse = emulate_packed_forward(tq, tk, tv, plan, causal)
+    _, ref_lse = reference_block_sparse_attention(tq, tk, tv, plan, causal)
+    live = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), live)
+    np.testing.assert_allclose(lse[live].numpy(), ref_lse[live].numpy(),
+                               atol=ATOL, rtol=ATOL)
+    if jc is not None:
+        want = J.sparse_self_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                       jc, use_kernel=False)
+        np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=ATOL)
+        return
+    tok = np.asarray(J.layout_to_token_mask(layout, case[3])) * np.tril(
+        np.ones((S, S), np.int32))
+    for n in range(N):
+        want = jax_attention(*(jnp.asarray(x[:, :, n:n + 1]) for x in
+                               (q, k, v)), jnp.asarray(tok[n][None]),
+                             causal=False)
+        keep = tok[n].any(axis=-1)
+        np.testing.assert_allclose(o[:, keep, n].numpy(),
+                                   np.asarray(want)[:, keep, 0], atol=ATOL,
+                                   rtol=ATOL)
+        assert float(o[:, ~keep, n].abs().max()) == 0.0
+    assert bool(torch.isneginf(lse[..., 128:256]).all())
+
+
 def test_kernel_route_refuses_gqa_and_counts_nothing_on_the_cpu():
     pc = P.FixedSparsityConfig(num_heads=4, block=16)
     rng = np.random.default_rng(0)
