@@ -114,7 +114,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 The ``kernels`` phase holds the paged decode kernel at the serve step
 (``serve8``: 8 rows of 0..1000 keys) and over one row of 4000 keys
 (``long1``), also over pool copies larger than the L2 and beside the dense
-decode kernel over the same keys. It also holds the block-sparse forward
+decode kernel over the same keys; the paged prefill kernel at serve's chunk
+(start 0, 256, 512), the 700-token prompt's partial last chunk and a GQA
+chunk, beside SDPA over the keys gathered from the pages. It also holds the block-sparse forward
 and backward at the sparse_train shape (B 2, S 2048, 32 heads of 64) for
 the Fixed, sliding window and BSLongformer layouts, and at small shapes
 with a key-less q-tile and with BigBird's per-head layouts, beside the
@@ -198,7 +200,8 @@ from deepspeed_tpu_torch.ops import (fake_quantize, fused_group_norm,
                                      reference_quantize_symmetric)
 from deepspeed_tpu_torch.ops import registry
 from deepspeed_tpu_torch.ops.decode_attention import decode_split_plan
-from deepspeed_tpu_torch.ops.paged_decode_attention import paged_split_plan
+from deepspeed_tpu_torch.ops.paged_decode_attention import (
+    paged_prefill_plan, paged_split_plan, prefill_kernel)
 from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
 from deepspeed_tpu_torch.serving import ServingConfig, init_serving
 
@@ -283,7 +286,7 @@ SOURCES = {
                                "paged_split_kernel"),
     "paged_prefill_attention": ("deepspeed_tpu_torch/csrc/paged_attention.cu",
                                 "deepspeed_tpu/ops/paged_decode_attention.py:294",
-                                "paged_prefill_mma_kernel"),
+                                prefill_kernel(torch.bfloat16, 128)),
     "flash_attention": ("deepspeed_tpu_torch/csrc/flash_attention.cu",
                         "deepspeed_tpu/ops/flash_attention.py:135",
                         "flash_fwd_tma_kernel"),
@@ -599,45 +602,85 @@ def decode_cases(dev, gen):
 
 
 def prefill_cases(dev, gen):
-    B, C, N, K, D, BS, MAXB = 1, 256, 32, 32, 128, 16, 64
+    """llama-7b's serve chunk (B 1, C 256, 32 heads of 128, block 16, a
+    64-page table): the whole chunk at start 0, 256 and 512 in bf16 and
+    fp32; ``tail``, the partial last chunk of serve's 700-token prompt
+    (start 512, 188 valid queries) in bf16; ``gqa``, 8 KV heads (G 4) at
+    start 256 in bf16. NaN fills the pages past the chunk's last written
+    key, the tail of its last written page, and a page in no table. Each
+    case records the kernel's plan (``paged_prefill_plan``: rows of a work
+    tile, rows of a page's box); ``library_ms`` is one
+    ``scaled_dot_product_attention`` call with a boolean mask over K / V
+    gathered from the pages into contiguous tensors beforehand (the gather
+    is not timed), and ``flash_ms`` the port's flash forward over that
+    copy where its 0-based causal rows are the chunk's positions (start
+    0; null elsewhere)."""
+    B, C, N, D, BS, MAXB = 1, 256, 32, 128, 16, 64
     NB = MAXB + 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     table = (torch.randperm(NB - 2, generator=gen, device=dev) + 1
              ).view(1, MAXB).int().contiguous()
+    specs = [("chunk", dtype, start, C, 32)
+             for dtype in (torch.bfloat16, torch.float32)
+             for start in (0, 256, 512)]
+    specs += [("tail", torch.bfloat16, 512, 188, 32),
+              ("gqa", torch.bfloat16, 256, C, 8)]
     results = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for start in (0, 256, 512):
-            kp, vp = arena_pools(dev, gen, NB, BS, K, D, dtype)
-            end = start + C                     # written positions < end
-            for p in (kp, vp):
-                for page in range(end // BS, MAXB):
-                    p[table[0, page]] = float("nan")
-                p[NB - 1] = float("nan")        # a page in no table
-            q = torch.randn(B, C, N, D, generator=gen, device=dev).to(dtype)
-            st = torch.tensor([start], dtype=torch.int32, device=dev)
-            nv = torch.tensor([C], dtype=torch.int32, device=dev)
-            got = paged_prefill_attention(q, kp, vp, table, st, n_valid=nv)
-            pos = (start + torch.arange(C, device=dev))[None]
-            ref = reference_paged_attention(q, kp, vp, table, pos)
-            if not bool(torch.isfinite(got).all()):
-                raise AssertionError("paged_prefill_attention: non-finite "
-                                     "output")
-            err = check(f"paged_prefill_attention start={start} {dtype}",
-                        got, ref, TOL[dtype])
-            item = q.element_size()
-            pairs = sum(start + c + 1 for c in range(C))
-            nbytes = (2 * end * K * D + 2 * B * C * N * D) * item \
-                + 4 * (end // BS + 1)
-            b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * N * D,
-                                  BF16_FLOPS if dtype != torch.float32
-                                  else FP32_FLOPS)
-            results.append(dict(
-                B=B, C=C, start=start, N=N, K=K, D=D, BS=BS,
-                dtype=str(dtype), max_abs_err=err, tol=dict(zip(("atol", "rtol"), TOL[dtype])),
-                ms=time_ms(lambda: paged_prefill_attention(
-                    q, kp, vp, table, st, n_valid=nv)),
-                plain_ms=time_ms(lambda: reference_paged_attention(
-                    q, kp, vp, table, pos)),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    for case, dtype, start, valid, K in specs:
+        kp, vp = arena_pools(dev, gen, NB, BS, K, D, dtype)
+        end = start + valid                 # written positions < end
+        for p in (kp, vp):
+            for page in range(-(-end // BS), MAXB):
+                p[table[0, page]] = float("nan")
+            if end % BS:
+                p[table[0, end // BS], end % BS:] = float("nan")
+            p[NB - 1] = float("nan")        # a page in no table
+        q = torch.randn(B, C, N, D, generator=gen, device=dev).to(dtype)
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        nv = torch.tensor([valid], dtype=torch.int32, device=dev)
+        got = paged_prefill_attention(q, kp, vp, table, st, n_valid=nv)
+        offs = torch.arange(C, device=dev)
+        pos = torch.where(offs < valid, start + offs,
+                          torch.full_like(offs, -1))[None]
+        ref = reference_paged_attention(q, kp, vp, table, pos)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"paged_prefill_attention {case}: "
+                                 "non-finite output")
+        if bool((got[:, valid:] != 0).any()):
+            raise AssertionError(f"paged_prefill_attention {case}: a pad "
+                                 "query's output is not zero")
+        err = check(f"paged_prefill_attention {case} start={start} {dtype}",
+                    got, ref, TOL[dtype])
+        item = q.element_size()
+        pairs = sum(start + c + 1 for c in range(valid))
+        nbytes = (2 * end * K * D + 2 * B * C * N * D) * item \
+            + 4 * (-(-end // BS) + 2)
+        b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * N * D,
+                              BF16_FLOPS if dtype != torch.float32
+                              else FP32_FLOPS)
+        # the library's yardstick over the keys gathered beforehand
+        kk = kp[table[0, :-(-end // BS)].long()].reshape(
+            1, -1, K, D)[:, :end].contiguous()
+        vv = vp[table[0, :-(-end // BS)].long()].reshape(
+            1, -1, K, D)[:, :end].contiguous()
+        keep = (torch.arange(end, device=dev)[None] <= pos[0][:, None]
+                )[None, None]
+        flash_ms = (time_ms(lambda: flash_attention(q, kk, vv, None,
+                                                    causal=True))
+                    if start == 0 and valid == C else None)
+        results.append(dict(
+            case=case, B=B, C=C, start=start, n_valid=valid, N=N, K=K, D=D,
+            BS=BS, dtype=str(dtype), max_abs_err=err,
+            tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+            plan=(paged_prefill_plan(B, C, N, BS, sms)
+                  if dtype != torch.float32 else None),
+            ms=time_ms(lambda: paged_prefill_attention(
+                q, kp, vp, table, st, n_valid=nv)),
+            plain_ms=time_ms(lambda: reference_paged_attention(
+                q, kp, vp, table, pos)),
+            library_ms=time_ms(sdpa_call(q, kk, vv, keep)),
+            flash_ms=flash_ms, bound_ms=b_ms, bound_by=b_by))
+        del kk, vv
     return results
 
 
@@ -2664,7 +2707,8 @@ def main() -> int:
     pick = {**{name: quant_main for name in QUANT_MODES.values()},
             "fused_layer_norm": lambda c: c["rows"] == 256 and c["rms"],
             "paged_decode_attention": lambda c: c["case"] == "serve8",
-            "paged_prefill_attention": lambda c: c["start"] == 256,
+            "paged_prefill_attention": lambda c: (c["case"] == "chunk"
+                                                  and c["start"] == 256),
             "flash_attention": lambda c: c["case"] == "prefill",
             "decode_attention": lambda c: c["case"] == "decode",
             "flash_attention_bwd": lambda c: c["case"] == "train",

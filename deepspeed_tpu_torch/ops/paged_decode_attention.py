@@ -14,7 +14,11 @@ position and causality over true positions is the entire validity story.
   the same launch; ``paged_split_plan`` picks ``splits`` on the host from
   shapes alone, so the wrapper never reads ``lengths`` there.
 * ``paged_prefill_attention`` — C chunk queries per row at positions
-  ``start + c``, CUDA kernel ``paged_prefill_kernel``.
+  ``start + c``; on a CUDA tensor, bf16 / fp16 with D in {16, 32, 64, 128}
+  run ``csrc/paged_attention.cu::paged_prefill_tma_kernel`` (pages as TMA
+  boxes, ``wgmma``), whose work tiles and page boxes ``paged_prefill_plan``
+  picks on the host from shapes alone (the wrapper never reads ``start``
+  or ``n_valid`` there); fp32 and other D run ``paged_prefill_kernel``.
 * ``reference_paged_attention`` — the plain version of both (what each
   wrapper runs on a CPU tensor, and what the kernels are held against).
 """
@@ -22,6 +26,7 @@ position and causality over true positions is the entire validity story.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -32,6 +37,8 @@ from .decode_attention import TILE, _sm_count, ring_stages, split_count
 NEG_INF = -1e30
 MAX_GROUP = 8        # query heads per KV head the kernels take
 MAX_HEAD_DIM = 256
+PREFILL_KEYS = 128   # keys of a key tile (a ring stage) of the prefill kernel
+PREFILL_TC_DIMS = (16, 32, 64, 128)   # head dims of its 16-bit route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -157,6 +164,38 @@ def split_pages(length: int, block_size: int, max_blocks: int,
     return out
 
 
+def paged_prefill_plan(B: int, C: int, N: int, block_size: int,
+                       sms: int) -> Tuple[int, int]:
+    """(rows, box_rows) of the 16-bit prefill kernel's launch, from host
+    integers only. ``rows``: the chunk queries of a work tile (one block,
+    one query head): 128, one consumer warpgroup on each half over every
+    key tile, unless twice the 128-row tiles fit one wave of one block an
+    SM; then 64, both warpgroups on the same rows, each on every other key
+    tile, merged in a fixed order (llama-7b's serve chunk: B 1, C 256, 32
+    heads, 64 tiles of 128 rows on 132 SMs, runs 128 blocks of 64 rows).
+    ``box_rows``: the rows of one TMA box of a page, gcd(BS, 128) when BS
+    is a multiple of 8 (whole 8-row swizzle atoms), else 0 (pages copied by
+    the producer warp's plain loads)."""
+    tiles = B * N * -(-C // 128)
+    rows = 64 if 2 * tiles <= sms else 128
+    box_rows = math.gcd(block_size, PREFILL_KEYS) \
+        if block_size % 8 == 0 else 0
+    return rows, box_rows
+
+
+def prefill_keys(start: int, n_valid: int, C: int, rows: int, q_tile: int,
+                 table_keys: int) -> int:
+    """The key columns ``[0, kend)`` the prefill kernel's q tile ``q_tile``
+    (chunk queries ``q_tile * rows ..`` of a row at ``start`` with
+    ``n_valid`` valid queries) walks: up to its last valid query's
+    position, within the table's ``table_keys`` columns; 0 for a tile of
+    pads (``csrc/paged_attention.cu::tile_keys``, the same integer
+    arithmetic on the device)."""
+    c0 = q_tile * rows
+    last = min(c0 + rows, max(n_valid, 0), C) - 1
+    return 0 if last < c0 else max(0, min(start + last + 1, table_keys))
+
+
 def _decode_fn():
     return registry.function(
         "paged_attention", "dstt_paged_decode",
@@ -167,8 +206,17 @@ def _decode_fn():
 def _prefill_fn():
     return registry.function(
         "paged_attention", "dstt_paged_prefill",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
-        + [ctypes.c_int] + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def prefill_kernel(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel ``paged_prefill_attention`` runs for q's dtype and
+    head_dim: the tensor-core route for 16-bit D in PREFILL_TC_DIMS, else
+    the CUDA-core one."""
+    return ("paged_prefill_tma_kernel"
+            if dtype in (torch.bfloat16, torch.float16)
+            and head_dim in PREFILL_TC_DIMS else "paged_prefill_kernel")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -241,14 +289,17 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"start (B,) and n_valid (B,) must match q's B={B}")
     _check("paged_prefill_attention", q, k_pool, v_pool, block_table, alibi,
            [("start", start), ("n_valid", n_valid)])
-    BS, K = k_pool.shape[1], k_pool.shape[2]
+    NB, BS, K = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    # read by the tensor-core route only
+    rows, box_rows = paged_prefill_plan(B, C, N, BS,
+                                        _sm_count(q.device.index))
     out = torch.empty_like(q)
     err = _prefill_fn()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), start.data_ptr(), n_valid.data_ptr(),
         alibi.data_ptr() if alibi is not None else None, out.data_ptr(),
-        B, C, N, K, D, BS, block_table.shape[1],
+        B, C, N, K, D, BS, block_table.shape[1], NB,
         float(scale if scale is not None else D ** -0.5), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        rows, box_rows, torch.cuda.current_stream(q.device).cuda_stream)
     registry.check_launch("paged_prefill_attention", err)
     return out

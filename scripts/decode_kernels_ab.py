@@ -18,7 +18,9 @@ of ``decode_attention``, ``paged_prefill_attention`` and
 / T 1024 step in bf16 and fp32, with alibi over key positions, at B 1 / T
 4096, and at small GQA shapes in fp16; paged prefill at chip_smoke's chunk
 (C 256 at start 256) in bf16 and fp32 and at a small fp16 GQA shape; paged
-decode at the serve step), and ``times``: ``chip_smoke``'s
+decode at the serve step; then paged prefill of the partial last chunk of a
+700-token prompt, with 8 KV heads, and over two ragged rows in fp16), and
+``times``: ``chip_smoke``'s
 ``decode_dense_cases``, ``prefill_cases`` and ``decode_cases`` (ms,
 rotated ms where the tree has them, plain ms, bound), each from a generator
 seeded 0. ``--ptxas`` first builds the two sources with ``nvcc -Xptxas
@@ -115,6 +117,26 @@ def hashes(dev) -> dict:
                            dtype=torch.int32, device=dev)
     out["paged_decode_serve8_bf16"] = digest(
         paged_decode_attention(q, kp, vp, bt, lengths))
+    # the prefill kernel's later cases, from a generator of their own (the
+    # cases above draw the same numbers in every tree)
+    gen.manual_seed(1)
+    for name, B, C, K, starts, valid, dtype in (
+            ("prefill_tail_bf16", 1, 256, 32, [512], [188],
+             torch.bfloat16),
+            ("prefill_gqa_bf16", 1, 256, 8, [256], [256], torch.bfloat16),
+            ("prefill_ragged_fp16", 2, 200, 8, [0, 37], [200, 150],
+             torch.float16)):
+        N, D, BS, MAXB = 32, 128, 16, 64
+        NB = B * MAXB + 1
+        kp = seeded((NB, BS, K, D), dtype, dev, gen)
+        vp = seeded((NB, BS, K, D), dtype, dev, gen)
+        bt = (torch.randperm(NB - 1, generator=gen, device=dev) + 1).view(
+            B, MAXB).int().contiguous()
+        q = seeded((B, C, N, D), dtype, dev, gen)
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        nv = torch.tensor(valid, dtype=torch.int32, device=dev)
+        out[name] = digest(paged_prefill_attention(q, kp, vp, bt, st,
+                                                   n_valid=nv))
     torch.cuda.synchronize()
     return out
 
@@ -122,8 +144,8 @@ def hashes(dev) -> dict:
 def times(dev) -> dict:
     import chip_smoke
     keep = ("case", "dtype", "ms", "ms_rotated", "rotated_ms",
-            "dense_kernel_ms", "plain_ms", "library_ms", "bound_ms", "start",
-            "B", "T", "split")
+            "dense_kernel_ms", "plain_ms", "library_ms", "flash_ms",
+            "bound_ms", "start", "n_valid", "K", "B", "T", "split", "plan")
     res = {}
     for name in ("decode_dense_cases", "prefill_cases", "decode_cases"):
         gen = torch.Generator(device=dev)
@@ -139,11 +161,12 @@ def ptxas_report(registry) -> None:
     kernel,
     how many instantiations, their registers (min..max) and those that
     spill; and each instantiation of the 16-bit D 128 layout (16 lanes x 8
-    dims a key: the serve and generate shapes) on its own line."""
+    dims a key: the serve and generate shapes) and of the 16-bit D 128
+    prefill kernel on its own line."""
     import re
     import subprocess
     names = ("paged_split_kernel", "decode_split_kernel",
-             "paged_prefill_mma_kernel", "paged_prefill_kernel")
+             "paged_prefill_tma_kernel", "paged_prefill_kernel")
     registry.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in ("decode_attention", "paged_attention"):
@@ -186,7 +209,8 @@ def ptxas_report(registry) -> None:
         st["regs"].append(e["regs"])
         if e["spill"]:
             st["spills"].append((what, e["spill"]))
-        if "Li8ELi16E" in name:
+        if "Li8ELi16E" in name or (base == "paged_prefill_tma_kernel"
+                                   and "Li128E" in name):
             print(f"[ptxas] {what}: {e['regs']} registers, {e['spill']} "
                   "bytes spilled", flush=True)
     for base, st in stats.items():

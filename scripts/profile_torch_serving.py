@@ -20,6 +20,8 @@ scenario:
   copy intervals, and the share of the window the device sat idle;
 * ``by_group_ms`` — device time of cuBLAS/CUTLASS GEMMs, the port's
   kernels, and everything else;
+* ``port_kernels`` — device ms and calls of each of the port's kernels
+  (``PORT_KERNELS``) that ran;
 * ``top_kernels`` — the 12 kernels with the most device time;
 * ``launches_per_iteration`` — GPU launches per serving iteration, per
   forward (the prefill and each decode step) for ``generate``, per step
@@ -49,7 +51,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 PORT_KERNELS = ("ln_fwd_kernel", "paged_split_kernel", "paged_prefill_kernel",
-                "paged_prefill_mma_kernel", "flash_fwd_kernel",
+                "paged_prefill_tma_kernel", "flash_fwd_kernel",
                 "flash_fwd_tma_kernel",
                 "decode_split_kernel", "flash_bwd_kernel",
                 "flash_bwd_prologue",
@@ -94,16 +96,23 @@ def breakdown(prof, wall_s: float, steps: int) -> dict:
         return None
     by_group = defaultdict(float)
     by_name = defaultdict(lambda: [0.0, 0])
+    by_port = defaultdict(lambda: [0.0, 0])   # each port kernel, ms / calls
     for e in dev:
         dur = (e.time_range.end - e.time_range.start) / 1e3
         by_group[group(e.name)] += dur
         by_name[e.name][0] += dur
         by_name[e.name][1] += 1
+        port = next((k for k in PORT_KERNELS if k in e.name), None)
+        if port is not None:
+            by_port[port][0] += dur
+            by_port[port][1] += 1
     busy = union_ms((e.time_range.start, e.time_range.end) for e in dev)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy,
                 device_idle_share=1.0 - busy / (wall_s * 1e3),
                 by_group_ms=dict(by_group), device_events=len(dev),
+                port_kernels={k: dict(ms=v[0], calls=v[1])
+                              for k, v in sorted(by_port.items())},
                 launches_per_iteration=len(dev) / steps,
                 top_kernels=[dict(name=n[:120], ms=v[0], calls=v[1])
                              for n, v in top])

@@ -56,7 +56,12 @@ is one launch. The split-KV paged decode kernel likewise: rows of 0, 1, BS
 and BS + 1 keys with splits left without a page, blocks of 8..64 rows, G
 1 / 4 / 8 with alibi, one long row with NaN in the scratch block, the tail
 of its last page and the pages after it, rows that no tensor map takes,
-bit-equal repeats, one launch a call and no host sync.
+bit-equal repeats, one launch a call and no host sync. The tensor-core
+prefill kernel likewise: chunks of 16..256 queries in one or several q
+tiles, both work-tile plans, ragged starts and n_valid (0 too), G 1 / 4 /
+8 with alibi, pages of 4..64 rows, D 16..128, NaN in the pages a row has
+not written, bit-equal repeats, and one launch of the kernel its route
+names.
 """
 
 import numpy as np
@@ -91,6 +96,7 @@ from deepspeed_tpu_torch.ops import (fake_quantize, fused_group_norm,
                                      reference_group_norm,
                                      reference_quantize_symmetric)
 from deepspeed_tpu_torch.ops import quant_matmul, sparse_attention
+from deepspeed_tpu_torch.ops.paged_decode_attention import prefill_kernel
 from deepspeed_tpu_torch.ops.quant_matmul import quantize_int4
 
 pytestmark = pytest.mark.cuda
@@ -384,6 +390,182 @@ def test_paged_decode_one_launch_no_host_sync(dev):
         before = launch_counts()["paged_decode_attention"]
         paged_decode_attention(*args)
         assert launch_counts()["paged_decode_attention"] == before + 1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+# The tensor-core prefill kernel (paged_prefill_tma_kernel, bf16 / fp16 with
+# D in {16, 32, 64, 128}): several q tiles and partial ones (C 64, 150, 200,
+# 256), both work-tile plans (64 rows split over the warpgroups at one row
+# of llama-7b's chunk, 128 rows at two), rows that differ in start and
+# n_valid with starts off a page boundary, G 1 / 4 / 8 with alibi, pages of
+# 4..64 rows (by TMA at multiples of 8, plain loads below), NaN in the
+# scratch block, the tail of each row's last written page and the pages
+# after it (the table's stale entries point at them), n_valid 0, bit-equal
+# repeats, one launch a call of the kernel the route names and no host
+# sync.
+ATTN16 = ATTN[1:]
+
+
+def prefill_case(dev, C, n, k, D, BS, starts, valid, dtype, seed,
+                 nan=True):
+    """Pools, table, q, start and n_valid for rows at ``starts`` with
+    ``valid`` chunk queries: each row's pages drawn from a shuffled pool
+    and its table filled to the end (stale entries: pages no row writes);
+    with ``nan`` the scratch block, every page no row writes and the tail
+    of each row's last written page hold NaN."""
+    B = len(starts)
+    MAXB = -(-(max(starts) + C) // BS) + 2
+    rng = np.random.default_rng(seed)
+    NB = B * MAXB + 2
+    kp = rng.normal(size=(NB, BS, k, D)).astype(np.float32)
+    vp = rng.normal(size=(NB, BS, k, D)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, NB))
+    bt = perm[:B * MAXB].reshape(B, MAXB).astype(np.int32)
+    used = set()
+    for r in range(B):
+        written = starts[r] + valid[r]
+        npages = -(-written // BS)
+        used.update(bt[r, :npages].tolist())
+        if nan and written < npages * BS:
+            for p in (kp, vp):
+                p[bt[r, npages - 1], written % BS:] = np.nan
+    if nan:
+        for p in (kp, vp):
+            p[0] = np.nan
+            p[[x for x in range(1, NB) if x not in used]] = np.nan
+    q = rng.normal(size=(B, C, n, D))
+    return (t(q, dev, dtype), t(kp, dev, dtype), t(vp, dev, dtype),
+            t(bt, dev), t(np.array(starts, np.int32), dev),
+            t(np.array(valid, np.int32), dev))
+
+
+def prefill_once(q, kp, vp, bt, st, nv, al=None):
+    before = launch_counts()["paged_prefill_attention"]
+    got = paged_prefill_attention(q, kp, vp, bt, st, al, n_valid=nv)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_prefill_attention"] == before + 1
+    return got
+
+
+def prefill_hold(args, atol, al=None):
+    got = prefill_once(*args, al)
+    q, kp, vp, bt, st, nv = args
+    C = q.shape[1]
+    offs = torch.arange(C, device=q.device)
+    pos = torch.where(offs[None] < nv.long()[:, None],
+                      st.long()[:, None] + offs[None],
+                      torch.full((q.shape[0], C), -1, device=q.device))
+    ref = reference_paged_attention(q, kp, vp, bt, pos, al)
+    assert torch.isfinite(got).all()
+    for r, v in enumerate(nv.tolist()):
+        assert (got[r, v:] == 0).all()          # pads output zeros
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=atol)
+    return got
+
+
+@pytest.mark.parametrize("C,n,k,starts,valid", [
+    (64, 32, 32, [256], [64]),
+    (256, 32, 32, [256], [256]),          # serve's chunk: 64-row tiles
+    (256, 32, 32, [512], [188]),          # the tail of a 700-token prompt
+    (200, 32, 8, [0, 37], [200, 150]),    # 128-row tiles, G 4
+    (150, 32, 32, [21, 300], [150, 64]),  # a 128-row tile's half past C
+    (16, 8, 1, [5, 0], [16, 3])])         # G 8, chunks shorter than 64
+@pytest.mark.parametrize("use_alibi", [False, True])
+@pytest.mark.parametrize("dtype,atol", ATTN16)
+def test_prefill_tma_tiles(dev, C, n, k, starts, valid, use_alibi, dtype,
+                           atol):
+    args = prefill_case(dev, C, n, k, 128, 16, starts, valid, dtype,
+                        C + n + k)
+    al = alibi_slopes(n, device=dev) if use_alibi else None
+    prefill_hold(args, atol, al)
+
+
+@pytest.mark.parametrize("BS", [4, 8, 12, 16, 24, 32, 64])
+@pytest.mark.parametrize("dtype,atol", ATTN16)
+def test_prefill_tma_page_sizes(dev, BS, dtype, atol):
+    """Pages of 8, 16, 24 (boxes of 8 rows), 32 and 64 rows by TMA; of 4
+    and 12 rows by the producer's plain loads."""
+    args = prefill_case(dev, 100, 8, 2, 64, BS, [3, 50], [100, 77], dtype,
+                        BS)
+    prefill_hold(args, atol, alibi_slopes(8, device=dev))
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("n,k", [(4, 4), (8, 2), (16, 2)])
+@pytest.mark.parametrize("dtype,atol", ATTN16)
+def test_prefill_tma_head_dims(dev, D, n, k, dtype, atol):
+    args = prefill_case(dev, 70, n, k, D, 16, [9, 130], [70, 41], dtype,
+                        D + n)
+    prefill_hold(args, atol, alibi_slopes(n, device=dev))
+
+
+@pytest.mark.parametrize("valid", [[0, 0], [0, 5]])
+def test_prefill_tma_no_valid_query(dev, valid):
+    """n_valid 0: the row's output is all zeros (its blocks see no key)."""
+    args = prefill_case(dev, 96, 8, 2, 128, 16, [40, 7], valid,
+                        torch.bfloat16, 5)
+    got = prefill_hold(args, 2e-2)
+    assert (got[0] == 0).all()
+
+
+def test_prefill_tma_nan_pages(dev):
+    """NaN in the tail of the last written page (positions 700..703 of page
+    43) and in every page after it: finite output at llama-7b's heads."""
+    args = prefill_case(dev, 256, 32, 32, 128, 16, [512], [188],
+                        torch.bfloat16, 9)
+    q, kp, vp, bt, st, nv = args
+    for p in (kp, vp):
+        assert bool(torch.isnan(p[bt[0, 43], 700 % 16:]).all())
+        assert bool(torch.isnan(p[bt[0, 44:].long()]).all())
+        assert not bool(torch.isnan(p[bt[0, :43].long()]).any())
+    prefill_hold(args, 2e-2)
+
+
+@pytest.mark.parametrize("C,n,k,starts,valid", [
+    (256, 32, 32, [256], [256]), (200, 32, 8, [0, 37], [200, 150])])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_prefill_tma_repeatable(dev, C, n, k, starts, valid, dtype):
+    """Two calls on the same inputs give equal bits (the 64-row tiles'
+    warpgroups merge in a fixed order, with no atomics)."""
+    args = prefill_case(dev, C, n, k, 128, 16, starts, valid, dtype, 3,
+                        nan=False)
+    assert torch.equal(prefill_once(*args), prefill_once(*args))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.float16, 64),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 48)])
+def test_prefill_launches_its_route(dev, dtype, D):
+    """One device kernel a call, the one ``prefill_kernel`` names: the
+    tensor-core kernel for 16-bit D 16..128, the CUDA-core one for fp32
+    and other D."""
+    args = prefill_case(dev, 64, 8, 2, D, 16, [30], [64], dtype, 1)
+    prefill_once(*args)                     # build and bind first
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prefill_once(*args)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    want = prefill_kernel(dtype, D)
+    assert len(names) == 1 and want in names[0], names
+
+
+def test_prefill_one_launch_no_host_sync(dev):
+    """llama-7b's serve chunk: one launch a call, and no device value read
+    on the host (CUDA's sync debug mode raises on a synchronising call)."""
+    args = prefill_case(dev, 256, 32, 32, 128, 16, [256], [200],
+                        torch.bfloat16, 4)
+    q, kp, vp, bt, st, nv = args
+    prefill_once(*args)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        before = launch_counts()["paged_prefill_attention"]
+        paged_prefill_attention(q, kp, vp, bt, st, n_valid=nv)
+        assert launch_counts()["paged_prefill_attention"] == before + 1
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()

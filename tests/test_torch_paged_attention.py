@@ -15,6 +15,15 @@ possible length lands in exactly one split, and an emulation of the
 kernel's arithmetic (each split's online-softmax state over its own pages,
 the splits merged in rank order) matches JAX's reference at 2e-5 in fp32.
 
+The prefill kernel's host plan (``paged_prefill_plan``: 64- or 128-row
+work tiles, the rows of a page's TMA box) and the key range of each of
+its q tiles (``prefill_keys``) are held here too, and an emulation of its
+walk (key tiles gathered box by box into stages that start as NaN, the V
+rows past the written keys zeroed, each warpgroup's exp2 online softmax,
+the 64-row tiles' key split and merge) matches JAX's reference at 2e-5 in
+fp32 over ragged rows and NaN-poisoned pages, reading no table entry past
+a row's written pages.
+
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda_kernels.py``.
 """
@@ -33,9 +42,9 @@ from deepspeed_tpu_torch.models.transformer import alibi_slopes
 from deepspeed_tpu_torch.ops import (launch_counts, paged_decode_attention,
                                      paged_prefill_attention,
                                      reference_paged_attention)
-from deepspeed_tpu_torch.ops.paged_decode_attention import (paged_split_plan,
-                                                            split_pages,
-                                                            unit_pages)
+from deepspeed_tpu_torch.ops.paged_decode_attention import (
+    PREFILL_KEYS, paged_prefill_plan, paged_split_plan, prefill_keys,
+    split_pages, unit_pages)
 
 BS, MAXB, NB, D = 16, 4, 12, 32
 HEADS = [(4, 4), (4, 2), (8, 2)]
@@ -306,3 +315,205 @@ class TestSplitEmulation:
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
         assert (got[lens == 0] == 0).all()
+
+
+class TestPrefillPlan:
+    """The prefill kernel's launch: work tiles of 64 or 128 chunk queries
+    and the rows of a page's TMA box, chosen on the host from shapes alone
+    (the wrapper never reads ``start`` or ``n_valid`` there)."""
+
+    def test_llama_serve_chunk_takes_64_row_tiles(self):
+        """B 1, C 256, 32 heads: 64 tiles of 128 rows on 132 SMs, so 128
+        blocks of 64 rows; block 16 pages go by TMA in 16-row boxes."""
+        assert paged_prefill_plan(1, 256, 32, 16, 132) == (64, 16)
+        # two rows of the chunk, or a 512-query chunk, fill the card with
+        # 128-row tiles
+        assert paged_prefill_plan(2, 256, 32, 16, 132) == (128, 16)
+        assert paged_prefill_plan(1, 512, 32, 16, 132) == (128, 16)
+        # GQA counts query heads (a work tile is one query head): a short
+        # chunk (C 16) of 8 heads over 2 rows has 16 tiles
+        assert paged_prefill_plan(2, 16, 8, 16, 132) == (64, 16)
+
+    @pytest.mark.parametrize("BS,box", [
+        (8, 8), (16, 16), (24, 8), (32, 32), (48, 16), (64, 64), (128, 128),
+        (256, 128), (1, 0), (4, 0), (12, 0), (20, 0), (7, 0)])
+    def test_box_rows(self, BS, box):
+        """Boxes of gcd(BS, 128) rows, whole 8-row swizzle atoms that tile
+        both the page and the 128-key stage; other page sizes go by plain
+        loads (0)."""
+        rows, box_rows = paged_prefill_plan(1, 256, 32, BS, 132)
+        assert box_rows == box
+        if box_rows:
+            assert box_rows % 8 == 0 and BS % box_rows == 0
+            assert PREFILL_KEYS % box_rows == 0
+
+    def test_plan_takes_only_host_integers(self):
+        sig = inspect.signature(paged_prefill_plan)
+        assert all(p.annotation in (int, "int")
+                   for p in sig.parameters.values())
+        assert all(type(x) is int
+                   for x in paged_prefill_plan(1, 256, 32, 16, 132))
+
+    @pytest.mark.parametrize("rows", [64, 128])
+    def test_tile_keys_cover_each_row(self, rows):
+        """prefill_keys (the device's tile_keys): a q tile walks exactly
+        the columns up to its last valid query's position, within the
+        table; a tile of pads walks none."""
+        C, T = 200, 600
+        for start in (0, 5, 256, 512):
+            for nv in (0, 1, 63, 64, 65, 188, 200, 250):
+                for qt in range(-(-C // rows)):
+                    kend = prefill_keys(start, nv, C, rows, qt, T)
+                    valid = [c for c in range(qt * rows,
+                                              min((qt + 1) * rows, C))
+                             if c < nv]
+                    want = min(start + valid[-1] + 1, T) if valid else 0
+                    assert kend == want
+
+
+def prefill_emulation(q, kp, vp, bt, start, n_valid, rows, box_rows,
+                      alibi=None):
+    """The prefill kernel's walk in fp32 numpy: per (row, query head, q tile
+    of ``rows`` chunk queries) the key tiles of 128 columns below
+    ``prefill_keys``, each gathered into a stage that starts as NaN (stale
+    shared memory) box by box (``box_rows`` rows of one page, only boxes
+    that hold a written key) or, with ``box_rows`` 0, row by row over the
+    written rows; V rows at or past kend zeroed; then per consumer
+    warpgroup an exp2 online softmax with invisible pairs selected to
+    -inf (128-row tiles: warpgroup w rows 64 w.., every key tile; 64-row
+    tiles: both the same rows, warpgroup w key tiles w, w + 2, .., merged
+    in that order). Asserts that no table entry at or past ceil(kend / BS)
+    is read."""
+    B, C, N, D = q.shape
+    BS, K = kp.shape[1], kp.shape[2]
+    MAXB = bt.shape[1]
+    G, KT = N // K, PREFILL_KEYS
+    scale2 = np.float32(D ** -0.5 * np.log2(np.e))
+    out = np.zeros_like(q)
+    for b in range(B):
+        st, nv = int(start[b]), min(max(int(n_valid[b]), 0), C)
+
+        def entry(col, kend):
+            assert col // BS < -(-kend // BS), "a page past the written ones"
+            return bt[b, col // BS]
+
+        for n in range(N):
+            kh = n // G
+            slope2 = np.float32(0 if alibi is None
+                                else alibi[n] * np.log2(np.e))
+            for qt in range(-(-C // rows)):
+                c0 = qt * rows
+                kend = prefill_keys(st, nv, C, rows, qt, MAXB * BS)
+                nt = -(-kend // KT)
+                stages = []
+                for i in range(nt):
+                    t0 = i * KT
+                    ks = np.full((KT, D), np.nan, np.float32)
+                    vs = np.full((KT, D), np.nan, np.float32)
+                    if box_rows:
+                        for j in range(KT // box_rows):
+                            col = t0 + j * box_rows
+                            if col >= kend:
+                                break
+                            pg, r = entry(col, kend), col % BS
+                            ks[j * box_rows:(j + 1) * box_rows] = \
+                                kp[pg, r:r + box_rows, kh]
+                            vs[j * box_rows:(j + 1) * box_rows] = \
+                                vp[pg, r:r + box_rows, kh]
+                    else:
+                        for r in range(min(KT, kend - t0)):
+                            pg = entry(t0 + r, kend)
+                            ks[r] = kp[pg, (t0 + r) % BS, kh]
+                            vs[r] = vp[pg, (t0 + r) % BS, kh]
+                    vs[max(0, kend - t0):] = 0
+                    stages.append((t0, ks, vs))
+                groups = ([(c0, stages)] if rows == 64 else
+                          [(c0, stages), (c0 + 64, stages)])
+                parts = []
+                for w in range(2):
+                    r0, walk = groups[0] if rows == 64 else groups[w]
+                    if rows == 64:
+                        walk = stages[w::2]
+                    rr = np.arange(r0, r0 + 64)
+                    qs = np.zeros((64, D), np.float32)
+                    inside = rr < C
+                    qs[inside] = q[b, rr[inside], n]
+                    lim = np.where(rr < nv, np.minimum(st + rr, kend - 1), -1)
+                    m = np.full(64, -np.inf, np.float32)
+                    l = np.zeros(64, np.float32)
+                    o = np.zeros((64, D), np.float32)
+                    for t0, ks, vs in walk:
+                        with np.errstate(invalid="ignore"):
+                            s = qs @ ks.T
+                        cols = t0 + np.arange(KT)
+                        vis = cols[None] <= lim[:, None]
+                        s = np.where(vis, s * scale2 + slope2 * cols, -np.inf)
+                        mn = np.maximum(m, s.max(axis=1))
+                        mu = np.where(mn == -np.inf, 0, mn).astype(np.float32)
+                        corr = np.exp2(m - mu)
+                        p = np.exp2(s - mu[:, None])
+                        l = l * corr + p.sum(axis=1)
+                        o = o * corr[:, None] + p @ vs
+                        m = mn
+                    parts.append((rr, m, l, o))
+                if rows == 64:
+                    (rr, m0, l0, o0), (_, m1, l1, o1) = parts
+                    mn = np.maximum(m0, m1)
+                    mu = np.where(mn == -np.inf, 0, mn)
+                    f0, f1 = np.exp2(m0 - mu), np.exp2(m1 - mu)
+                    parts = [(rr, mn, l0 * f0 + l1 * f1,
+                              o0 * f0[:, None] + o1 * f1[:, None])]
+                for rr, m, l, o in parts:
+                    keep = rr < C
+                    res = np.where(l[:, None] > 0,
+                                   o / np.where(l > 0, l, 1)[:, None], 0)
+                    out[b, rr[keep], n] = res[keep]
+    return out
+
+
+class TestPrefillEmulation:
+    """The prefill kernel's work split (``prefill_emulation``: q tiles,
+    pages into stages box by box, the warpgroups' key split and its merge)
+    against JAX's reference at 2e-5 in fp32: ragged rows (a start off a
+    page boundary, a partial chunk, a row of pads), NaN in the scratch
+    block, in the tail of each row's last written page and in every page
+    no row reaches (the stale entries of a recycled table point at them),
+    G 1 and 4, alibi."""
+
+    @pytest.mark.parametrize("BS", [4, 8, 16, 24])
+    @pytest.mark.parametrize("rows", [64, 128])
+    @pytest.mark.parametrize("n,k,use_alibi", [(4, 4, False), (8, 2, True)])
+    def test_matches_jax_reference(self, BS, rows, n, k, use_alibi):
+        C, D = 150, 16
+        starts = [0, 21, 130, 40]
+        valid = [C, 11, 150 - 3, 0]
+        B = len(starts)
+        MAXB = -(-(max(starts) + C + 10) // BS)
+        _, box_rows = paged_prefill_plan(B, C, n, BS, 132)
+        rng = np.random.default_rng(BS + rows + n)
+        NB = B * MAXB + 2
+        kp = rng.normal(size=(NB, BS, k, D)).astype(np.float32)
+        vp = rng.normal(size=(NB, BS, k, D)).astype(np.float32)
+        perm = rng.permutation(np.arange(1, NB))
+        bt = perm[:B * MAXB].reshape(B, MAXB).astype(np.int32)
+        used = set()
+        for r in range(B):
+            written = starts[r] + valid[r]
+            npages = -(-written // BS)
+            used.update(bt[r, :npages].tolist())
+            if written < npages * BS:
+                for p in (kp, vp):
+                    p[bt[r, npages - 1], written % BS:] = np.nan
+        for p in (kp, vp):
+            p[0] = np.nan
+            p[[x for x in range(1, NB) if x not in used]] = np.nan
+        q = rng.normal(size=(B, C, n, D)).astype(np.float32)
+        al = np.asarray(jax_alibi(n)) if use_alibi else None
+        st, nv = np.array(starts, np.int32), np.array(valid, np.int32)
+        got = prefill_emulation(q, kp, vp, bt, st, nv, rows, box_rows, al)
+        offs = np.arange(C)
+        pos = np.where(offs[None] < nv[:, None], st[:, None] + offs, -1)
+        ref = jax_ref(q, np.nan_to_num(kp), np.nan_to_num(vp), bt, pos, al)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
+        assert (got[3] == 0).all() and (got[1, 11:] == 0).all()
