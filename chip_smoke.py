@@ -111,7 +111,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    scale plus one bf16 ulp; then int4 ``quantize_symmetric`` over the same
    leaves, bit-equal to its plain version.
 
-The ``kernels`` phase holds the paged decode kernel at the serve step
+The ``kernels`` phase holds the norm at llama-7b's decode step (8 x 4096)
+and serve chunk (256 rows, RMSNorm and LayerNorm with bias), generate's
+static prefill (4096 x 4096) and OPT-1.3B's training rows (4096 x 2048,
+LayerNorm with bias), each with the launch shape ``ln_plan`` gave it, the
+8- and 256-row bf16 cases also over scale copies larger than the L2; the
+paged decode kernel at the serve step
 (``serve8``: 8 rows of 0..1000 keys) and over one row of 4000 keys
 (``long1``), also over pool copies larger than the L2 and beside the dense
 decode kernel over the same keys; the paged prefill kernel at serve's chunk
@@ -200,6 +205,7 @@ from deepspeed_tpu_torch.ops import (fake_quantize, fused_group_norm,
                                      reference_quantize_symmetric)
 from deepspeed_tpu_torch.ops import registry
 from deepspeed_tpu_torch.ops.decode_attention import decode_split_plan
+from deepspeed_tpu_torch.ops.normalization import ln_plan
 from deepspeed_tpu_torch.ops.paged_decode_attention import (
     paged_prefill_plan, paged_split_plan, prefill_kernel)
 from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
@@ -280,7 +286,7 @@ E2E_SPARSE_TRAIN_TOL = dict(E2E_TRAIN_TOL, loss_rel=1e-5, update_rel=6e-2)
 SOURCES = {
     "fused_layer_norm": ("deepspeed_tpu_torch/csrc/layer_norm.cu",
                          "deepspeed_tpu/ops/normalization.py:59",
-                         "ln_fwd_kernel"),
+                         "ln_rows_kernel"),
     "paged_decode_attention": ("deepspeed_tpu_torch/csrc/paged_attention.cu",
                                "deepspeed_tpu/ops/paged_decode_attention.py:171",
                                "paged_split_kernel"),
@@ -337,6 +343,12 @@ QUANT_SITES = {"qkvo": (4096, 4096), "gate_up": (4096, 11008),
                "down": (11008, 4096), "lm_head": (4096, 32000)}
 INT_MM_ROWS = 17    # torch._int_mm takes more than 16 rows
 L2_BYTES = 50e6     # the H100's L2: rotated timings cycle through more
+# the norm's cases (rows, H, rms): llama-7b's decode step (8 rows) and serve
+# prefill chunk (256), 256 rows of LayerNorm with bias, generate's static
+# prefill (8 prompts padded to 512: 4096 rows), OPT-1.3B's training rows
+# (4 x 1024, H 2048, LayerNorm with bias)
+NORM_CASES = [(8, 4096, True), (256, 4096, True), (256, 4096, False),
+              (4096, 4096, True), (4096, 2048, False)]
 SERVE_KERNELS = ("fused_layer_norm", "paged_decode_attention",
                  "paged_prefill_attention")
 GENERATE_KERNELS = ("fused_layer_norm", "flash_attention", "decode_attention")
@@ -474,9 +486,17 @@ def check(name: str, got: torch.Tensor, ref: torch.Tensor, tol) -> float:
 
 
 def norm_cases(dev, gen):
-    H, eps = 4096, 1e-6
+    """The norm at NORM_CASES in bf16 and fp32 (H 4096 eps 1e-6 as
+    llama-7b's RMSNorm; OPT-1.3B's rows take a bias), each with the launch
+    shape it took (``ln_plan``: vectors a thread, threads a row, rows a
+    block, blocks) and the kernel of its route. The bf16 cases of 8 and 256
+    rows are also timed over scale (and bias) copies larger than the L2
+    (``rotated_ms``), as on the decode path, where a forward's weights
+    stream through the L2 between two norms; x stays hot, as there."""
+    eps = 1e-6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = []
-    for rows, rms in ((8, True), (256, True), (256, False)):
+    for rows, H, rms in NORM_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(rows, H, generator=gen, device=dev).to(dtype)
             scale = (1 + 0.1 * torch.randn(H, generator=gen, device=dev)
@@ -486,9 +506,10 @@ def norm_cases(dev, gen):
                      ).to(dtype))
             got = fused_layer_norm(x, scale, bias, eps, rms)
             ref = reference_layer_norm(x, scale, bias, eps, rms)
-            err = check(f"fused_layer_norm rows={rows} rms={rms} {dtype}",
-                        got, ref, TOL[dtype])
+            err = check(f"fused_layer_norm rows={rows} H={H} rms={rms} "
+                        f"{dtype}", got, ref, TOL[dtype])
             item = x.element_size()
+            plan = ln_plan(rows, H, item, sms)
             nbytes = (2 * rows * H + H * (1 if rms else 2)) * item
             b_ms, b_by = bound_ms(nbytes, 8.0 * rows * H, FP32_FLOPS)
             if rms:
@@ -498,11 +519,22 @@ def norm_cases(dev, gen):
             else:
                 lib = lambda: torch.nn.functional.layer_norm(  # noqa: E731
                     x, (H,), scale, bias, eps)
+            extra = {}
+            if dtype == torch.bfloat16 and rows <= 256:
+                params = l2_copies(torch.stack(
+                    [scale] if rms else [scale, bias]))
+                extra["rotated_ms"] = rotated_ms(
+                    lambda p: fused_layer_norm(x, p[0], None if rms
+                                               else p[1], eps, rms), params)
+                extra["l2_copies"] = len(params)
+                del params
             results.append(dict(
                 rows=rows, H=H, rms=rms, dtype=str(dtype), max_abs_err=err,
                 tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+                plan=plan._asdict(), kernel=("ln_rows_kernel" if plan.vectors
+                                             else "ln_scalar_kernel"),
                 ms=time_ms(lambda: fused_layer_norm(x, scale, bias, eps,
-                                                    rms)),
+                                                    rms)), **extra,
                 plain_ms=time_ms(lambda: reference_layer_norm(
                     x, scale, bias, eps, rms)),
                 library_ms=time_ms(lib) if lib is not None else None,

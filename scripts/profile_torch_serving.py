@@ -50,8 +50,9 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-PORT_KERNELS = ("ln_fwd_kernel", "paged_split_kernel", "paged_prefill_kernel",
-                "paged_prefill_tma_kernel", "flash_fwd_kernel",
+PORT_KERNELS = ("ln_rows_kernel", "ln_scalar_kernel", "paged_split_kernel",
+                "paged_prefill_kernel", "paged_prefill_tma_kernel",
+                "flash_fwd_kernel",
                 "flash_fwd_tma_kernel",
                 "decode_split_kernel", "flash_bwd_kernel",
                 "flash_bwd_prologue",

@@ -9,7 +9,12 @@ a 1024-column arena), with alibi, GQA, ragged masks with holes, and arena
 slots outside every mask holding large finite values. The training kernels
 (the flash backward, one call for dq, dk and dv; fused Adam) run at small
 shapes and at OPT-1.3B's training shape, and the norm and flash kernels under autograd
-are held against autograd through their plain versions. The file imports no
+are held against autograd through their plain versions. The norm kernel runs at the
+main paths' shapes (8, 1 and 256 rows of 4096, 4096 x 4096 RMSNorm, 4096 x
+2048 LayerNorm with bias) and on rows of 8192 and 768, in bf16, fp16 and
+fp32; each call is one launch of the kernel its route names, two calls and
+other grids give equal bits, and fp32 rows of 300 + 0.01 N(0, 1) hold to a
+float64 norm within 1e-2. The file imports no
 JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
@@ -64,6 +69,12 @@ not written, bit-equal repeats, and one launch of the kernel its route
 names.
 """
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -96,6 +107,8 @@ from deepspeed_tpu_torch.ops import (fake_quantize, fused_group_norm,
                                      reference_group_norm,
                                      reference_quantize_symmetric)
 from deepspeed_tpu_torch.ops import quant_matmul, sparse_attention
+from deepspeed_tpu_torch.ops.normalization import _launch as _ln_launch
+from deepspeed_tpu_torch.ops.normalization import ln_plan
 from deepspeed_tpu_torch.ops.paged_decode_attention import prefill_kernel
 from deepspeed_tpu_torch.ops.quant_matmul import quantize_int4
 
@@ -124,7 +137,11 @@ def t(a, device, dtype=None):
 @pytest.mark.parametrize("rows,H,rms,use_bias", [
     (5, 64, False, True), (130, 96, False, False), (7, 64, True, False),
     (257, 40, True, False), (1, 72, False, True), (3, 4099, False, True),
-    (8, 4096, True, False), (256, 4096, True, False)])
+    (8, 4096, True, False), (256, 4096, True, False),
+    (1, 4096, True, False), (4096, 4096, True, False),
+    (4096, 2048, False, True), (8, 8192, False, True),
+    (300, 8192, True, False), (1, 768, False, True),
+    (513, 768, False, False)])
 @pytest.mark.parametrize("dtype,atol", LOW + [(torch.float16, 4e-3)])
 def test_layer_norm_matches_plain(dev, rows, H, rms, use_bias, dtype, atol):
     rng = np.random.default_rng(rows * H)
@@ -155,6 +172,106 @@ def test_layer_norm_rejects_mismatched_scale(dev):
     x = torch.randn(4, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fused_layer_norm(x, torch.ones(64, device=dev), None, 1e-5, True)
+
+
+def norm_operands(dev, rows, H, dtype, use_bias, seed):
+    rng = np.random.default_rng(seed)
+    x = t(rng.normal(0, 2.0, (rows, H)), dev, dtype)
+    scale = t(rng.normal(1.0, 0.3, (H,)), dev, dtype)
+    bias = t(rng.normal(0, 0.3, (H,)), dev, dtype) if use_bias else None
+    return x, scale, bias
+
+
+ROUTE_SHAPES = [(1, 768), (8, 4096), (256, 4096), (4096, 4096), (4096, 2048),
+                (8, 8192), (2000, 8192), (3, 4099)]
+ROUTE_PROFILE = """
+import json, sys
+import torch
+from deepspeed_tpu_torch.ops import fused_layer_norm
+dev, dtype = torch.device("cuda"), getattr(torch, sys.argv[1])
+operands = [(torch.randn(rows, H, device=dev).to(dtype),
+             (torch.rand(H, device=dev) + 0.5).to(dtype))
+            for rows, H in json.loads(sys.argv[2])]
+for x, scale in operands:
+    fused_layer_norm(x, scale, None, 1e-5, True)         # build and bind
+torch.cuda.synchronize()
+with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    for x, scale in operands:
+        fused_layer_norm(x, scale, None, 1e-5, True)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_layer_norm_launches_its_route(dev, dtype):
+    """One device kernel a call: ``ln_rows_kernel`` for aligned rows whose
+    H is a multiple of 16 bytes (H 768..8192 here, both plan regimes),
+    ``ln_scalar_kernel`` for the others. Profiled in a process of its own:
+    on the card, a profiler session early in this process left later ones
+    (``test_prefill_launches_its_route``) without device events."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = subprocess.run(
+        [sys.executable, "-c", ROUTE_PROFILE, str(dtype).split(".")[1],
+         json.dumps(ROUTE_SHAPES)], cwd=root, env=env, capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    item = torch.tensor([], dtype=dtype).element_size()
+    want = ["ln_scalar_kernel" if H % (16 // item) else "ln_rows_kernel"
+            for _, H in ROUTE_SHAPES]
+    assert len(names) == len(want), names
+    assert all(w in n for w, n in zip(want, names)), names
+
+
+@pytest.mark.parametrize("rows,H,rms,dtype", [
+    (8, 4096, True, torch.bfloat16), (1, 4096, True, torch.float16),
+    (256, 4096, True, torch.bfloat16), (4096, 4096, True, torch.bfloat16),
+    (4096, 2048, False, torch.bfloat16), (8, 8192, False, torch.float32),
+    (3000, 8192, False, torch.float32), (3, 4099, False, torch.float32)])
+def test_layer_norm_repeatable(dev, rows, H, rms, dtype):
+    """Two calls give equal bits in each plan regime (few rows, many rows,
+    the scalar kernel), and the rows kernel's bits do not depend on its
+    grid: the plan's own, one block, three, and twice the plan's."""
+    x, scale, bias = norm_operands(dev, rows, H, dtype, not rms, 2)
+    a = fused_layer_norm(x, scale, bias, 1e-5, rms)
+    b = fused_layer_norm(x, scale, bias, 1e-5, rms)
+    assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    plan = ln_plan(rows, H, x.element_size(),
+                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.vectors:
+        for blocks in (1, 3, 2 * plan.blocks):
+            c = _ln_launch(x, scale, bias, 1e-5, rms,
+                           plan._replace(blocks=blocks))
+            assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))
+
+
+@pytest.mark.parametrize("rows,H,use_bias", [
+    (8, 4096, False), (256, 4096, True), (4096, 4096, False),
+    (4096, 2048, True), (5, 8192, True), (3, 4099, False)])
+def test_layer_norm_offset_rows_against_float64(dev, rows, H, use_bias):
+    """fp32 rows of 300 + 0.01 N(0, 1), where a one-pass variance cancels:
+    within 1e-2 of a float64 norm (an fp32 mean near 300 is off by an ulp
+    or two, 3e-5 each, which 1 / std = 100 scales to ~3e-3 each)."""
+    rng = np.random.default_rng(rows + H)
+    x = t(300.0 + 0.01 * rng.normal(size=(rows, H)), dev, torch.float32)
+    scale = t(rng.normal(1.0, 0.1, H), dev, torch.float32)
+    bias = t(rng.normal(0, 0.1, H), dev, torch.float32) if use_bias \
+        else None
+    got = fused_layer_norm(x, scale, bias, 1e-5, False)
+    x64 = x.double()
+    xc = x64 - x64.mean(-1, keepdim=True)
+    want = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-5) \
+        * scale.double()
+    if bias is not None:
+        want = want + bias.double()
+    err = float((got.double() - want).abs().max())
+    assert err < 1e-2, err
 
 
 # ---------------------------------------------------------------------------
