@@ -127,8 +127,11 @@ the Fixed, sliding window and BSLongformer layouts, and at small shapes
 with a key-less q-tile and with BigBird's per-head layouts, beside the
 port's flash kernels at the same shape; the LAMB phase-1 kernel on a flat buffer of 64 Mi elements
 and segmented over OPT-1.3B's leaves (1.3 B elements); the GroupNorm
-kernel at the mid block's shape and JAX's test shapes (``F.group_norm`` as
-yardstick) and on 300 + 0.01 N(0, 1) against float64; group quantization,
+kernel at the mid block's shape, JAX's test shapes and the VAE decoder's
+512 x 512 up block, each with the route ``gn_plan`` took (the resident
+kernel, one launch, where a block's rows fit its shared memory; else the
+streaming pair), ``F.group_norm`` as yardstick, and on 300 + 0.01 N(0, 1)
+against float64 on either route; group quantization,
 bit for bit, over OPT-1.3B's 1.316 B bf16 parameters and 64 Mi elements;
 the flash forward at head_dim 512 (the mid block's self attention,
 cross attention over 77 keys; SDPA as yardstick); and the flash forward at
@@ -208,6 +211,7 @@ from deepspeed_tpu_torch.ops.decode_attention import decode_split_plan
 from deepspeed_tpu_torch.ops.normalization import ln_plan
 from deepspeed_tpu_torch.ops.paged_decode_attention import (
     paged_prefill_plan, paged_split_plan, prefill_kernel)
+from deepspeed_tpu_torch.ops.spatial import gn_plan
 from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
 from deepspeed_tpu_torch.serving import ServingConfig, init_serving
 
@@ -331,7 +335,7 @@ SOURCES = {
                            "quant_sym_kernel"),
     "fused_group_norm": ("deepspeed_tpu_torch/csrc/group_norm.cu",
                          "deepspeed_tpu/ops/spatial.py:101",
-                         "gn_stats_kernel + gn_apply_kernel"),
+                         "gn_resident_kernel"),
 }
 # the quantized inference modes and the decode GEMM each one runs
 QUANT_MODES = {"int8": "int8_matmul", "w8a8": "int8_a8_matmul",
@@ -389,9 +393,16 @@ SPATIAL_KERNELS = {"fused_group_norm": 5, "flash_attention": 1}
 # output's largest magnitude
 SPATIAL_TOL = 5e-2
 # GroupNorm cases: the mid block's shape, then JAX's test shapes
-# (tests/kernels/test_spatial.py:18)
+# (tests/kernels/test_spatial.py:18), then the VAE decoder's last up block
+# at 512 x 512 (C 128, 67 MB in bf16: more than the card's shared memory
+# and its L2, so it takes the streaming route)
 GN_SHAPES = [("vae_mid", 4, 4096, 512, 32), ("jax_a", 2, 256, 64, 8),
-             ("jax_b", 1, 1024, 96, 12), ("jax_c", 3, 640, 128, 32)]
+             ("jax_b", 1, 1024, 96, 12), ("jax_c", 3, 640, 128, 32),
+             ("vae_up_512", 1, 262144, 128, 32)]
+# the stress input's shapes: the mid block (fp32: the streaming route) and
+# half its latent (fp32, 63 rows a block: the resident route)
+GN_STRESS_SHAPES = [("stress_300", 4, 4096, 512, 32),
+                    ("stress_300_resident", 4, 2048, 512, 32)]
 GN_EPS = 1e-6
 QUANT_N = 1 << 26  # the quantize cases' second size (64 Mi elements)
 # the flash forward at OPT-1.3B's training shape: (B, S = T, N = K, D)
@@ -1445,13 +1456,26 @@ def lamb_cases(dev, gen):
     return results
 
 
+def gn_route(x: torch.Tensor, G: int):
+    """The plan ``fused_group_norm`` takes for x on its card, and the CUDA
+    kernels of its route."""
+    B, HW, C = x.shape
+    plan = gn_plan(B, HW, C, G, x.element_size(),
+                   torch.cuda.get_device_properties(
+                       x.device).multi_processor_count)
+    return plan, ("gn_resident_kernel" if plan.route == "resident"
+                  else "gn_stats_kernel + gn_apply_kernel")
+
+
 def group_norm_cases(dev, gen):
     """fused_group_norm at the SD v1.5 VAE mid block's shape (B 4, a 64 x
-    64 latent, C 512, 32 groups, eps 1e-6) and at JAX's test shapes, in bf16
-    and fp32, on x = 3 N(0, 1) + 1; then the stress input 300 + 0.01 N(0,
-    1) in fp32 at the path's shape, held against a float64 computation
-    (finite, within GN_STRESS_TOL). Yardstick: ``F.group_norm`` on the
-    channels-last (B, C, HW, 1) view."""
+    64 latent, C 512, 32 groups, eps 1e-6), at JAX's test shapes and at the
+    decoder's last up block at 512 x 512 (B 1, C 128), in bf16 and fp32, on
+    x = 3 N(0, 1) + 1, each with the plan ``gn_plan`` gave it and the
+    kernels of its route; then the stress input 300 + 0.01 N(0, 1) in fp32
+    at GN_STRESS_SHAPES (one shape a route), held against a float64
+    computation (finite, within GN_STRESS_TOL). Yardstick: ``F.group_norm``
+    on the channels-last (B, C, HW, 1) view."""
     results = []
     for case, B, HW, C, G in GN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1465,13 +1489,16 @@ def group_norm_cases(dev, gen):
             ref = reference_group_norm(x, scale, bias, G, eps=GN_EPS)
             err = check(f"fused_group_norm {case} {dtype}", got, ref,
                         TOL[dtype])
+            del got, ref
             item = x.element_size()
+            plan, kernel = gn_route(x, G)
             b_ms, b_by = bound_ms((2 * x.numel() + 2 * C) * item,
                                   8.0 * x.numel(), FP32_FLOPS)
             view = x.permute(0, 2, 1).unsqueeze(-1)       # (B, C, HW, 1)
             results.append(dict(
                 case=case, B=B, HW=HW, C=C, G=G, dtype=str(dtype),
                 max_abs_err=err, tol=dict(zip(("atol", "rtol"), TOL[dtype])),
+                plan=plan._asdict(), route=plan.route, kernel=kernel,
                 ms=time_ms(lambda: fused_group_norm(x, scale, bias, G,
                                                     eps=GN_EPS)),
                 plain_ms=time_ms(lambda: reference_group_norm(
@@ -1480,21 +1507,26 @@ def group_norm_cases(dev, gen):
                     view, G, scale, bias, GN_EPS)),
                 library="F.group_norm, channels-last view",
                 bound_ms=b_ms, bound_by=b_by))
-    case, B, HW, C, G = GN_SHAPES[0]
-    x = 300 + 0.01 * torch.randn(B, HW, C, generator=gen, device=dev)
-    got = fused_group_norm(x, torch.ones(C, device=dev),
-                           torch.zeros(C, device=dev), G)
-    xg = x.double().reshape(B, HW, G, C // G)
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
-    want = ((xg - mean) / torch.sqrt(var + 1e-5)).reshape(B, HW, C)
-    err = max_err(got, want)
-    if not (bool(torch.isfinite(got).all()) and err <= GN_STRESS_TOL):
-        raise AssertionError(f"fused_group_norm stress: max abs error {err} "
-                             f"against float64 (limit {GN_STRESS_TOL})")
-    results.append(dict(case="stress_300", B=B, HW=HW, C=C, G=G,
-                        dtype="float64 reference", max_abs_err=err,
-                        tol=GN_STRESS_TOL))
+            del x, view
+            torch.cuda.empty_cache()
+    for case, B, HW, C, G in GN_STRESS_SHAPES:
+        x = 300 + 0.01 * torch.randn(B, HW, C, generator=gen, device=dev)
+        got = fused_group_norm(x, torch.ones(C, device=dev),
+                               torch.zeros(C, device=dev), G)
+        xg = x.double().reshape(B, HW, G, C // G)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+        want = ((xg - mean) / torch.sqrt(var + 1e-5)).reshape(B, HW, C)
+        err = max_err(got, want)
+        if not (bool(torch.isfinite(got).all()) and err <= GN_STRESS_TOL):
+            raise AssertionError(f"fused_group_norm {case}: max abs error "
+                                 f"{err} against float64 (limit "
+                                 f"{GN_STRESS_TOL})")
+        plan, kernel = gn_route(x, G)
+        results.append(dict(case=case, B=B, HW=HW, C=C, G=G,
+                            dtype="float64 reference", max_abs_err=err,
+                            tol=GN_STRESS_TOL, route=plan.route,
+                            kernel=kernel))
     return results
 
 
@@ -2505,13 +2537,9 @@ def spatial_flops(B: int, HW: int, C: int, k: int = 3):
                 qkv_proj=4 * 2.0 * B * HW * C * C)
 
 
-def spatial_phase(dev):
-    """The SD v1.5 VAE decoder's mid block at full width (SPATIAL: a 64 x
-    64 latent of 512 channels, 32 groups, eps 1e-6, batch 4; seeded bf16
-    weights): a warm-up call, then SPATIAL_CALLS timed calls with launch
-    counts zeroed just before them and held exactly to SPATIAL_KERNELS per
-    call; the output finite and within SPATIAL_TOL * max|plain| of the
-    plain path (``plain=True``) on the same weights."""
+def mid_block_inputs(dev):
+    """The spatial phase's seeded bf16 mid block weights and latent batch
+    (SPATIAL), and its group count."""
     B, side, C, G = (SPATIAL[k] for k in ("B", "latent", "C", "groups"))
     params = init_mid_block(torch.Generator(device=dev).manual_seed(11), C,
                             device=dev, dtype=torch.bfloat16)
@@ -2519,6 +2547,18 @@ def spatial_phase(dev):
     gen.manual_seed(12)
     x = torch.randn(B, side, side, C, generator=gen, device=dev,
                     dtype=torch.bfloat16)
+    return params, x, G
+
+
+def spatial_phase(dev):
+    """The SD v1.5 VAE decoder's mid block at full width (SPATIAL: a 64 x
+    64 latent of 512 channels, 32 groups, eps 1e-6, batch 4; seeded bf16
+    weights): a warm-up call, then SPATIAL_CALLS timed calls with launch
+    counts zeroed just before them and held exactly to SPATIAL_KERNELS per
+    call; the output finite and within SPATIAL_TOL * max|plain| of the
+    plain path (``plain=True``) on the same weights."""
+    params, x, G = mid_block_inputs(dev)
+    B, side, C = x.shape[0], x.shape[1], x.shape[3]
     with torch.no_grad():
         out = mid_block(x, params, G)
         torch.cuda.synchronize()

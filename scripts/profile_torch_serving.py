@@ -11,8 +11,10 @@ unprofiled warm-up call); and ``train``:
 OPT-1.3B at full size, 3 ``train_batch`` steps of ``chip_smoke``'s train
 phase (bf16, micro batch 4 x 1024 tokens, AdamW) after one warm-up step, or
 ``sparse_train``: the same for its sparse_train phase (the Fixed sparse
-layout, LAMB, micro batch 2 x 2048 tokens). Prints one JSON line per
-scenario:
+layout, LAMB, micro batch 2 x 2048 tokens); ``spatial``: the SD v1.5 VAE
+decoder's mid block of ``chip_smoke``'s spatial phase (bf16, a 64 x 64
+latent of 512 channels, B 4), 5 calls after one warm-up call. Prints one
+JSON line per scenario:
 
 * ``wall_ms`` — host wall time of the profiled scenario (ends in a sync;
   the profiler's own host-side cost is inside it);
@@ -25,10 +27,10 @@ scenario:
 * ``top_kernels`` — the 12 kernels with the most device time;
 * ``launches_per_iteration`` — GPU launches per serving iteration, per
   forward (the prefill and each decode step) for ``generate``, per step
-  for ``train``.
+  for ``train``, per call for ``spatial``.
 
     python3 scripts/profile_torch_serving.py
-        [--scenario serve|generate|both|train|sparse_train]
+        [--scenario serve|generate|both|train|sparse_train|spatial]
         [--dtype bf16|int8|int4|w8a8|w4a8] [--trace PATH]
 
 ``--trace`` also writes the Chrome trace (of the last scenario). Needs one
@@ -61,8 +63,8 @@ PORT_KERNELS = ("ln_rows_kernel", "ln_scalar_kernel", "paged_split_kernel",
                 "quant_matmul_tc_kernel", "quant_matmul_a8_kernel",
                 "sparse_fwd_tma_kernel", "sparse_fwd_kernel", "sparse_bwd",
                 "sparse_dq", "sparse_dkv",
-                "lamb_phase1_kernel", "gn_stats_kernel", "gn_apply_kernel",
-                "quant_sym_kernel")
+                "lamb_phase1_kernel", "gn_resident_kernel", "gn_stats_kernel",
+                "gn_apply_kernel", "quant_sym_kernel")
 TRAIN_STEPS = 3
 
 
@@ -130,7 +132,7 @@ def main(argv) -> int:
                 else "serve")
     dtype = argv[argv.index("--dtype") + 1] if "--dtype" in argv else "bf16"
     if scenario not in ("serve", "generate", "both", "train",
-                        "sparse_train"):
+                        "sparse_train", "spatial"):
         print(f"profile_torch_serving: unknown scenario {scenario}",
               file=sys.stderr)
         return 1
@@ -142,6 +144,8 @@ def main(argv) -> int:
     results = []
     if scenario in ("train", "sparse_train"):
         return profile_train(smi, trace, scenario == "sparse_train")
+    if scenario == "spatial":
+        return profile_spatial(smi, trace)
     srv, _ = chip_smoke.make_server(
         torch.bfloat16 if dtype == "bf16" else dtype)
     if scenario in ("serve", "both"):
@@ -212,6 +216,37 @@ def profile_train(smi: str, trace, sparse: bool) -> int:
         card=smi, scenario=f"chip_smoke {what}",
         steps=TRAIN_STEPS, losses=[float(x) for x in losses],
         step_ms=wall * 1e3 / TRAIN_STEPS, **out)), flush=True)
+    return 0
+
+
+def profile_spatial(smi: str, trace) -> int:
+    import chip_smoke
+    from deepspeed_tpu_torch.models.spatial import mid_block
+
+    params, x, G = chip_smoke.mid_block_inputs(torch.device("cuda"))
+    calls = chip_smoke.SPATIAL_CALLS
+    with torch.no_grad():
+        mid_block(x, params, G)                       # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                mid_block(x, params, G)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    out = breakdown(prof, wall, calls)
+    if out is None:
+        print("profile_torch_serving: the profiler recorded no device "
+              "activity (device time not measured)", file=sys.stderr)
+        return 1
+    if trace:
+        prof.export_chrome_trace(trace)
+    print(json.dumps(dict(
+        card=smi, scenario="chip_smoke spatial: sd-v1.5 vae decoder mid "
+        f"block, bf16, B {x.shape[0]}, latent {x.shape[1]} x {x.shape[2]}, "
+        f"C {x.shape[3]}", calls=calls, call_ms=wall * 1e3 / calls, **out)),
+        flush=True)
     return 0
 
 

@@ -44,11 +44,16 @@ over layouts with a key-less q-tile, padded list slots and asymmetric
 per-head masks, causal and not, against their plain versions with the
 flash tolerances; the LAMB phase-1 kernel against its plain version with
 the Adam tolerances, over segments that start unaligned. The GroupNorm
-kernel runs at JAX's test shapes and the SD v1.5 VAE mid block's (B 4, HW
-4096, C 512, 32 groups) with the norm tolerances, and on 300 + 0.01 N(0, 1)
-against float64 within 1e-2; group quantization must equal its plain
-version bit for bit (q and scales); the flash forward at head_dim 264..512
-(self and cross attention, masks, alibi, GQA) within the attention
+kernels run at JAX's test shapes, the SD v1.5 VAE mid block's (B 4, HW
+4096, C 512, 32 groups), the decoder's 512 x 512 up block (B 1, HW 262144,
+C 128) and rows that do not divide the resident kernel's blocks, with the
+norm tolerances; on 300 + 0.01 N(0, 1) against float64 within 1e-2 on
+both routes; to equal bits in eager calls and across CUDA-graph replays,
+on two streams at once; one device kernel a call on the resident route,
+the stats and apply pair on the streaming one; group quantization must
+equal its plain version bit for bit (q and scales); the flash forward at
+head_dim 264..512 (self and cross attention, masks, alibi, GQA) within the
+attention
 tolerances. The flash forward's TMA / wgmma routes (16-bit, D 16..128 and
 264..512) are also held with NaN in masked K / V rows, with key tiles past
 the last query, with 4 query heads a KV head, and to bit-equal outputs in
@@ -110,6 +115,7 @@ from deepspeed_tpu_torch.ops import quant_matmul, sparse_attention
 from deepspeed_tpu_torch.ops.normalization import _launch as _ln_launch
 from deepspeed_tpu_torch.ops.normalization import ln_plan
 from deepspeed_tpu_torch.ops.paged_decode_attention import prefill_kernel
+from deepspeed_tpu_torch.ops.spatial import gn_plan
 from deepspeed_tpu_torch.ops.quant_matmul import quantize_int4
 
 pytestmark = pytest.mark.cuda
@@ -1933,7 +1939,8 @@ def test_lamb_skip_writes_nothing(dev):
 
 @pytest.mark.parametrize("B,HW,C,G", [
     (2, 256, 64, 8), (1, 1024, 96, 12), (3, 640, 128, 32), (2, 100, 24, 8),
-    (1, 77, 40, 1), (2, 33, 60, 20), (4, 4096, 512, 32)])
+    (1, 77, 40, 1), (2, 33, 60, 20), (4, 4096, 512, 32), (1, 262144, 128, 32),
+    (3, 1000, 256, 32), (4, 1024, 512, 32)])
 @pytest.mark.parametrize("dtype,atol", LOW + [(torch.float16, 4e-3)])
 @pytest.mark.parametrize("affine_f32", [False, True])
 def test_group_norm_matches_plain(dev, B, HW, C, G, dtype, atol, affine_f32):
@@ -1964,6 +1971,150 @@ def test_group_norm_stress_input_against_float64(dev):
     want = ((xg - mean) / torch.sqrt(var + 1e-5)).reshape(B, HW, C)
     assert torch.isfinite(got).all()
     assert float((got.double() - want).abs().max()) <= 1e-2
+
+
+def test_group_norm_resident_stress_against_float64(dev):
+    """The resident route in fp32 (4 x 2048 rows of 512: 63 rows a block)
+    on 300 + 0.01 N(0, 1), as the streaming route above."""
+    B, HW, C, G = 4, 2048, 512, 32
+    assert gn_plan(B, HW, C, G, 4, sm_count(dev)).route == "resident"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = 300 + 0.01 * torch.randn(B, HW, C, generator=gen, device=dev)
+    scale, bias = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+    got = fused_group_norm(x, scale, bias, G)
+    xg = x.double().reshape(B, HW, G, C // G)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    want = ((xg - mean) / torch.sqrt(var + 1e-5)).reshape(B, HW, C)
+    assert torch.isfinite(got).all()
+    assert float((got.double() - want).abs().max()) <= 1e-2
+
+
+def sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def gn_operands(dev, B, HW, C, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = t(rng.normal(size=(B, HW, C)) * 3 + 1, dev, dtype)
+    scale = t(rng.normal(size=C) * 0.1 + 1, dev, dtype)
+    bias = t(rng.normal(size=C) * 0.1, dev, dtype)
+    return x, scale, bias
+
+
+def same_bits(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+# (B, HW, C, G, dtype): the VAE mid block in bf16 and fp16 (resident, 33
+# blocks a row), rows that do not divide the blocks (resident), fp32 at the
+# mid block and the 512 x 512 up block (streaming)
+GN_REPEAT = [(4, 4096, 512, 32, torch.bfloat16),
+             (4, 4096, 512, 32, torch.float16),
+             (3, 1000, 256, 32, torch.float32),
+             (4, 4096, 512, 32, torch.float32),
+             (1, 262144, 128, 32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,HW,C,G,dtype", GN_REPEAT)
+def test_group_norm_repeatable(dev, B, HW, C, G, dtype):
+    """Equal bits in two eager calls and in every call of a CUDA graph of
+    three, replayed three times: the resident kernel's arrival counters are
+    0 again after each launch (a counter left dirty by a replay would
+    release the next barrier early, or trap at its timeout)."""
+    x, scale, bias = gn_operands(dev, B, HW, C, dtype, B * HW)
+    a = fused_group_norm(x, scale, bias, G, eps=1e-6)
+    b = fused_group_norm(x, scale, bias, G, eps=1e-6)
+    assert same_bits(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_group_norm(x, scale, bias, G, eps=1e-6)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fused_group_norm(x, scale, bias, G, eps=1e-6)
+                for _ in range(3)]
+    for _ in range(3):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(same_bits(a, o) for o in outs)
+    assert same_bits(a, fused_group_norm(x, scale, bias, G, eps=1e-6))
+
+
+def test_group_norm_two_streams(dev):
+    """Resident calls on two streams at once, each stream with its own
+    arrival counters: every output equals the eager one."""
+    x, scale, bias = gn_operands(dev, 4, 4096, 512, torch.bfloat16, 7)
+    want = fused_group_norm(x, scale, bias, 32, eps=1e-6)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    torch.cuda.synchronize()
+    for _ in range(8):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(fused_group_norm(x, scale, bias, 32, eps=1e-6))
+    torch.cuda.synchronize()
+    assert all(same_bits(want, o) for o in outs)
+
+
+GN_ROUTE_PROFILE = """
+import json, sys
+import torch
+from deepspeed_tpu_torch.ops import fused_group_norm
+dev, dtype = torch.device("cuda"), getattr(torch, sys.argv[1])
+operands = []
+for B, HW, C, G, offset in json.loads(sys.argv[2]):
+    base = torch.randn(B * HW * C + offset, device=dev).to(dtype)
+    operands.append((base[offset:].view(B, HW, C),
+                     torch.rand(C, device=dev) + 0.5,
+                     torch.randn(C, device=dev), G))
+for x, scale, bias, G in operands:
+    fused_group_norm(x, scale, bias, G)                  # build and bind
+torch.cuda.synchronize()
+with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    for x, scale, bias, G in operands:
+        fused_group_norm(x, scale, bias, G)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+# (B, HW, C, G, offset in elements): the VAE mid block, rows that do not
+# divide the blocks, the 512 x 512 up block, a view one element in
+GN_ROUTE_SHAPES = [(4, 4096, 512, 32, 0), (3, 1000, 256, 32, 0),
+                   (1, 262144, 128, 32, 0), (2, 64, 32, 8, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_launches_its_route(dev, dtype):
+    """One device kernel a call, ``gn_resident_kernel``, where ``gn_plan``
+    takes the resident route (the VAE mid block in bf16: x read once and y
+    written once); ``gn_stats_kernel`` then ``gn_apply_kernel`` elsewhere
+    (fp32 at the mid block, the 512 x 512 up block, an unaligned view).
+    Profiled in a process of its own, as the norm's route test."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = subprocess.run(
+        [sys.executable, "-c", GN_ROUTE_PROFILE, str(dtype).split(".")[1],
+         json.dumps(GN_ROUTE_SHAPES)], cwd=root, env=env,
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    item = torch.tensor([], dtype=dtype).element_size()
+    want = []
+    for B, HW, C, G, offset in GN_ROUTE_SHAPES:
+        plan = gn_plan(B, HW, C, G, item, sm_count(dev),
+                       None if offset == 0 else 1)
+        want += (["gn_resident_kernel"] if plan.route == "resident"
+                 else ["gn_stats_kernel", "gn_apply_kernel"])
+    assert want[0] == ("gn_resident_kernel" if item == 2
+                       else "gn_stats_kernel")
+    assert len(names) == len(want), names
+    assert all(w in n for w, n in zip(want, names)), names
 
 
 def test_group_norm_unaligned_view_takes_narrow_loads(dev):
