@@ -79,7 +79,25 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    ``MixedPrecisionOptimizer(..., plain=True)``) on the card from the same
    weights and batch; per-step losses, and leaf for leaf the first step's
    grads and the final params, must agree.
-12. ``sparse_train`` — OPT-1.3B at full size with DeepSpeed's Fixed sparse
+12. ``zero`` — in a world-1 NCCL group (``comm.init_distributed`` through a
+   ``file://`` store in a temporary directory), OPT-1.3B at the train
+   phase's config, weights and batch under ZeRO stages 1, 2 and 3: a
+   warm-up and ZERO_STEPS timed steps each, with the train path's exact
+   launches (one vector-route Adam launch a step), losses within
+   ZERO_LOSS_RTOL of the train phase's, at most two gather units alive at
+   stage 3; then one step with the comms logger on. Prints each stage's
+   step ms, peak memory, launches and each collective's count and bytes a
+   step.
+13. ``checkpoint`` — in the same group: OPT-1.3B at stage 2 with a WarmupLR
+   schedule trains 2 steps and is saved in format 2 (~18.4 GB) on the disk
+   of the temporary directory or the checkout with more free space
+   (failing if it has under CKPT_NEED_BYTES); ``verify_checkpoint``
+   re-hashes it; a fresh stage-3 engine loads it and must hold the same
+   params, master, moments, counts, loss scale and schedule bit for bit;
+   one more step on each, losses within ZERO_LOSS_RTOL; the 16-bit export
+   is read back bit for bit. Prints the disk, GB written, seconds and GB/s
+   of the save, the verify and the (warm) load. The group is destroyed.
+14. ``sparse_train`` — OPT-1.3B at full size with DeepSpeed's Fixed sparse
    layout (block 16, 4 local blocks, 1 global, unidirectional) as its
    ``attention_impl`` and LAMB (lr 1e-3, weight decay 0.01), bf16, micro
    batch 2 x 2048 tokens: a warm-up step, then 5 timed ``train_batch``
@@ -89,13 +107,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    once. Prints step ms, tokens/s, MFU (PR 3's formula at S 2048), peak
    memory, and beside the formula's attention FLOPs (all S^2 pairs) those
    of the pairs the layout lets attend.
-13. ``e2e_sparse_train_parity`` — OPT-1.3B widths at 2 layers, fp32, S 512,
+15. ``e2e_sparse_train_parity`` — OPT-1.3B widths at 2 layers, fp32, S 512,
    the Fixed layout, LAMB with weight decay and clipping: 3 steps through
    the kernel path and through the plain path, held as in phase 11 (the
    update within E2E_SPARSE_TRAIN_TOL; ``scripts/lamb_parity_faults.py``
    reads the same measures with faults planted in the kernel path's LAMB).
 
-14. ``spatial`` — the Stable Diffusion v1.5 VAE decoder's mid block
+16. ``spatial`` — the Stable Diffusion v1.5 VAE decoder's mid block
    (resnet -> attention -> resnet) at full width: a 64 x 64 latent of 512
    channels, 32 groups, eps 1e-6, batch 4, seeded bf16 weights (10.5 M
    parameters): a warm-up, then 5 timed calls with exact launch counts (5
@@ -103,9 +121,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    The output must be finite and within SPATIAL_TOL of the plain path.
    Prints ms a call, latents/s, the share of the bf16 peak at its FLOPs and
    peak memory.
-15. ``e2e_spatial_parity`` — the same block in fp32 on a 16 x 16 latent, B
+17. ``e2e_spatial_parity`` — the same block in fp32 on a 16 x 16 latent, B
    2: the kernel path against ``plain=True`` within E2E_TOL.
-16. ``quantize`` — ``fake_quantize`` (int8, groups of 128) over every
+18. ``quantize`` — ``fake_quantize`` (int8, groups of 128) over every
    weight leaf of OPT-1.3B in bf16 under autograd: one quantize launch a
    leaf, the gradient passed through bit for bit, |deq - w| within half a
    scale plus one bf16 ulp; then int4 ``quantize_symmetric`` over the same
@@ -141,8 +159,8 @@ yardstick).
 Then one ``{"kernels": [...]}`` line (``kernel``: the CUDA kernel that runs
 at the main path's shape; ``launches``: each wrapper's count over
 the serve run, the first generate call, the first call of each quantized
-mode, the int8 serve run, the 5 timed train steps, the 5 timed
-sparse_train steps, the 5 timed spatial calls and the quantize phase's
+mode, the int8 serve run, the 5 timed train steps, the zero phase's 2
+timed steps of each stage, the 5 timed sparse_train steps, the 5 timed spatial calls and the quantize phase's
 fake_quantize pass), the nvidia-smi line, and as the last line ``{"ok":
 true, "device": {...}}``. Each phase's line carries ``at_s``, the seconds
 since the start, and the ``kernels`` phase's line the seconds each group
@@ -157,21 +175,24 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch import initialize
+from deepspeed_tpu_torch import comm, initialize
 from deepspeed_tpu_torch.inference import init_inference
 from deepspeed_tpu_torch.inference.kv_cache import (cache_memory_bytes,
                                                     init_cache,
                                                     init_paged_cache)
 from deepspeed_tpu_torch.models import (Model, create_model, is_quantized,
                                         param_count, tree_bytes)
-from deepspeed_tpu_torch.models.core import tree_leaves
+from deepspeed_tpu_torch.models.core import tree_items, tree_leaves
 from deepspeed_tpu_torch.models.spatial import init_mid_block, mid_block
 from deepspeed_tpu_torch.models.presets import transformer_config
 from deepspeed_tpu_torch.models.transformer import (_quantize_int8,
@@ -206,13 +227,14 @@ from deepspeed_tpu_torch.ops import (fake_quantize, fused_group_norm,
                                      quantize_symmetric,
                                      reference_group_norm,
                                      reference_quantize_symmetric)
-from deepspeed_tpu_torch.ops import registry
+from deepspeed_tpu_torch.ops import fused_adam, registry
 from deepspeed_tpu_torch.ops.decode_attention import decode_split_plan
 from deepspeed_tpu_torch.ops.normalization import ln_plan
 from deepspeed_tpu_torch.ops.paged_decode_attention import (
     paged_prefill_plan, paged_split_plan, prefill_kernel)
 from deepspeed_tpu_torch.ops.spatial import gn_plan
 from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
+from deepspeed_tpu_torch.runtime import checkpoint as ckpt
 from deepspeed_tpu_torch.serving import ServingConfig, init_serving
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -2275,12 +2297,12 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_B,
                 "zero_optimization": {"stage": 0}}
 
 
-def make_trainer(dev, phase: str = "train"):
+def make_trainer(dev, phase: str = "train", config=None):
     """OPT-1.3B at full size for the training phase ``phase`` of TRAINS
     (with its sparse layout as the attention impl where it names one),
-    ``initialize`` under its config, and one fixed seeded (1, B, S) token
-    batch on the card. Returns (engine, batch, seconds ``initialize``
-    took)."""
+    ``initialize`` under its config (or ``config``), and one fixed seeded
+    (1, B, S) token batch on the card. Returns (engine, batch, seconds
+    ``initialize`` took)."""
     spec = TRAINS[phase]
     impl = (make_sparse_attention_impl(sparse_path_configs()[spec["layout"]])
             if spec["layout"] else None)
@@ -2292,7 +2314,7 @@ def make_trainer(dev, phase: str = "train"):
                                                      50272):
         raise AssertionError(f"{phase}: OPT-1.3B widths changed: {cfg}")
     t0 = time.perf_counter()
-    engine, *_ = initialize(model=model, config=spec["config"])
+    engine, *_ = initialize(model=model, config=config or spec["config"])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev)
@@ -2459,6 +2481,209 @@ def e2e_train_phase(dev):
     mask[1, 200:] = 0
     return train_parity("e2e_train_parity", model, cfg, plain_opt,
                         {"input_ids": ids, "attention_mask": mask})
+
+
+# ZeRO stages 1-3 at world 1 over NCCL: the train phase's config, weights
+# and batch, a warm-up and ZERO_STEPS timed steps a stage. Their losses are
+# held to the stage-0 train phase's within ZERO_LOSS_RTOL: the update is the
+# same math, but the flash backward's dq is summed in the order its blocks
+# finish, so the grads are not bit for bit from run to run
+ZERO_STEPS = 2
+ZERO_LOSS_RTOL = 5e-3
+# the checkpoint phase: OPT-1.3B's format-2 checkpoint (bf16 params, fp32
+# master and two moments: about 18 GB) and the 16-bit export need this much
+# free space
+CKPT_NEED_BYTES = 24e9
+
+
+def zero_config(stage: int, **extra):
+    cfg = dict(TRAIN_CONFIG, zero_optimization={"stage": stage})
+    cfg.update(extra)
+    return cfg
+
+
+def zero_stage_run(dev, stage: int, base_losses):
+    """OPT-1.3B at the train phase's config and batch under ZeRO ``stage``:
+    a warm-up and ZERO_STEPS timed steps with the train path's exact
+    launches (one vector-route Adam launch a step), then one step with the
+    comms logger on for each collective's count and bytes a step."""
+    engine, batch, init_s = make_trainer(dev, "train", zero_config(stage))
+    spec = TRAINS["train"]
+    losses = [engine.train_batch(batch=batch)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.zero.peak_live = engine.zero.live
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(ZERO_STEPS):
+        losses.append(engine.train_batch(batch=batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = {name: counts[name] for name in spec["kernels"]}
+    want = {name: per * ZERO_STEPS for name, per in spec["kernels"].items()}
+    if got != want:
+        raise AssertionError(f"zero stage {stage}: launches {got}, expected "
+                             f"{want}")
+    if fused_adam.last_route() != "vector":
+        raise AssertionError(f"zero stage {stage}: Adam took the "
+                             f"{fused_adam.last_route()} route")
+    clog = comm.get_comms_logger()
+    clog.reset()
+    clog.enabled = True
+    engine.train_batch(batch=batch)
+    clog.enabled = False
+    losses = [float(x) for x in losses]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+    if not all(np.isfinite(losses)) or rel > ZERO_LOSS_RTOL:
+        raise AssertionError(f"zero stage {stage}: losses {losses} against "
+                             f"stage 0's {base_losses[:len(losses)]}")
+    if stage == 3 and engine.zero.peak_live > 2:
+        raise AssertionError(f"zero stage 3: {engine.zero.peak_live} gather "
+                             "units alive at once")
+    tokens = spec["B"] * spec["S"]
+    out = dict(stage=stage, init_s=init_s, losses=losses,
+               stage0_losses=base_losses[:len(losses)], loss_rel_err=rel,
+               loss_rtol=ZERO_LOSS_RTOL, steps=ZERO_STEPS,
+               step_ms=wall / ZERO_STEPS * 1e3,
+               tokens_per_s=tokens * ZERO_STEPS / wall,
+               peak_mem_gb=peak / 1e9, launches=got,
+               adam_route=fused_adam.last_route(),
+               partition=engine.partition.describe(),
+               gather_units_peak=engine.zero.peak_live,
+               comm_per_step={op: {"count": v["count"], "bytes": v["bytes"]}
+                              for op, v in clog.summary().items()})
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def zero_phase(dev, base_losses):
+    """ZeRO stages 1, 2 and 3 at world 1 in the process group main() opened:
+    ``zero_stage_run`` each, against the stage-0 train phase's losses."""
+    stages, counts = {}, {}
+    for stage in (1, 2, 3):
+        stages[stage], c = zero_stage_run(dev, stage, base_losses)
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+    return counts, dict(phase="zero", model="opt-1.3b", dtype="bfloat16",
+                        world=comm.get_world_size(),
+                        backend=torch.distributed.get_backend(),
+                        stages=stages)
+
+
+def largest_disk():
+    """Of the temporary directory and the checkout, the one on the disk
+    with the more free space."""
+    return max((tempfile.gettempdir(), os.getcwd()),
+               key=lambda c: shutil.disk_usage(c).free)
+
+
+def leaf_of(engine, buf, path):
+    """Leaf ``path`` of a buffer laid out as ``engine``'s shard, at world 1
+    (every unit is whole in the shard)."""
+    part = engine.partition
+    plist = part.leaf_pieces()[path]
+    return torch.cat([buf[part.shard_offsets[i] + pc.offset:
+                          part.shard_offsets[i] + pc.offset + pc.numel]
+                      for i, pc in plist]).view(plist[0][1].shape)
+
+
+def checkpoint_phase(dev):
+    """OPT-1.3B at stage 2 (and a WarmupLR schedule) trains 2 steps and is
+    saved in format 2 on the largest local disk; the tag is verified
+    (re-hashed) and loaded into a fresh stage-3 engine, whose params,
+    master, moments, counts, loss scale and schedule must equal the saved
+    engine's bit for bit; one more step on each, losses within
+    ZERO_LOSS_RTOL; then ``save_16bit_model`` is read back bit for bit."""
+    root = largest_disk()
+    usage = shutil.disk_usage(root)
+    if usage.free < CKPT_NEED_BYTES:
+        raise AssertionError(
+            f"checkpoint: {root} has {usage.free / 1e9:.1f} GB free; the "
+            f"OPT-1.3B checkpoint needs {CKPT_NEED_BYTES / 1e9:.0f} GB")
+    sched = {"type": "WarmupLR", "params": {"warmup_num_steps": 10,
+                                            "warmup_max_lr": 1e-4}}
+    d = tempfile.mkdtemp(prefix="ckpt-", dir=root)
+    try:
+        a, batch, _ = make_trainer(dev, "train",
+                                   zero_config(2, scheduler=sched))
+        for _ in range(2):
+            a.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.save_checkpoint(d, tag="step2")
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(d) for f in fs)
+        t0 = time.perf_counter()
+        problems = ckpt.verify_checkpoint(d, "step2")
+        verify_s = time.perf_counter() - t0
+        if problems:
+            raise AssertionError(f"checkpoint: verify found {problems[:3]}")
+        b = make_trainer(dev, "train", zero_config(3, scheduler=sched))[0]
+        t0 = time.perf_counter()
+        b.load_checkpoint(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        differ = []
+        for path in a.partition.leaf_pieces():
+            for what, x, y in (
+                    ("params", a.zero.shard, b.zero.shard),
+                    ("master", a.opt_state.master, b.opt_state.master),
+                    ("exp_avg", a.opt_state.exp_avg, b.opt_state.exp_avg),
+                    ("exp_avg_sq", a.opt_state.exp_avg_sq,
+                     b.opt_state.exp_avg_sq)):
+                if not torch.equal(leaf_of(a, x, path), leaf_of(b, y, path)):
+                    differ.append(f"{what} {'.'.join(path)}")
+        for what, x, y in (
+                ("count", a.opt_state.count, b.opt_state.count),
+                ("inner_count", a.opt_state.inner_count,
+                 b.opt_state.inner_count),
+                ("global_steps", a.global_steps, b.global_steps),
+                ("loss_scale", a.cur_scale, b.cur_scale),
+                ("lr_scheduler", a.lr_scheduler.state_dict(),
+                 b.lr_scheduler.state_dict())):
+            if x != y:
+                differ.append(f"{what} {x} != {y}")
+        if differ:
+            raise AssertionError(f"checkpoint: restored state differs: "
+                                 f"{differ[:8]}")
+        la, lb = (float(e.train_batch(batch=batch)) for e in (a, b))
+        rel = abs(la - lb) / abs(la)
+        if not rel <= ZERO_LOSS_RTOL:
+            raise AssertionError(f"checkpoint: next losses {la} / {lb}")
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        path16 = b.save_16bit_model(d)
+        s16 = time.perf_counter() - t0
+        flat = ckpt.load_flat_weights(path16)
+        bad = [".".join(p) for p, t in tree_items(b.params)
+               if not torch.equal(t.cpu(), flat["##".join(p)])]
+        if bad:
+            raise AssertionError(f"checkpoint: 16-bit export differs at "
+                                 f"{bad[:4]}")
+        return dict(phase="checkpoint", model="opt-1.3b", dtype="bfloat16",
+                    save_stage=2, load_stage=3, disk=root,
+                    disk_total_gb=usage.total / 1e9,
+                    disk_free_gb=usage.free / 1e9,
+                    written_gb=written / 1e9, save_s=save_s,
+                    save_gb_per_s=written / 1e9 / save_s,
+                    verify_s=verify_s, load_s=load_s,
+                    load_gb_per_s=written / 1e9 / load_s,
+                    load_read="warm (page cache)",
+                    restored_bit_equal=True, next_losses=[la, lb],
+                    next_loss_rel_err=rel,
+                    fp16_model_gb=os.path.getsize(path16) / 1e9,
+                    save_16bit_s=s16)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 SPARSE_TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": SPARSE_B,
@@ -2756,6 +2981,16 @@ def main() -> int:
     emit(dict(e2e_train_phase(dev), card=smi))
     gc.collect()
     torch.cuda.empty_cache()
+    store = tempfile.mkdtemp(prefix="nccl-store-")
+    comm.init_distributed(dev, init_method=f"file://{store}/store", rank=0,
+                          world_size=1, timeout=600)
+    try:
+        zero_counts, zero = zero_phase(dev, train["losses"])
+        emit(dict(zero, card=smi))
+        emit(dict(checkpoint_phase(dev), card=smi))
+    finally:
+        comm.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
     sparse_counts, sparse_train = train_phase(dev, "sparse_train")
     emit(dict(sparse_train, card=smi))
     emit(dict(e2e_sparse_train_phase(dev), card=smi))
@@ -2801,6 +3036,7 @@ def main() -> int:
             launches=(counts.get(name, 0) + gen_counts.get(name, 0)
                       + quant_counts.get(name, 0)
                       + train_counts.get(name, 0)
+                      + zero_counts.get(name, 0)
                       + sparse_counts.get(name, 0)
                       + spatial_counts.get(name, 0)
                       + quantize_counts.get(name, 0)),

@@ -14,8 +14,11 @@ single-device training (``initialize(...)`` -> ``engine.train_batch``), with
 the flash-attention backward (dq, dkv) and fused Adam kernels; and
 quantized inference (``init_inference(..., dtype="int8" | "int4" | "w8a8" |
 "w4a8")``, which ``init_serving`` takes too), with the four quantized decode
-GEMM kernels. Entry points run on CUDA unless the caller passes
-``device="cpu"``.
+GEMM kernels; block-sparse attention with LAMB; the diffusers spatial
+blocks and group quantization; and data-parallel training under ZeRO
+stages 0-3 over ``torch.distributed`` (``comm``, ``parallel/zero.py``) with
+the JAX package's format-2 checkpoints (``runtime/checkpoint.py``). Entry
+points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from .inference import InferenceConfig, InferenceEngine, init_inference  # noqa: F401

@@ -1,9 +1,11 @@
 from .base import ConfigError, ConfigModel  # noqa: F401
-from .config import (BF16Config, Config, FP16Config, OptimizerConfig,  # noqa: F401
+from .config import (BF16Config, CheckpointConfig,  # noqa: F401
+                     CommsLoggerConfig, Config, FP16Config, OptimizerConfig,
                      ParallelConfig, SchedulerConfig, ServingConfig,
                      SpeculativeConfig, ZeroConfig, load_config)
 
-__all__ = ["ConfigError", "ConfigModel", "BF16Config", "Config",
+__all__ = ["ConfigError", "ConfigModel", "BF16Config", "CheckpointConfig",
+           "CommsLoggerConfig", "Config",
            "FP16Config", "OptimizerConfig", "ParallelConfig",
            "SchedulerConfig", "ServingConfig", "SpeculativeConfig",
            "ZeroConfig", "load_config"]

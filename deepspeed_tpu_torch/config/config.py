@@ -4,13 +4,14 @@ Serving: ``ServingConfig`` (:672) and ``SpeculativeConfig`` (:632) with
 their validation unchanged; the port's engine accepts only
 ``speculative.mode == 'off'`` (see ``serving/api.ServingEngine``).
 
-Training: the precision, optimizer, scheduler, ZeRO and parallel sections
-(:25-190) and the root ``Config`` with its batch triad (:1062-1192), copied
-with their validation. The JAX package's other root sections
-(observability, monitor, compression, curriculum and the like) are accepted
-as raw mappings so that a JAX config loads, and ``Config.check_ported``
-raises ``NotImplementedError`` naming each one a config sets, as it does for
-offload and for a parallel degree above 1. An unknown key raises
+Training: the precision, optimizer, scheduler, ZeRO, parallel, comms-logger
+(:213) and checkpoint (:981) sections and the root ``Config`` with its batch
+triad (:1062-1192), copied with their validation. The JAX package's other
+root sections (observability, monitor, compression, curriculum and the like)
+are accepted as raw mappings so that a JAX config loads, and
+``Config.check_ported`` raises ``NotImplementedError`` naming each one a
+config sets, as it does for offload, for a tensor / pipeline / sequence /
+expert degree above 1 and for the 1-bit optimizers. An unknown key raises
 ``ConfigError`` naming it, as in JAX.
 """
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 from .base import ConfigError, ConfigModel
 
@@ -122,8 +123,8 @@ class ZeroConfig(ConfigModel):
     """Reference: runtime/zero/config.py:76 (DeepSpeedZeroConfig).
 
     The stages shard optimizer state (1), gradients (2) and parameters (3)
-    over the data-parallel group. On one device there is no such group and
-    every stage does the same math (the port trains at world size 1 only).
+    over the data-parallel group (``parallel/zero.py``). Leaves of at most
+    ``stage3_param_persistence_threshold`` elements stay whole at stage 3.
     Bucket / overlap knobs are accepted for config compatibility."""
 
     stage: int = 0
@@ -167,8 +168,10 @@ class ZeroConfig(ConfigModel):
 
 @dataclass
 class ParallelConfig(ConfigModel):
-    """Mesh-axis degrees (JAX ``ParallelConfig``). 0 means "infer from world
-    size"; the port trains on one device, so every degree above 1 raises in
+    """Mesh-axis degrees (JAX ``ParallelConfig``). ``data_parallel_size`` 0
+    means the process group's world size (1 without a group), as JAX's 0
+    means every device; the port has no tensor / pipeline / sequence /
+    expert parallelism yet, so those degrees above 1 raise in
     ``Config.check_ported``."""
 
     data_parallel_size: int = 0
@@ -189,16 +192,52 @@ class ParallelConfig(ConfigModel):
 
 
 # ---------------------------------------------------------------------------
+# comms logger / checkpoint
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class CommsLoggerConfig(ConfigModel):
+    """Reference: deepspeed/comm/config.py."""
+
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: List[str] = field(default_factory=list)
+
+
+@dataclass
+class CheckpointConfig(ConfigModel):
+    """Reference: checkpoint section keys (tag_validation etc.)."""
+
+    tag_validation: str = "Warn"  # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write_pipeline: bool = False
+    async_save: bool = False
+
+    def validate(self) -> None:
+        if self.tag_validation.lower() not in ("ignore", "warn", "fail"):
+            raise ConfigError("checkpoint.tag_validation must be "
+                              "Ignore|Warn|Fail")
+
+
+# ---------------------------------------------------------------------------
 # root config
 # ---------------------------------------------------------------------------
 
 # root sections of the JAX config the port has no counterpart for yet
 UNPORTED_SECTIONS = (
-    "activation_checkpointing", "comms_logger", "flops_profiler", "monitor",
+    "activation_checkpointing", "flops_profiler", "monitor",
     "observability", "resilience", "rlhf", "elasticity",
     "curriculum_learning", "progressive_layer_drop", "data_efficiency",
-    "compression_training", "aio", "checkpoint", "compile_cache",
+    "compression_training", "aio", "compile_cache",
     "tensorboard", "wandb", "csv_monitor")
+
+# optimizers whose compressed all-reduce (JAX comm/compressed.py) is not
+# ported yet
+ONEBIT_OPTIMIZERS = ("onebitadam", "onebitlamb", "zerooneadam")
 
 
 @dataclass
@@ -225,10 +264,11 @@ class Config(ConfigModel):
     bf16: BF16Config = field(default_factory=BF16Config)
     zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
 
     # JAX sections without a port: kept as given, refused by check_ported
     activation_checkpointing: Optional[Dict[str, Any]] = None
-    comms_logger: Optional[Dict[str, Any]] = None
     flops_profiler: Optional[Dict[str, Any]] = None
     monitor: Optional[Dict[str, Any]] = None
     observability: Optional[Dict[str, Any]] = None
@@ -240,7 +280,6 @@ class Config(ConfigModel):
     data_efficiency: Optional[Dict[str, Any]] = None
     compression_training: Optional[Dict[str, Any]] = None
     aio: Optional[Dict[str, Any]] = None
-    checkpoint: Optional[Dict[str, Any]] = None
     compile_cache: Optional[Dict[str, Any]] = None
     tensorboard: Optional[Dict[str, Any]] = None
     wandb: Optional[Dict[str, Any]] = None
@@ -297,8 +336,11 @@ class Config(ConfigModel):
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming every setting of this config
-        that the port does not run yet: a JAX-only root section, offload,
-        or a parallel degree above 1 (the port trains on one device)."""
+        that the port does not run yet: a JAX-only root section, offload, a
+        tensor / pipeline / sequence / expert degree above 1 (the port
+        trains data-parallel only), the 1-bit optimizers, and LAMB at a
+        ``data_parallel_size`` above 1 (the engine also refuses LAMB when
+        the process group's world is above 1)."""
         missing = [f"config section '{name}'" for name in UNPORTED_SECTIONS
                    if getattr(self, name) is not None]
         zero = self.zero_optimization
@@ -306,12 +348,18 @@ class Config(ConfigModel):
             if getattr(zero, name).device != "none":
                 missing.append(f"zero_optimization.{name} (offload)")
         par = self.parallel
-        for name in ("data_parallel_size", "tensor_parallel_size",
-                     "pipeline_parallel_size", "sequence_parallel_size",
-                     "expert_parallel_size"):
+        for name in ("tensor_parallel_size", "pipeline_parallel_size",
+                     "sequence_parallel_size", "expert_parallel_size"):
             if getattr(par, name) > 1:
                 missing.append(f"parallel.{name}={getattr(par, name)} "
-                               "(the port trains on one device)")
+                               "(the port trains data-parallel only)")
+        opt = self.optimizer.type.lower()
+        if opt in ONEBIT_OPTIMIZERS:
+            missing.append(f"optimizer '{opt}' (1-bit compressed "
+                           "all-reduce, comm/compressed.py)")
+        if opt == "lamb" and par.data_parallel_size > 1:
+            missing.append(f"optimizer 'lamb' at parallel.data_parallel_size="
+                           f"{par.data_parallel_size} (LAMB at world > 1)")
         if missing:
             raise NotImplementedError(
                 "not ported to deepspeed_tpu_torch yet: " + "; ".join(missing))

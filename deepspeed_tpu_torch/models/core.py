@@ -10,7 +10,7 @@ its sharding rules; the serving slice runs on one device and has none.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
 
@@ -35,6 +35,30 @@ def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:
             yield from tree_leaves(v)
     elif tree is not None:
         yield tree
+
+
+def tree_items(tree: Any, prefix: Tuple[str, ...] = ()
+               ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) pairs in ``tree_leaves`` order; a path is the tuple of
+    dict keys down to the leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, prefix + (k,))
+    elif tree is not None:
+        yield prefix, tree
+
+
+def tree_get(tree: Any, path: Tuple[str, ...]) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_set(tree: dict, path: Tuple[str, ...], value: Any) -> None:
+    """Set the leaf at ``path``, making the dicts on the way."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:

@@ -850,13 +850,28 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
                             plain=plain, impl=impl, causal=cfg.causal)
     rope = (rope_table(positions, cfg.rotary_dim or cfg.head_dim,
                        cfg.rope_theta) if cfg.position == "rope" else None)
-    for li, layer in enumerate(_layer_views(params["layers"],
-                                            cfg.num_layers)):
+    def step(li: int, layer: Dict[str, Any], x: torch.Tensor):
         lc = (None if cache is None
               else {"k": cache["k"][li], "v": cache["v"][li]})
-        x = _layer_forward(cfg, x, layer, rope,
-                           partial(attention, layer_cache=lc), plain)
+        return _layer_forward(cfg, x, layer, rope,
+                              partial(attention, layer_cache=lc), plain)
+
+    x = _run_layers(params["layers"], cfg.num_layers, x, step)
     return head_logits(params, x, cfg, plain), cache
+
+
+def _run_layers(layers: Any, num_layers: int, x: torch.Tensor,
+                step: Callable[[int, Dict[str, Any], torch.Tensor],
+                               torch.Tensor]) -> torch.Tensor:
+    """``x = step(li, layer, x)`` for each layer. ``layers``: the stacked
+    leaves, or an object with its own ``run(x, step)`` (ZeRO stage 3's
+    ``parallel.zero.GatheredLayers``, which gathers each layer's params
+    around its step)."""
+    if not isinstance(layers, dict):
+        return layers.run(x, step)
+    for li, layer in enumerate(_layer_views(layers, num_layers)):
+        x = step(li, layer, x)
+    return x
 
 
 def head_logits(params: Dict[str, Any], x: torch.Tensor,

@@ -72,6 +72,22 @@ def reference_adam_flat(params: torch.Tensor, grads: torch.Tensor,
     return params, exp_avg, exp_avg_sq
 
 
+_last_route = None
+
+
+def vector_route(*operands: Optional[torch.Tensor]) -> bool:
+    """Whether the kernel takes 4-element vectors: every buffer aligned to
+    them (16 bytes of fp32, 8 of a 16-bit type); else the scalar route."""
+    return all(t.data_ptr() % (4 * t.element_size()) == 0
+               for t in operands if t is not None)
+
+
+def last_route() -> Optional[str]:
+    """The route of the last kernel launch: "vector" or "scalar" (None
+    before any)."""
+    return _last_route
+
+
 def _fn():
     fn = registry.library("fused_adam").dstt_fused_adam
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64]
@@ -128,10 +144,8 @@ def fused_adam_flat(params: torch.Tensor, grads: torch.Tensor,
         if t.device != params.device or not t.is_contiguous():
             raise ValueError("fused_adam_flat: every operand must be "
                              f"contiguous on {params.device}")
-    # 4-element vectors: 16 bytes of fp32, 8 of a 16-bit type
-    vec = int(all(t.data_ptr() % (4 * t.element_size()) == 0
-                  for t in (params, grads, exp_avg, exp_avg_sq, param_copy)
-                  if t is not None))
+    global _last_route
+    vec = int(vector_route(params, grads, exp_avg, exp_avg_sq, param_copy))
     err = _fn()(params.data_ptr(), grads.data_ptr(), exp_avg.data_ptr(),
                 exp_avg_sq.data_ptr(),
                 param_copy.data_ptr() if param_copy is not None else None,
@@ -147,4 +161,5 @@ def fused_adam_flat(params: torch.Tensor, grads: torch.Tensor,
                 if param_copy is not None else 1,
                 vec, torch.cuda.current_stream(params.device).cuda_stream)
     registry.check_launch("fused_adam", err)
+    _last_route = "vector" if vec else "scalar"
     return params, exp_avg, exp_avg_sq

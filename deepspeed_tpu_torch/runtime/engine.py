@@ -1,47 +1,67 @@
-"""The single-device training engine.
+"""The training engine, data-parallel over ``torch.distributed`` with ZeRO
+stages 0-3.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``TrainEngine`` and
-``initialize``) on one GPU. JAX traces one jitted step; here each step is
-eager PyTorch:
+``initialize``). JAX traces one jitted SPMD step whose shardings make XLA
+emit the collectives; here each step is eager PyTorch and the engine runs
+the collectives itself (``comm``, NCCL on the card, gloo on the CPU):
 
+  data parallel       -- every rank is given the same global micro-batch and
+                         computes on its rows ``[r * mb, (r + 1) * mb)``, as
+                         JAX shards the batch over ``data``; each loss is
+                         scaled by ``1 / (gas * world)`` (and the fp16 loss
+                         scale), so summing the ranks' grads averages them;
+                         the returned loss is the mean over the ranks
+  ZeRO                -- ``parallel/zero.py``: stages 0-1 all-reduce the
+                         grads at the step; stage 2 reduce-scatters each
+                         micro-batch's grads into the rank's fp32
+                         accumulator, and the whole grad buffer lives only
+                         through a backward; stage 3 gathers each layer's
+                         params just before the layer runs (forward and
+                         backward) and reduce-scatters its grads as the
+                         backward leaves it
   forward / backward  -- autograd over ``model.loss_fn``; the flash and norm
                          wrappers carry their backward (the flash backward
                          is two CUDA kernels)
-  grad accumulation   -- a Python loop over the gas micro-batches, each
-                         loss scaled by ``1 / gas`` (and the fp16 loss
-                         scale); grads accumulate in the optimizer's flat
-                         grad buffer, in fp32 across micro-batches (16-bit
-                         grads are added into an fp32 buffer after each)
+  grad accumulation   -- a Python loop over the gas micro-batches; 16-bit
+                         grads are added into an fp32 buffer after each
   update              -- ``MixedPrecisionOptimizer.apply``: one fused Adam
-                         (or LAMB phase-1) launch over the flat fp32
-                         master, with the clip
-                         coefficient, the fp16 unscale and the overflow skip
-                         as device scalars
+                         (or LAMB phase-1) launch over the rank's shard of
+                         the flat fp32 master, with the clip coefficient
+                         (from the all-reduced norm), the fp16 unscale and
+                         the overflow skip as device scalars; stages 1-3
+                         then all-gather the updated params that are held
+                         whole
   fp16                -- the dynamic loss scale lives on the device
+  checkpoints         -- ``runtime/checkpoint.py``: the JAX package's
+                         format 2, written and read by both packages, at any
+                         world and stage
 
 ``train_batch`` returns the mean of the micro losses as a device tensor and
-reads nothing back from the device except at ``steps_per_print``.
-
-On one device there is no data-parallel group, so ZeRO stages 0-3 all do
-the same math (JAX ``tests/unit/test_engine.py:55`` holds its stages to the
-same trajectory) and are accepted. Not ported yet (they raise):
-checkpointing (``save_checkpoint``, ``load_checkpoint``,
-``save_16bit_model``), offload, world size > 1, activation checkpointing,
-dropout / progressive layer drop / random-LTD, compression, curriculum,
-observability, and optimizers other than the Adam family and LAMB.
+reads nothing back from the device except at ``steps_per_print``. Not
+ported yet (they raise): offload, tensor / pipeline / sequence / expert
+parallelism, the 1-bit optimizers, LAMB at world > 1 or under stage 3,
+activation checkpointing, dropout / progressive layer drop / random-LTD,
+compression, curriculum, observability, and optimizers other than the Adam
+family and LAMB.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
+from .. import comm
+from ..comm.comms_logging import configure_comms_logger
 from ..config.config import Config, load_config
 from ..inference.engine import resolve_device
 from ..models.core import Model, cast_floating, param_count, tree_map
+from ..parallel.zero import ZeroParams, ZeroPartition, sharded
 from ..utils.logging import log_dist
+from .checkpoint import load_engine, save_engine, save_flat_weights
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .loss_scaler import LossScaleState, create_loss_scaler
 from .lr_schedules import build_lr_schedule
@@ -52,8 +72,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
 
 
 class TrainEngine:
-    """Owns the params (views of the optimizer's flat buffer), the
-    optimizer and loss-scale state, and the step."""
+    """Owns the rank's params and optimizer shard (``zero``, ``opt_state``),
+    the loss-scale state, and the step."""
 
     def __init__(self, model: Model, config: Config,
                  optimizer: Optional[MixedPrecisionOptimizer] = None,
@@ -66,8 +86,24 @@ class TrainEngine:
             # the JAX engine turns dropout on when the rate is > 0
             raise NotImplementedError("dropout is not ported yet")
         self.device = resolve_device(device)
+        self.world, self.rank = comm.get_world_size(), comm.get_rank()
+        if (comm.is_initialized()
+                and comm.comm_device().type != self.device.type):
+            raise ValueError(
+                f"the process group reduces {comm.comm_device().type} "
+                f"tensors but the engine runs on {self.device}")
+        dp = config.parallel.data_parallel_size
+        if dp not in (0, self.world):
+            raise ValueError(f"parallel.data_parallel_size={dp} but the "
+                             f"process group has {self.world} rank(s)")
+        if self.world > 1 and config.optimizer.type.lower() == "lamb":
+            raise NotImplementedError(
+                f"optimizer 'lamb' at world {self.world} (LAMB at world > 1 "
+                "is not ported yet)")
         self.model = model
-        self.config = config.resolve_batch_sizes(1)
+        self.config = config.resolve_batch_sizes(self.world)
+        configure_comms_logger(self.config.comms_logger,
+                               world_size=self.world)
         self.compute_dtype = _DTYPES[self.config.precision_dtype]
         model_dtype = getattr(model.config, "dtype", self.compute_dtype)
         if model_dtype != self.compute_dtype:
@@ -91,24 +127,44 @@ class TrainEngine:
         self.optimizer = (optimizer if optimizer is not None else
                           build_optimizer(self.config, self.lr_scheduler))
 
+        # every rank draws the same initial params from the seed and keeps
+        # its part of them
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.seed)
         params = tree_map(lambda t: t.to(self.device),
                           cast_floating(model.init(gen), self.compute_dtype))
-        self.opt_state = self.optimizer.init(params)
+        zcfg = self.config.zero_optimization
+        self.partition = ZeroPartition.build(
+            self.config.zero_stage, params, self.world, self.rank,
+            zcfg.stage3_param_persistence_threshold)
+        self.zero = ZeroParams(self.partition, params, self.compute_dtype,
+                               self.device)
+        stage3 = sharded(self.config.zero_stage, "params")
+        self.opt_state = self.optimizer.init_shard(
+            self.zero.shard, partitioned=self.partition.units[0].parts > 1,
+            leaf_sizes=None if stage3 else [p.numel for p in
+                                            self.partition.units[0].pieces])
+        if not stage3:
+            self.opt_state.params = self.zero.params
+            self.opt_state.param_flat = self.zero.full[0]
+            self.opt_state.grads = tree_map(lambda t: t.grad,
+                                            self.zero.params)
+            self.opt_state.grad_flat = self.zero.grad_full[0]
         del params
         self.scaler_state: LossScaleState = self.loss_scaler.init(self.device)
         gas = self.gradient_accumulation_steps()
-        self._grad_acc = (torch.zeros(self.opt_state.n, dtype=torch.float32,
-                                      device=self.device)
+        self._grad_acc = (torch.zeros(self.zero.full[0].numel(),
+                                      dtype=torch.float32, device=self.device)
                           if gas > 1 and self.compute_dtype != torch.float32
-                          else None)
+                          and self.zero.acc is None else None)
+        self.zero.release_grads()
 
         self.training_dataloader = None
         if training_data is not None:
+            # every rank loads the global micro-batch and keeps its rows
             self.training_dataloader = DeepSpeedDataLoader(
                 training_data,
-                batch_size=self.train_micro_batch_size_per_gpu(),
+                batch_size=self.train_micro_batch_size_per_gpu() * self.world,
                 collate_fn=collate_fn, seed=self.config.seed)
 
         self.global_steps = 0
@@ -118,8 +174,8 @@ class TrainEngine:
         self._pending_loss: Optional[torch.Tensor] = None
         self._last_lr = float(self.config.optimizer.params.get("lr", 0.0))
         self._window = (time.time(), 0)
-        log_dist(f"engine ready: {param_count(self.params) / 1e6:.1f}M "
-                 f"params, zero_stage={self.config.zero_stage}, "
+        log_dist(f"engine ready: {param_count(self.zero.params) / 1e6:.1f}M "
+                 f"whole params on each rank, {self.partition.describe()}, "
                  f"dtype={self.config.precision_dtype}, device={self.device}, "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
                  f"gas={gas}")
@@ -127,7 +183,9 @@ class TrainEngine:
     # -- config accessors -------------------------------------------------
     @property
     def params(self) -> Any:
-        return self.opt_state.params
+        """The whole params: views of the flat buffer at stages 0-2, copies
+        gathered from every rank at stage 3 (a collective there)."""
+        return self.zero.full_params()
 
     def train_batch_size(self) -> int:
         return self.config.train_batch_size
@@ -198,6 +256,24 @@ class TrainEngine:
             return {k: self._to_device(v) for k, v in batch.items()}
         return self._tensor(batch)
 
+    def _local(self, batch: Any) -> Any:
+        """This rank's rows of a global micro-batch (world * micro_batch
+        rows), on the device."""
+        if self.world == 1:
+            return self._to_device(batch)
+        mb = self.train_micro_batch_size_per_gpu()
+
+        def rows(x):
+            x = torch.as_tensor(x)
+            if x.shape[0] != mb * self.world:
+                raise ValueError(
+                    f"a global micro-batch has micro_batch {mb} x world "
+                    f"{self.world} = {mb * self.world} rows, got "
+                    f"{x.shape[0]}")
+            return x[self.rank * mb:(self.rank + 1) * mb]
+
+        return self._to_device(tree_map(rows, batch))
+
     def _micro_batches(self, data_iter: Optional[Iterable],
                        batch: Optional[Any]) -> List[Dict[str, Any]]:
         gas = self.gradient_accumulation_steps()
@@ -219,43 +295,61 @@ class TrainEngine:
                     "(gas, micro_batch, ...)")
             micros = [tree_map(lambda x, i=i: x[i], batch)
                       for i in range(gas)]
-        return [self._to_device(mb) for mb in micros]
+        return [self._local(mb) for mb in micros]
 
     # -- the step -----------------------------------------------------------
     def _loss(self, batch: Dict[str, Any]) -> torch.Tensor:
-        return self.model.loss_fn(self.params, batch)
+        if sharded(self.config.zero_stage, "params"):
+            return self.model.loss_fn(self.zero.step_params(), batch)
+        return self.model.loss_fn(self.zero.params, batch)
 
     def _backward(self, loss: torch.Tensor) -> None:
-        """Grads of ``loss * scale / gas`` into the flat grad buffer; 16-bit
-        grads then move into the fp32 accumulator."""
+        """Grads of ``loss * scale / (gas * world)``: into the flat grad
+        buffer (stages 0-1; 16-bit grads then move into the fp32
+        accumulator), or reduce-scattered into the rank's fp32 accumulator
+        (stages 2-3)."""
         scaled = (loss * self.scaler_state.scale if self.fp16_enabled()
                   else loss)
-        (scaled / self.gradient_accumulation_steps()).backward()
-        if self._grad_acc is not None:
-            self._grad_acc.add_(self.opt_state.grad_flat)
-            self.opt_state.grad_flat.zero_()
+        self.zero.acquire_grads()
+        (scaled / (self.gradient_accumulation_steps() * self.world)
+         ).backward()
+        self.zero.release_all()
+        if self.zero.acc is not None:
+            self.zero.reduce_persistent_grads()
+            self.zero.release_grads()
+        elif self._grad_acc is not None:
+            self._grad_acc.add_(self.zero.grad_full[0])
+            self.zero.grad_full[0].zero_()
 
     def _apply(self) -> StepStats:
-        """The optimizer step over the accumulated grads, the loss-scale
-        update, and the grads zeroed for the next step."""
-        grads = (self._grad_acc if self._grad_acc is not None
-                 else self.opt_state.grad_flat)
+        """The optimizer step over the rank's accumulated grads (all-reduced
+        first at stages 0-1), the params held whole gathered back, the
+        loss-scale update, and the grads zeroed for the next step."""
+        if self.zero.acc is not None:
+            grads = full = self.zero.acc
+        else:
+            full = (self._grad_acc if self._grad_acc is not None
+                    else self.zero.grad_full[0])
+            comm.all_reduce(full, log_name="grad_all_reduce")
+            lo, hi = self.partition.units[0].rank_range(self.rank)
+            grads = full[lo:hi]
         fp16 = self.fp16_enabled()
         stats = self.optimizer.apply(
             self.opt_state, grads,
             grad_scale=1.0 / self.scaler_state.scale if fp16 else None,
             overflow_check=fp16)
+        self.zero.gather_persistent()
         self.scaler_state = self.loss_scaler.update(self.scaler_state,
                                                     stats.skipped)
-        grads.zero_()
+        full.zero_()
         return stats
 
     def train_batch(self, data_iter: Optional[Iterable] = None,
                     batch: Optional[Any] = None) -> torch.Tensor:
-        """One full step over gas micro-batches, from ``batch`` (leaves
-        shaped (gas, micro_batch, ...)) or from ``data_iter`` / the
-        training dataloader. Returns the mean micro loss, a device
-        tensor."""
+        """One full step over gas global micro-batches, from ``batch``
+        (leaves shaped (gas, world * micro_batch, ...)) or from
+        ``data_iter`` / the training dataloader. Returns the mean micro loss
+        over the ranks, a device tensor."""
         micros = self._micro_batches(data_iter, batch)
         losses = []
         for mb in micros:
@@ -263,7 +357,8 @@ class TrainEngine:
             self._backward(loss)
             losses.append(loss.detach().float())
         stats = self._apply()
-        mean = torch.stack(losses).mean()
+        mean = comm.all_reduce(torch.stack(losses).mean(),
+                               op=comm.ReduceOp.AVG, log_name="loss")
         self.micro_steps += len(micros)
         self._end_step(stats, mean)
         return mean
@@ -292,9 +387,10 @@ class TrainEngine:
 
     # -- staged forward / backward / step ------------------------------------
     def forward(self, batch: Any) -> torch.Tensor:
-        """The micro-batch loss; ``backward()`` then ``step()`` complete the
-        reference's three-call protocol."""
-        self._pending_loss = self._loss(self._to_device(batch))
+        """The loss of this rank's rows of a global micro-batch;
+        ``backward()`` then ``step()`` complete the reference's three-call
+        protocol."""
+        self._pending_loss = self._loss(self._local(batch))
         return self._pending_loss
 
     def backward(self, loss: Optional[torch.Tensor] = None) -> None:
@@ -318,18 +414,52 @@ class TrainEngine:
 
     @torch.no_grad()
     def eval_loss(self, batch: Any) -> torch.Tensor:
+        """The eval loss of the whole ``batch`` on every rank."""
         fn = self.model.eval_loss_fn or self.model.loss_fn
-        return fn(self.params, self._to_device(batch))
+        params = (self.zero.step_params()
+                  if sharded(self.config.zero_stage, "params")
+                  else self.zero.params)
+        out = fn(params, self._to_device(batch))
+        self.zero.release_all()
+        return out
 
-    # -- checkpointing: the ZeRO / checkpoint slice --------------------------
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("checkpointing is not ported yet")
+    # -- checkpointing (JAX engine.py:1829 / :1894 / :2010) ------------------
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None,
+                        save_latest: bool = True,
+                        async_save: Optional[bool] = None) -> str:
+        """Write the params, the optimizer state and the step counters in
+        the JAX package's format 2 under ``save_dir/tag`` (default
+        ``global_step<N>``); each rank writes its own part. Returns the tag
+        directory. A collective: every rank calls it."""
+        if async_save is None:
+            async_save = self.config.checkpoint.async_save
+        return save_engine(self, save_dir, tag, client_state, save_latest,
+                           async_save)
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("checkpointing is not ported yet")
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        verify: bool = False
+                        ) -> Tuple[Optional[str], Dict]:
+        """Restore from a format-2 checkpoint written by either package, at
+        any world and stage; ``verify`` re-hashes the shards first and falls
+        back to the newest tag that verifies. Returns (load_dir, client
+        state), or (None, {}) when there is nothing to load."""
+        return load_engine(self, load_dir, tag, load_optimizer_states,
+                           load_lr_scheduler_states, verify)
 
-    def save_16bit_model(self, *args, **kwargs):
-        raise NotImplementedError("checkpointing is not ported yet")
+    def save_16bit_model(self, save_dir: str,
+                         save_filename: str = "model_fp16.npz") -> str:
+        """The whole params in the compute dtype as the JAX package's flat
+        npz (rank 0 writes; a collective at stage 3)."""
+        path = os.path.join(save_dir, save_filename)
+        params = self.params
+        if self.rank == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            save_flat_weights(params, path)
+        comm.barrier()
+        return path
 
 
 def initialize(args=None, model: Optional[Model] = None, optimizer=None,

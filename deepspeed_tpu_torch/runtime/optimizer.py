@@ -37,6 +37,15 @@ skip and the two counts as for Adam. One launch of the LAMB phase-1 kernel
 (``ops/fused_lamb.py``) covers the whole model, over a block plan whose
 blocks never straddle a leaf; phase 2 is one in-place torch op per leaf.
 
+Under ZeRO (``parallel/zero.py``) the fp32 master and the moments cover
+only the rank's shard: ``init_shard`` builds them over the shard's
+compute-dtype buffer, ``apply`` takes the shard's grads, and with
+``partitioned`` the squared grad norm of the shard is all-reduced over the
+data-parallel group before the square root, so every rank clips by the
+global norm and reads the fp16 overflow off it (a rank whose grads are not
+finite makes the sum not finite on every rank). LAMB keeps one shard that
+is the whole model (world 1, stages 0-2): its trust ratio is per leaf.
+
 The other optimizer types of the JAX package (onebitlamb, adagrad, sgd,
 lion and the onebit / zero-one families) raise ``NotImplementedError``.
 """
@@ -44,10 +53,11 @@ lion and the onebit / zero-one families) raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import comm
 from ..config.config import Config
 from ..models.core import tree_leaves, tree_map
 from ..ops.fused_adam import fused_adam_flat, reference_adam_flat
@@ -81,19 +91,25 @@ def flat_views(flat: torch.Tensor, like: Any) -> Any:
 
 @dataclasses.dataclass
 class OptimizerState:
-    """Flat buffers: ``param_flat`` / ``grad_flat`` (n,) of the compute
-    dtype, whose views are ``params`` / ``grads``; ``master`` (n,) fp32
-    when the params are 16-bit; the Adam moments (n,) fp32; for LAMB the
-    update buffer (n,) fp32 and the leaves' block plan. ``count``: steps
-    attempted (JAX's outer count); ``inner_count``: steps applied."""
+    """Flat buffers: ``shard_param`` (n,) of the compute dtype, the params
+    the update writes (the whole model, or the rank's shard under ZeRO);
+    ``master`` (n,) fp32 when the params are 16-bit; the Adam moments (n,)
+    fp32; for LAMB the update buffer (n,) fp32 and the leaves' block plan.
+    ``init`` also keeps the whole model's ``param_flat`` / ``grad_flat``
+    (``shard_param`` is ``param_flat``), whose views are ``params`` /
+    ``grads``. ``count``: steps attempted (JAX's outer count);
+    ``inner_count``: steps applied. ``partitioned``: the grads ``apply``
+    gets are the rank's shard, so the norm is all-reduced."""
 
-    params: Any
-    param_flat: torch.Tensor
-    grads: Any
-    grad_flat: torch.Tensor
+    shard_param: torch.Tensor
     master: Optional[torch.Tensor]
     exp_avg: torch.Tensor
     exp_avg_sq: torch.Tensor
+    params: Any = None
+    param_flat: Optional[torch.Tensor] = None
+    grads: Any = None
+    grad_flat: Optional[torch.Tensor] = None
+    partitioned: bool = False
     count: int = 0
     inner_count: int = 0
     pending_skip: Optional[Tuple[torch.Tensor, Any]] = None
@@ -102,7 +118,7 @@ class OptimizerState:
 
     @property
     def n(self) -> int:
-        return self.param_flat.numel()
+        return self.shard_param.numel()
 
 
 class MixedPrecisionOptimizer:
@@ -153,20 +169,35 @@ class MixedPrecisionOptimizer:
                 view.copy_(src)
                 view.requires_grad_(True)
                 view.grad = g
-        master = (param_flat.float() if self.keep_master_weights
-                  and dtype in _LOW else None)
+        state = self.init_shard(param_flat,
+                                leaf_sizes=[t.numel() for t in leaves])
+        state.params, state.param_flat = views, param_flat
+        state.grads, state.grad_flat = grads, grad_flat
+        return state
+
+    def init_shard(self, shard_param: torch.Tensor, partitioned: bool = False,
+                   leaf_sizes: Optional[List[int]] = None) -> OptimizerState:
+        """The state over a flat compute-dtype buffer the update writes in
+        place: the fp32 master (a copy of it, when it is 16-bit) and zeroed
+        moments. LAMB needs ``leaf_sizes``, the leaves the buffer holds in
+        order."""
+        n, dev = shard_param.numel(), shard_param.device
+        master = (shard_param.float() if self.keep_master_weights
+                  and shard_param.dtype in _LOW else None)
         lamb = {}
         if self.lamb:
+            if partitioned or leaf_sizes is None:
+                raise NotImplementedError(
+                    "LAMB over a partitioned shard (LAMB at world > 1, or "
+                    "under ZeRO stage 3): its trust ratio is per leaf")
             lamb = dict(
                 lamb_update=torch.zeros(n, dtype=torch.float32, device=dev),
-                segments=LambSegments.from_sizes([t.numel()
-                                                  for t in leaves]))
+                segments=LambSegments.from_sizes(leaf_sizes))
         return OptimizerState(
-            params=views, param_flat=param_flat, grads=grads,
-            grad_flat=grad_flat, master=master,
+            shard_param=shard_param, master=master,
             exp_avg=torch.zeros(n, dtype=torch.float32, device=dev),
             exp_avg_sq=torch.zeros(n, dtype=torch.float32, device=dev),
-            **lamb)
+            partitioned=partitioned, **lamb)
 
     @staticmethod
     def _drain(state: OptimizerState) -> None:
@@ -191,7 +222,8 @@ class MixedPrecisionOptimizer:
               grad_scale: Optional[torch.Tensor] = None,
               overflow_check: bool = False) -> StepStats:
         """One step, in place. ``grads``: flat (n,) in any float dtype
-        (default ``state.grad_flat``), already averaged over micro-batches;
+        (default ``state.grad_flat``), already averaged over micro-batches
+        and ranks;
         ``grad_scale``: a device scalar multiplying them first (the fp16
         unscale); ``skip``: a device bool, set when the update must not
         land; ``overflow_check``: also skip when any grad is inf or NaN
@@ -202,6 +234,9 @@ class MixedPrecisionOptimizer:
                              f"{tuple(grads.shape)}")
         self._drain(state)
         norm = torch.linalg.vector_norm(grads, dtype=torch.float32)
+        if state.partitioned:
+            sq = comm.all_reduce(norm.square(), log_name="grad_norm")
+            norm = sq.sqrt()
         scale = grad_scale
         if scale is not None:
             norm = norm * scale
@@ -211,14 +246,15 @@ class MixedPrecisionOptimizer:
         if self.grad_clip and self.grad_clip > 0:
             coef = torch.clamp(self.grad_clip / (norm + 1e-6), max=1.0)
             scale = coef if scale is None else scale * coef
-        target = state.master if state.master is not None else state.param_flat
+        target = state.master if state.master is not None \
+            else state.shard_param
         if target.dtype != torch.float32:
             raise ValueError("Adam and LAMB keep fp32 params: 16-bit params "
                              "need keep_master_weights")
         kw = dict(lr=float(self.lr_schedule(state.inner_count)),
                   beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
                   weight_decay=self.weight_decay, bias_correction=True,
-                  param_copy=(state.param_flat if state.master is not None
+                  param_copy=(state.shard_param if state.master is not None
                               else None),
                   grad_scale=(scale.reshape(1).float() if scale is not None
                               else None),

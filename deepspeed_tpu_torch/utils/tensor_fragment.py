@@ -1,0 +1,69 @@
+"""Whole leaves of the params, grads and optimizer state under ZeRO.
+
+Counterpart of ``deepspeed_tpu/utils/tensor_fragment.py``
+(``safe_get_full_fp32_param`` :31, ``safe_get_full_param`` :41,
+``safe_get_full_optimizer_state`` :46, ``safe_get_full_grad`` :62). A rank
+holds only its range of a partitioned buffer, so each call gathers the
+buffer from every rank (a collective: every rank calls it) and returns the
+leaf at ``path`` ('/'-joined keys, e.g. ``"layers/attn/wq"``) as numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import comm
+from ..models.core import tree_get
+
+
+def _leaf(tree, path: str) -> np.ndarray:
+    t = tree_get(tree, tuple(path.split("/"))).detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def safe_get_full_fp32_param(engine, path: str) -> np.ndarray:
+    """The fp32 master of a param (the param widened when there is no
+    master)."""
+    master = engine.opt_state.master
+    if master is None:
+        return _leaf(engine.params, path).astype(np.float32)
+    return _leaf(engine.zero.full_tree(master), path)
+
+
+def safe_get_full_param(engine, path: str) -> np.ndarray:
+    """The param in the compute dtype (bf16 widened to fp32)."""
+    return _leaf(engine.params, path)
+
+
+def safe_get_full_optimizer_state(engine, path: str, state_name: str
+                                  ) -> Optional[np.ndarray]:
+    """Adam's first ('exp_avg' / 'mu') or second ('exp_avg_sq' / 'nu')
+    moment of a param; None for another name."""
+    buf = {"exp_avg": engine.opt_state.exp_avg, "mu": engine.opt_state.exp_avg,
+           "exp_avg_sq": engine.opt_state.exp_avg_sq,
+           "nu": engine.opt_state.exp_avg_sq}.get(state_name)
+    if buf is None:
+        return None
+    return _leaf(engine.zero.full_tree(buf), path)
+
+
+def safe_get_full_grad(engine, path: str) -> Optional[np.ndarray]:
+    """The grads accumulated since the last step (between ``backward`` and
+    ``step``; None outside), averaged over the ranks: JAX's staged grads,
+    the sum over micro-batches of the grads of ``loss * scale / gas``."""
+    if engine._staged_count == 0:
+        return None
+    zero = engine.zero
+    if zero.acc is not None:
+        shard = zero.acc
+    else:
+        full = (engine._grad_acc if engine._grad_acc is not None
+                else zero.grad_full[0]).float().clone()
+        if engine.world > 1:
+            comm.all_reduce(full, log_name="safe_get_full_grad")
+        lo, hi = engine.partition.units[0].rank_range(engine.rank)
+        shard = full[lo:hi]
+    return _leaf(zero.full_tree(shard), path)

@@ -209,7 +209,12 @@ class TestPortRules:
                 "deepspeed_tpu_torch.ops.quantization, "
                 "deepspeed_tpu_torch.models.spatial, "
                 "deepspeed_tpu_torch.runtime, "
-                "deepspeed_tpu_torch.config; "
+                "deepspeed_tpu_torch.config, "
+                "deepspeed_tpu_torch.comm, "
+                "deepspeed_tpu_torch.parallel, "
+                "deepspeed_tpu_torch.runtime.checkpoint, "
+                "deepspeed_tpu_torch.utils.tensor_fragment, "
+                "deepspeed_tpu_torch.models.simple; "
                 "import chip_smoke; "
                 "bad = [m for m in sys.modules if m == 'jax' "
                 "or m.startswith('jax.') or m == 'deepspeed_tpu' "
@@ -233,6 +238,55 @@ class TestPortRules:
         assert eng.device.type == "cpu"
         assert all(p.device.type == "cpu"
                    for p in jax.tree.leaves(eng.params))
+
+    @pytest.mark.parametrize("section,what", [
+        ({"parallel": {"tensor_parallel_size": 2}}, "tensor_parallel_size"),
+        ({"parallel": {"pipeline_parallel_size": 2}},
+         "pipeline_parallel_size"),
+        ({"parallel": {"sequence_parallel_size": 2}},
+         "sequence_parallel_size"),
+        ({"parallel": {"expert_parallel_size": 2}}, "expert_parallel_size"),
+        ({"zero_optimization": {"stage": 2, "offload_optimizer": {
+            "device": "cpu"}}}, "offload_optimizer"),
+        ({"zero_optimization": {"stage": 3, "offload_param": {
+            "device": "nvme"}}}, "offload_param"),
+        ({"optimizer": {"type": "onebitadam"}}, "onebitadam"),
+        ({"optimizer": {"type": "onebitlamb"}}, "onebitlamb"),
+        ({"optimizer": {"type": "zerooneadam"}}, "zerooneadam"),
+        ({"optimizer": {"type": "lamb"},
+          "parallel": {"data_parallel_size": 4}}, "LAMB at world > 1"),
+    ])
+    def test_check_ported_still_refuses(self, section, what):
+        """Data parallelism is ported; the other degrees, offload, the
+        1-bit optimizers and LAMB at world > 1 still raise, naming
+        themselves."""
+        from deepspeed_tpu_torch.config import load_config
+
+        cfg = dict({"train_micro_batch_size_per_gpu": 1}, **section)
+        with pytest.raises(NotImplementedError, match=what):
+            load_config(cfg).check_ported()
+        load_config({"train_micro_batch_size_per_gpu": 1, "parallel": {
+            "data_parallel_size": 4}}).check_ported()
+
+    def test_lamb_at_world_above_one_raises(self, monkeypatch):
+        """A process group of 2 with LAMB: the engine refuses it (and
+        LAMB under stage 3, whose shard is not whole leaves)."""
+        from deepspeed_tpu_torch import comm, initialize
+        from deepspeed_tpu_torch.models import create_model
+
+        cfg = {"train_micro_batch_size_per_gpu": 1,
+               "optimizer": {"type": "lamb"}}
+        model = create_model("tiny", dtype=torch.float32)
+        monkeypatch.setattr(comm, "get_world_size", lambda group=None: 2)
+        with pytest.raises(NotImplementedError, match="LAMB at world > 1"):
+            initialize(model=model, config=cfg, device="cpu")
+        monkeypatch.undo()
+        with pytest.raises(NotImplementedError, match="stage 3"):
+            initialize(model=model, config=dict(
+                cfg, zero_optimization={"stage": 3}), device="cpu")
+        eng = initialize(model=model, config=dict(
+            cfg, zero_optimization={"stage": 2}), device="cpu")[0]
+        assert eng.opt_state.segments is not None
 
     def test_out_of_scope_raises(self):
         with pytest.raises(NotImplementedError):

@@ -374,7 +374,8 @@ def test_unknown_keys_raise_naming_the_key(cfg, key):
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
      "offload_param"),
     ({"parallel": {"tensor_parallel_size": 2}}, "tensor_parallel_size"),
-    ({"parallel": {"data_parallel_size": 2}}, "data_parallel_size"),
+    ({"parallel": {"data_parallel_size": 2},
+      "optimizer": {"type": "lamb"}}, "data_parallel_size"),
 ])
 def test_unported_config_raises(extra, what):
     cfg = load_config(dict(BENCH, **extra))

@@ -448,10 +448,11 @@ def test_unported_engine_features_raise():
         with pytest.raises(NotImplementedError):
             initialize(model=_port_model("tiny"), config=_config(**extra),
                        device="cpu")
+    for opt in ("onebitadam", "onebitlamb", "zerooneadam"):
+        with pytest.raises(NotImplementedError, match=opt):
+            initialize(model=_port_model("tiny"),
+                       config=_config(optimizer={"type": opt}),
+                       device="cpu")
     eng = _engine()
-    for method in (eng.save_checkpoint, eng.load_checkpoint,
-                   eng.save_16bit_model):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            method("/nonexistent")
     with pytest.raises(ValueError, match="leading dim"):
         eng.train_batch(batch={"input_ids": np.zeros((2, 4, SEQ), np.int64)})

@@ -1,0 +1,247 @@
+"""Process-group workers for the port's multi-process tests on the CPU.
+
+``spawn(fn, world, *args)`` starts ``world`` processes, each of which joins a
+gloo group through a ``file://`` store in a temporary directory (no TCP port,
+so tests can run side by side) with a collective timeout, runs ``fn(rank,
+world, *args)`` and sends back its result; a process that does not finish
+within ``timeout`` seconds is killed and the call raises. This module
+imports torch and the port only: the spawned children import it, and never
+JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import shutil
+import tempfile
+import traceback
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+SEQ = 32
+GLOBAL_ROWS = 8
+COLLECTIVE_TIMEOUT_S = 60
+
+
+def spawn(fn, world: int, *args, timeout: float = 240) -> List[Any]:
+    """Rank order results of ``fn(rank, world, *args)`` over a gloo group of
+    ``world`` processes."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store_dir = tempfile.mkdtemp(prefix="gloo-")
+    store = os.path.join(store_dir, "store")
+    procs = [ctx.Process(target=_run, args=(fn, r, world, store, q, args),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    results: Dict[int, Any] = {}
+    errors = []
+    try:
+        for _ in range(world):
+            rank, ok, out = q.get(timeout=timeout)
+            (results.__setitem__(rank, out) if ok
+             else errors.append(f"rank {rank}:\n{out}"))
+    except queue.Empty:
+        errors.append(f"no result within {timeout}s from ranks "
+                      f"{sorted(set(range(world)) - set(results))}")
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+def _run(fn, rank, world, store, q, args):
+    from deepspeed_tpu_torch import comm
+
+    torch.set_num_threads(1)
+    try:
+        comm.init_distributed("cpu", init_method=f"file://{store}",
+                              rank=rank, world_size=world,
+                              timeout=COLLECTIVE_TIMEOUT_S, verbose=False)
+        q.put((rank, True, fn(rank, world, *args)))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        comm.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def rank_data(rank: int, world: int, dtype=torch.float32) -> torch.Tensor:
+    """Rank ``rank``'s input to every collective test: (world * 3, 2)."""
+    rng = np.random.default_rng(100 + rank)
+    return torch.tensor(rng.normal(size=(world * 3, 2)), dtype=dtype)
+
+
+def collectives(rank: int, world: int) -> Dict[str, Any]:
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import comm
+
+    out: Dict[str, Any] = {"backend": dist.get_backend(),
+                           "rank": comm.get_rank(),
+                           "world": comm.get_world_size()}
+    clog = comm.configure_comms_logger(world_size=world)
+    clog.enabled, clog.prof_all = True, True
+    clog.reset()
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).split(".")[1]
+        x = rank_data(rank, world, dt)
+        for op in ("SUM", "AVG", "MAX", "MIN", "PRODUCT"):
+            out[f"all_reduce_{op}_{key}"] = comm.all_reduce(
+                x.clone(), op=comm.ReduceOp[op]).float().numpy()
+        out[f"all_gather_{key}"] = comm.all_gather(x).float().numpy()
+        for op in ("SUM", "AVG"):
+            out[f"reduce_scatter_{op}_{key}"] = comm.reduce_scatter(
+                x, op=comm.ReduceOp[op]).float().numpy()
+        out[f"all_to_all_{key}"] = comm.all_to_all(x).float().numpy()
+        out[f"broadcast_{key}"] = comm.broadcast(x.clone(), src=world - 1
+                                                 ).float().numpy()
+    buf = torch.zeros(world * 4)
+    buf[rank * 4:(rank + 1) * 4] = rank + 1
+    out["all_gather_in_place"] = comm.all_gather(
+        buf[rank * 4:(rank + 1) * 4], out=buf).numpy()
+    out["host_scalar"] = comm.host_all_reduce_scalar(rank + 0.5)
+    out["host_array"] = comm.host_all_gather_array(np.arange(3) * (rank + 1))
+    out["log"] = clog.summary()
+    clog.enabled = False
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training under ZeRO
+# ---------------------------------------------------------------------------
+
+def token_batches(steps: int, gas: int, seed: int = 0) -> List[Dict]:
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, 250, (gas, GLOBAL_ROWS, SEQ))}
+            for _ in range(steps)]
+
+
+def regression_batches(steps: int, seed: int = 0) -> List[Dict]:
+    from deepspeed_tpu_torch.models.simple import random_batches
+
+    return [{k: v[None] for k, v in b.items()}
+            for b in random_batches(seed, steps, GLOBAL_ROWS)]
+
+
+def port_model(case: Dict[str, Any], init: Any):
+    """The case's model, whose init is ``init`` (the JAX init, numpy)."""
+    from deepspeed_tpu_torch.models import (Model, create_model,
+                                            params_from_jax)
+    from deepspeed_tpu_torch.models.simple import simple_model
+
+    dtype = {"float32": torch.float32, "float16": torch.float16,
+             "bfloat16": torch.bfloat16}[case["dtype"]]
+    if case["model"] == "simple":
+        return simple_model(params=init, dtype=dtype)
+    model = create_model(case["model"], dtype=dtype, max_seq_len=SEQ)
+    return Model(init=lambda g: params_from_jax(init, model.config,
+                                                device=g.device),
+                 config=model.config, name=model.name,
+                 loss_fn=model.loss_fn, eval_loss_fn=model.eval_loss_fn)
+
+
+def case_config(case: Dict[str, Any], world: int, stage: int) -> Dict:
+    cfg = dict(case["config"])
+    cfg["train_micro_batch_size_per_gpu"] = GLOBAL_ROWS // world
+    cfg["zero_optimization"] = dict(cfg.get("zero_optimization", {}),
+                                    stage=stage)
+    return cfg
+
+
+def memory_stats(engine) -> Dict[str, Any]:
+    """What the rank holds between steps."""
+    part, zero, st = engine.partition, engine.zero, engine.opt_state
+    return {
+        "units": [(u.name, u.numel, u.chunk, u.gathered) for u in part.units],
+        "shard": part.shard_numel,
+        "buffers": {name: int(t.numel()) for name, t in (
+            ("shard_param", zero.shard), ("exp_avg", st.exp_avg),
+            ("exp_avg_sq", st.exp_avg_sq), ("acc", zero.acc),
+            ("master", st.master)) if t is not None},
+        "whole": {part.units[i].name: int(t.numel())
+                  for i, t in zero.full.items()},
+        "grad_bytes": sum(g.untyped_storage().nbytes()
+                          for g in zero.grad_full.values()),
+        "live": zero.live, "peak_live": zero.peak_live}
+
+
+def train_case(case: Dict[str, Any], init: Any, world: int, stage: int,
+               batches: List[Dict]) -> Dict[str, Any]:
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import params_to_numpy
+
+    eng = initialize(model=port_model(case, init),
+                     config=case_config(case, world, stage), device="cpu")[0]
+    losses, scales = [], []
+    for b in batches:
+        losses.append(float(eng.train_batch(batch=b)))
+        scales.append(eng.cur_scale)
+    return {"losses": losses, "scales": scales,
+            "skipped": eng.skipped_steps,
+            "params": params_to_numpy(eng.params),
+            "memory": memory_stats(eng)}
+
+
+def zero_runs(rank: int, world: int, cases: Dict[str, Dict],
+              inits: Dict[str, Any], ckpt: Dict[str, Any]) -> Dict:
+    """Every case of ``cases`` whose ``worlds`` include ``world``, at each
+    of its stages; then the checkpoint step: save (``ckpt["save_world"]``)
+    or load (``ckpt["load_world"]``)."""
+    out: Dict[str, Any] = {}
+    for name, case in cases.items():
+        if world not in case["worlds"]:
+            continue
+        batches = (regression_batches(case["steps"])
+                   if case["model"] == "simple"
+                   else token_batches(case["steps"], case["gas"]))
+        for stage in case["stages"]:
+            out[(name, stage)] = train_case(case, inits[name], world, stage,
+                                            batches)
+    out["checkpoint"] = checkpoint_step(rank, world, cases[ckpt["case"]],
+                                        inits[ckpt["case"]], ckpt)
+    return out
+
+
+def checkpoint_step(rank, world, case, init, ckpt) -> Dict[str, Any]:
+    """At ``save_world``: train 2 steps at ``save_stage``, save, take a
+    third step. At ``load_world``: load at ``load_stage`` and take the third
+    step. Returns the loaded / saved params, the counters and the third
+    loss."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import params_to_numpy
+    from deepspeed_tpu_torch.models.core import tree_map
+    from deepspeed_tpu_torch.runtime.checkpoint import verify_checkpoint
+
+    batches = token_batches(3, case["gas"], seed=5)
+    saving = world == ckpt["save_world"]
+    stage = ckpt["save_stage"] if saving else ckpt["load_stage"]
+    eng = initialize(model=port_model(case, init),
+                     config=case_config(case, world, stage), device="cpu")[0]
+    if saving:
+        for b in batches[:2]:
+            eng.train_batch(batch=b)
+        eng.save_checkpoint(ckpt["dir"], tag="step2")
+    else:
+        eng.load_checkpoint(ckpt["dir"])
+    # a copy: on the CPU the arrays would alias the params the next step
+    # updates in place
+    state = {"params": tree_map(np.copy, params_to_numpy(eng.params)),
+             "global_steps": eng.global_steps, "count": eng.opt_state.count,
+             "problems": verify_checkpoint(ckpt["dir"], "step2")}
+    state["loss3"] = float(eng.train_batch(batch=batches[2]))
+    state["params3"] = params_to_numpy(eng.params)
+    return state
