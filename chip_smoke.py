@@ -84,20 +84,52 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    phase's config, weights and batch under ZeRO stages 1, 2 and 3: a
    warm-up and ZERO_STEPS timed steps each, with the train path's exact
    launches (one vector-route Adam launch a step), losses within
-   ZERO_LOSS_RTOL of the train phase's, at most two gather units alive at
-   stage 3; then one step with the comms logger on. Prints each stage's
-   step ms, peak memory, launches and each collective's count and bytes a
-   step.
+   the train phase's within a bound derived in the phase (ZERO_SPREAD_
+   FACTOR times the spread of a repeat of stage 0 against the train phase,
+   at least ZERO_LOSS_FLOOR), at most two gather units alive at stage 3;
+   then one step with the comms logger on. Prints each stage's step ms,
+   peak memory, launches and each collective's count and bytes a step.
 13. ``checkpoint`` — in the same group: OPT-1.3B at stage 2 with a WarmupLR
    schedule trains 2 steps and is saved in format 2 (~18.4 GB) on the disk
    of the temporary directory or the checkout with more free space
    (failing if it has under CKPT_NEED_BYTES); ``verify_checkpoint``
    re-hashes it; a fresh stage-3 engine loads it and must hold the same
    params, master, moments, counts, loss scale and schedule bit for bit;
-   one more step on each, losses within ZERO_LOSS_RTOL; the 16-bit export
+   one more step on each, losses within the zero bound; the 16-bit export
    is read back bit for bit. Prints the disk, GB written, seconds and GB/s
-   of the save, the verify and the (warm) load. The group is destroyed.
-14. ``sparse_train`` — OPT-1.3B at full size with DeepSpeed's Fixed sparse
+   of the save, the verify and the (warm) load.
+14. ``lamb_zero`` — OPT-1.3B with the train configuration and LAMB at ZeRO
+   stages 0 and 3 (stage 3's segments are the shard's parts of leaves, the
+   per-leaf norms all-reduced): a warm-up and 2 timed steps each, exact
+   launches (one LAMB phase-1 launch a step, no Adam), stage 3's losses
+   within the zero bound of stage 0's.
+15. ``onebit`` — OPT-1.3B under ``onebitadam`` (freeze_step 2, 5 steps):
+   the first loss equals the train phase's (dense AdamW) bit for bit, the
+   next two within the zero bound, the compressed ones falling and within
+   5% of dense; ``onebitlamb`` and ``zerooneadam`` 3 steps each. Prints
+   step ms and the comms log's bytes a step, dense and compressed.
+16. ``offload_parity`` — llama-7b's widths at 2 layers, bf16, trained 3
+   steps resident, under host-memory offload and under NVMe offload, each
+   step on the tier-1 engine's grads: tier 2 equals tier 1 bit for bit
+   (losses, master, moments); every resident step is held to tier 1's by
+   ``check_adam`` from the same old state (the resident state is set to
+   tier 1's after each check), each step's losses within 1e-5; fused Adam
+   launches only resident.
+17. ``offload`` — llama-7b at full size (H 4096, 32 layers, FFN 11008,
+   vocab 32000, bf16, 1 x 2048 tokens, ZeRO 1) with its master and moments
+   (80.9 GB) in host memory: a warm-up and 2 timed steps; losses finite and
+   falling; exact launches (no Adam); the state CPU tensors and the card
+   holding only the 16-bit params and grads. Prints the step split (device
+   forward + backward, D2H, host update, H2D), the GB moved each way, peak
+   device memory and host RSS.
+18. ``nvme`` — OPT-1.3B under NVMe offload on the largest disk: 2 steps, a
+   checkpoint with its swap snapshot and one more step, the losses within
+   the zero bound of the train phase's; the checkpoint restored into a
+   fresh engine (state and next loss bit for bit). Prints GB read and written a step, GB/s, the host
+   update's seconds. The swap directories are removed.
+19. ``comm_bench`` — ``comm/benchmark.py``'s sweep at world 1: a 64 MiB
+   message an op, latency and bandwidths. The group is destroyed.
+20. ``sparse_train`` — OPT-1.3B at full size with DeepSpeed's Fixed sparse
    layout (block 16, 4 local blocks, 1 global, unidirectional) as its
    ``attention_impl`` and LAMB (lr 1e-3, weight decay 0.01), bf16, micro
    batch 2 x 2048 tokens: a warm-up step, then 5 timed ``train_batch``
@@ -107,13 +139,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    once. Prints step ms, tokens/s, MFU (PR 3's formula at S 2048), peak
    memory, and beside the formula's attention FLOPs (all S^2 pairs) those
    of the pairs the layout lets attend.
-15. ``e2e_sparse_train_parity`` — OPT-1.3B widths at 2 layers, fp32, S 512,
+21. ``e2e_sparse_train_parity`` — OPT-1.3B widths at 2 layers, fp32, S 512,
    the Fixed layout, LAMB with weight decay and clipping: 3 steps through
    the kernel path and through the plain path, held as in phase 11 (the
    update within E2E_SPARSE_TRAIN_TOL; ``scripts/lamb_parity_faults.py``
    reads the same measures with faults planted in the kernel path's LAMB).
 
-16. ``spatial`` — the Stable Diffusion v1.5 VAE decoder's mid block
+22. ``spatial`` — the Stable Diffusion v1.5 VAE decoder's mid block
    (resnet -> attention -> resnet) at full width: a 64 x 64 latent of 512
    channels, 32 groups, eps 1e-6, batch 4, seeded bf16 weights (10.5 M
    parameters): a warm-up, then 5 timed calls with exact launch counts (5
@@ -121,9 +153,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    The output must be finite and within SPATIAL_TOL of the plain path.
    Prints ms a call, latents/s, the share of the bf16 peak at its FLOPs and
    peak memory.
-17. ``e2e_spatial_parity`` — the same block in fp32 on a 16 x 16 latent, B
+23. ``e2e_spatial_parity`` — the same block in fp32 on a 16 x 16 latent, B
    2: the kernel path against ``plain=True`` within E2E_TOL.
-18. ``quantize`` — ``fake_quantize`` (int8, groups of 128) over every
+24. ``quantize`` — ``fake_quantize`` (int8, groups of 128) over every
    weight leaf of OPT-1.3B in bf16 under autograd: one quantize launch a
    leaf, the gradient passed through bit for bit, |deq - w| within half a
    scale plus one bf16 ulp; then int4 ``quantize_symmetric`` over the same
@@ -131,8 +163,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 
 The ``kernels`` phase holds the norm at llama-7b's decode step (8 x 4096)
 and serve chunk (256 rows, RMSNorm and LayerNorm with bias), generate's
-static prefill (4096 x 4096) and OPT-1.3B's training rows (4096 x 2048,
-LayerNorm with bias), each with the launch shape ``ln_plan`` gave it, the
+static prefill (4096 x 4096), OPT-1.3B's training rows (4096 x 2048,
+LayerNorm with bias) and llama-7b's under offload (2048 x 4096), each with the launch shape ``ln_plan`` gave it, the
 8- and 256-row bf16 cases also over scale copies larger than the L2; the
 paged decode kernel at the serve step
 (``serve8``: 8 rows of 0..1000 keys) and over one row of 4000 keys
@@ -152,16 +184,19 @@ streaming pair), ``F.group_norm`` as yardstick, and on 300 + 0.01 N(0, 1)
 against float64 on either route; group quantization,
 bit for bit, over OPT-1.3B's 1.316 B bf16 parameters and 64 Mi elements;
 the flash forward at head_dim 512 (the mid block's self attention,
-cross attention over 77 keys; SDPA as yardstick); and the flash forward at
-OPT-1.3B's training shape (causal, no mask; SDPA with ``is_causal`` as
-yardstick).
+cross attention over 77 keys; SDPA as yardstick); and the flash forward
+and backward at OPT-1.3B's training shape and at llama-7b's under offload
+(B 1, S 2048, 32 heads of 128; causal, no mask; SDPA with ``is_causal`` as
+yardstick). The ``kernels`` line gives those three kernels' llama-7b
+training case under ``llama_train`` (kernel or plan, error, ms).
 
 Then one ``{"kernels": [...]}`` line (``kernel``: the CUDA kernel that runs
 at the main path's shape; ``launches``: each wrapper's count over
 the serve run, the first generate call, the first call of each quantized
 mode, the int8 serve run, the 5 timed train steps, the zero phase's 2
-timed steps of each stage, the 5 timed sparse_train steps, the 5 timed spatial calls and the quantize phase's
-fake_quantize pass), the nvidia-smi line, and as the last line ``{"ok":
+timed steps of each stage 1-3, lamb_zero's 2 timed steps a stage,
+offload's 2 timed steps, the 5 timed sparse_train steps, the 5 timed
+spatial calls and the quantize phase's fake_quantize pass), the nvidia-smi line, and as the last line ``{"ok":
 true, "device": {...}}``. Each phase's line carries ``at_s``, the seconds
 since the start, and the ``kernels`` phase's line the seconds each group
 of cases took.
@@ -186,6 +221,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch import comm, initialize
+from deepspeed_tpu_torch.comm.benchmark import run_comm_benchmark
 from deepspeed_tpu_torch.inference import init_inference
 from deepspeed_tpu_torch.inference.kv_cache import (cache_memory_bytes,
                                                     init_cache,
@@ -234,6 +270,7 @@ from deepspeed_tpu_torch.ops.paged_decode_attention import (
     paged_prefill_plan, paged_split_plan, prefill_kernel)
 from deepspeed_tpu_torch.ops.spatial import gn_plan
 from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
+from deepspeed_tpu_torch.runtime.optimizer import zero_one_var_step
 from deepspeed_tpu_torch.runtime import checkpoint as ckpt
 from deepspeed_tpu_torch.serving import ServingConfig, init_serving
 
@@ -372,9 +409,10 @@ L2_BYTES = 50e6     # the H100's L2: rotated timings cycle through more
 # the norm's cases (rows, H, rms): llama-7b's decode step (8 rows) and serve
 # prefill chunk (256), 256 rows of LayerNorm with bias, generate's static
 # prefill (8 prompts padded to 512: 4096 rows), OPT-1.3B's training rows
-# (4 x 1024, H 2048, LayerNorm with bias)
+# (4 x 1024, H 2048, LayerNorm with bias), llama-7b's training rows under
+# offload (1 x 2048, RMSNorm)
 NORM_CASES = [(8, 4096, True), (256, 4096, True), (256, 4096, False),
-              (4096, 4096, True), (4096, 2048, False)]
+              (4096, 4096, True), (4096, 2048, False), (2048, 4096, True)]
 SERVE_KERNELS = ("fused_layer_norm", "paged_decode_attention",
                  "paged_prefill_attention")
 GENERATE_KERNELS = ("fused_layer_norm", "flash_attention", "decode_attention")
@@ -427,8 +465,24 @@ GN_STRESS_SHAPES = [("stress_300", 4, 4096, 512, 32),
                     ("stress_300_resident", 4, 2048, 512, 32)]
 GN_EPS = 1e-6
 QUANT_N = 1 << 26  # the quantize cases' second size (64 Mi elements)
-# the flash forward at OPT-1.3B's training shape: (B, S = T, N = K, D)
+# the flash forward and backward at the training shapes (B, S = T, N = K,
+# D): OPT-1.3B's (train) and llama-7b's under offload (offload)
 TRAIN_FLASH = (4, 1024, 32, 64)
+LLAMA_TRAIN_FLASH = (1, 2048, 32, 128)
+
+
+def flash_fwd_kernel_name(dtype, D: int) -> str:
+    """The kernel a flash forward call runs (``ops/flash_attention.py``)."""
+    return ("flash_fwd_tma_kernel" if dtype != torch.float32 and (
+        D in (16, 32, 64, 128) or (256 < D <= 512 and D % 8 == 0))
+        else "flash_fwd_kernel")
+
+
+def flash_bwd_kernel_name(dtype, D: int) -> str:
+    """The kernel(s) a flash backward call runs."""
+    return ("flash_bwd_kernel (fused)" if dtype != torch.float32
+            and D in (16, 32, 64, 128)
+            else "flash_bwd_dq_kernel + flash_bwd_dkv_kernel")
 # the flash forward at head_dim 512 (non-causal, N 1): (case, dtype, B, S, T)
 FLASH_WIDE = [("vae_mid", torch.bfloat16, 4, 4096, 4096),
               ("vae_mid", torch.float32, 2, 1024, 1024),
@@ -780,7 +834,8 @@ def flash_cases(dev, gen):
     """The static prefill of llama-7b's generate: 8 rows of 64..500 prompt
     tokens bucketed to S 512 over a 1024-column arena, 32 heads of 128, in
     bf16 and fp32; then alibi, GQA (K 8) and the cache-less S = T = 512;
-    then OPT-1.3B's training shape (``flash_train_case``)."""
+    then OPT-1.3B's and llama-7b's training shapes (``flash_train_case``).
+    """
     lens = [500, 64, 287, 133, 411, 350, 96, 222]
     specs = [("prefill", torch.bfloat16, 512, 1024, 32, False),
              ("prefill", torch.float32, 512, 1024, 32, False),
@@ -824,34 +879,40 @@ def flash_cases(dev, gen):
             library_ms=(time_ms(sdpa_call(q, k, v, keep))
                         if al is None else None),
             bound_ms=b_ms, bound_by=b_by))
-    results.append(flash_train_case(dev, gen))
+    results.append(flash_train_case(dev, gen, "train", TRAIN_FLASH))
+    results.append(flash_train_case(dev, gen, "llama_train",
+                                    LLAMA_TRAIN_FLASH))
     return results
 
 
-def flash_train_case(dev, gen):
-    """The forward at OPT-1.3B's training shape, as ``train`` runs it 24
-    times a step: bf16, B 4, S = T 1024, 32 heads of 64, causal, no mask.
-    o and the lse that the backward reads are both held to the plain
-    version. Bound: 4 D operations per visible pair and q, k, v and o once.
-    Yardstick: SDPA with ``is_causal``, its backend named."""
-    dtype, (B, S, N, D) = torch.bfloat16, TRAIN_FLASH
+def flash_train_case(dev, gen, case, shape):
+    """The forward at a training shape (B, S = T, N = K, D), bf16, causal,
+    no mask: OPT-1.3B's (B 4, S 1024, 32 heads of 64), as ``train`` runs it
+    24 times a step, or llama-7b's (B 1, S 2048, 32 heads of 128), as
+    ``offload`` runs it 32 times. o and the lse that the backward reads are
+    both held to the plain version. Bound: 4 D operations per visible pair
+    and q, k, v and o once. Yardstick: SDPA with ``is_causal``, its backend
+    named."""
+    dtype, (B, S, N, D) = torch.bfloat16, shape
     q, k, v = (torch.randn(B, S, N, D, generator=gen, device=dev).to(dtype)
                for _ in range(3))
     got, lse = flash_attention(q, k, v, causal=True, return_lse=True)
     ref, ref_lse = reference_flash_attention(q, k, v, causal=True,
                                              return_lse=True)
     if not bool(torch.isfinite(got).all() and torch.isfinite(lse).all()):
-        raise AssertionError("flash_attention train: non-finite output")
-    err = check(f"flash_attention train {dtype}", got, ref, TOL[dtype])
-    lse_err = check(f"flash_attention train {dtype} lse", lse, ref_lse,
+        raise AssertionError(f"flash_attention {case}: non-finite output")
+    err = check(f"flash_attention {case} {dtype}", got, ref, TOL[dtype])
+    lse_err = check(f"flash_attention {case} {dtype} lse", lse, ref_lse,
                     TOL[dtype])
     pairs = B * N * S * (S + 1) // 2
     b_ms, b_by = bound_ms(4 * B * S * N * D * q.element_size(),
                           4.0 * pairs * D, BF16_FLOPS)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    del ref, ref_lse
     return dict(
-        case="train", B=B, S=S, T=S, N=N, K=N, D=D, lens=None, alibi=False,
+        case=case, B=B, S=S, T=S, N=N, K=N, D=D, lens=None, alibi=False,
         causal=True, dtype=str(dtype), max_abs_err=err,
+        kernel=flash_fwd_kernel_name(dtype, D),
         lse_max_abs_err=lse_err,
         tol=dict(zip(("atol", "rtol"), TOL[dtype])),
         ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
@@ -970,20 +1031,24 @@ def flash_bwd_cases(dev, gen):
     """The flash backward (``flash_attention_bwd``: delta, dq, dk and dv in
     one call) at OPT-1.3B's training shape (B 4, S = T 1024, 32 heads of 64,
     causal, no mask) in bf16 and fp32; then GQA (K 8) and alibi with
-    right-padded masks with holes, whose masked keys hold STALE. Inputs o /
+    right-padded masks with holes, whose masked keys hold STALE; then
+    llama-7b's training shape under offload (bf16, B 1, S = T 2048, 32
+    heads of 128, causal, no mask: the fused pass at D 128). Inputs o /
     lse are the plain forward's; the yardstick is autograd of
     ``scaled_dot_product_attention`` (the backward alone, all three
     gradients) with the same causality and mask. The bound: 10 D operations
     per visible pair (S, dP, dV, dK, dQ) and the bytes of q, k, v, o, dO,
     lse (and the mask) read once and dq, dk, dv written once; the fp32 dq
     accumulator is scratch and is not counted."""
-    D = 64
-    specs = [("train", torch.bfloat16, 4, 1024, 32, 32, False, False),
-             ("train", torch.float32, 4, 1024, 32, 32, False, False),
-             ("gqa_mask", torch.bfloat16, 4, 512, 32, 8, True, False),
-             ("alibi_mask", torch.bfloat16, 2, 512, 32, 32, True, True)]
+    LB, LS, LN, LD = LLAMA_TRAIN_FLASH
+    specs = [("train", torch.bfloat16, 4, 1024, 32, 32, 64, False, False),
+             ("train", torch.float32, 4, 1024, 32, 32, 64, False, False),
+             ("gqa_mask", torch.bfloat16, 4, 512, 32, 8, 64, True, False),
+             ("alibi_mask", torch.bfloat16, 2, 512, 32, 32, 64, True, True),
+             ("llama_train", torch.bfloat16, LB, LS, LN, LN, LD, False,
+              False)]
     out = []
-    for case, dtype, B, S, N, K, masked, use_alibi in specs:
+    for case, dtype, B, S, N, K, D, masked, use_alibi in specs:
         T = S
         if masked:
             lens = [S - 97 * b for b in range(B)]
@@ -1046,6 +1111,7 @@ def flash_bwd_cases(dev, gen):
         out.append(dict(
             case=case, B=B, S=S, T=T, N=N, K=K, D=D, causal=True,
             masked=masked, alibi=use_alibi, dtype=str(dtype),
+            kernel=flash_bwd_kernel_name(dtype, D),
             tol=dict(zip(("atol", "rtol"), TOL[dtype]),
                      round=BWD_ROUND[dtype]),
             max_abs_err=max(errs), visible_pairs=pairs,
@@ -2485,11 +2551,20 @@ def e2e_train_phase(dev):
 
 # ZeRO stages 1-3 at world 1 over NCCL: the train phase's config, weights
 # and batch, a warm-up and ZERO_STEPS timed steps a stage. Their losses are
-# held to the stage-0 train phase's within ZERO_LOSS_RTOL: the update is the
-# same math, but the flash backward's dq is summed in the order its blocks
-# finish, so the grads are not bit for bit from run to run
+# held to the stage-0 train phase's: the update is the same math, but the
+# flash backward's dq is summed in the order its blocks finish, so the grads
+# are not bit for bit from run to run. The bound is derived in the phase: a
+# repeat of stage 0 against the train phase gives the run-to-run spread of
+# the losses (the same code twice), and a stage may differ from stage 0 by
+# ZERO_SPREAD_FACTOR times that spread, at least ZERO_LOSS_FLOOR. Measured
+# on an H100 80GB HBM3, 700 W: repeat spreads 7.9e-6 to 1.57e-5, stages 1-3
+# within 1.25e-5 to 1.45e-5 of stage 0 (a fixed 5e-3 held them before). The
+# same bound holds the phases that repeat the train configuration:
+# lamb_zero's stage 3 against its stage 0, onebit's dense warm-up and nvme
+# against the train phase
 ZERO_STEPS = 2
-ZERO_LOSS_RTOL = 5e-3
+ZERO_SPREAD_FACTOR = 10.0
+ZERO_LOSS_FLOOR = 1e-4
 # the checkpoint phase: OPT-1.3B's format-2 checkpoint (bf16 params, fp32
 # master and two moments: about 18 GB) and the 16-bit export need this much
 # free space
@@ -2536,16 +2611,15 @@ def zero_stage_run(dev, stage: int, base_losses):
     clog.enabled = False
     losses = [float(x) for x in losses]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
-    if not all(np.isfinite(losses)) or rel > ZERO_LOSS_RTOL:
-        raise AssertionError(f"zero stage {stage}: losses {losses} against "
-                             f"stage 0's {base_losses[:len(losses)]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"zero stage {stage}: losses {losses}")
     if stage == 3 and engine.zero.peak_live > 2:
         raise AssertionError(f"zero stage 3: {engine.zero.peak_live} gather "
                              "units alive at once")
     tokens = spec["B"] * spec["S"]
     out = dict(stage=stage, init_s=init_s, losses=losses,
                stage0_losses=base_losses[:len(losses)], loss_rel_err=rel,
-               loss_rtol=ZERO_LOSS_RTOL, steps=ZERO_STEPS,
+               steps=ZERO_STEPS,
                step_ms=wall / ZERO_STEPS * 1e3,
                tokens_per_s=tokens * ZERO_STEPS / wall,
                peak_mem_gb=peak / 1e9, launches=got,
@@ -2561,16 +2635,32 @@ def zero_stage_run(dev, stage: int, base_losses):
 
 
 def zero_phase(dev, base_losses):
-    """ZeRO stages 1, 2 and 3 at world 1 in the process group main() opened:
-    ``zero_stage_run`` each, against the stage-0 train phase's losses."""
+    """ZeRO stages 0 (a repeat), 1, 2 and 3 at world 1 in the process group
+    main() opened: ``zero_stage_run`` each, against the stage-0 train
+    phase's losses; the repeat's spread sets the bound (ZERO_SPREAD_FACTOR)
+    the other stages are held to. Returns (counts of stages 1-3, the
+    phase's JSON with the bound as ``loss_rtol``)."""
     stages, counts = {}, {}
-    for stage in (1, 2, 3):
+    for stage in (0, 1, 2, 3):
         stages[stage], c = zero_stage_run(dev, stage, base_losses)
+        if stage == 0:
+            continue
         for name, n in c.items():
             counts[name] = counts.get(name, 0) + n
+    spread = stages[0]["loss_rel_err"]
+    bound = max(ZERO_LOSS_FLOOR, ZERO_SPREAD_FACTOR * spread)
+    for stage in (1, 2, 3):
+        if not stages[stage]["loss_rel_err"] <= bound:
+            raise AssertionError(
+                f"zero stage {stage}: losses {stages[stage]['losses']} "
+                f"against stage 0's {base_losses[:ZERO_STEPS + 1]}: "
+                f"{stages[stage]['loss_rel_err']} above {bound}")
     return counts, dict(phase="zero", model="opt-1.3b", dtype="bfloat16",
                         world=comm.get_world_size(),
                         backend=torch.distributed.get_backend(),
+                        stage0_repeat_spread=spread,
+                        spread_factor=ZERO_SPREAD_FACTOR,
+                        loss_floor=ZERO_LOSS_FLOOR, loss_rtol=bound,
                         stages=stages)
 
 
@@ -2591,13 +2681,14 @@ def leaf_of(engine, buf, path):
                       for i, pc in plist]).view(plist[0][1].shape)
 
 
-def checkpoint_phase(dev):
+def checkpoint_phase(dev, bound):
     """OPT-1.3B at stage 2 (and a WarmupLR schedule) trains 2 steps and is
     saved in format 2 on the largest local disk; the tag is verified
     (re-hashed) and loaded into a fresh stage-3 engine, whose params,
     master, moments, counts, loss scale and schedule must equal the saved
-    engine's bit for bit; one more step on each, losses within
-    ZERO_LOSS_RTOL; then ``save_16bit_model`` is read back bit for bit."""
+    engine's bit for bit; one more step on each, losses within ``bound``
+    (the zero phase's); then ``save_16bit_model`` is read back bit for
+    bit."""
     root = largest_disk()
     usage = shutil.disk_usage(root)
     if usage.free < CKPT_NEED_BYTES:
@@ -2653,7 +2744,7 @@ def checkpoint_phase(dev):
                                  f"{differ[:8]}")
         la, lb = (float(e.train_batch(batch=batch)) for e in (a, b))
         rel = abs(la - lb) / abs(la)
-        if not rel <= ZERO_LOSS_RTOL:
+        if not rel <= bound:
             raise AssertionError(f"checkpoint: next losses {la} / {lb}")
         del a
         gc.collect()
@@ -2684,6 +2775,484 @@ def checkpoint_phase(dev):
         shutil.rmtree(d, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# LAMB under ZeRO, the 1-bit optimizers, optimizer-state offload, the sweep
+# ---------------------------------------------------------------------------
+
+
+LAMB_ZERO_CONFIG = dict(TRAIN_CONFIG, optimizer={"type": "lamb",
+                                                 "params": {"lr": 1e-4}})
+# the train path's launches a step with LAMB: one phase-1 launch over the
+# rank's shard (its segments are parts of leaves at stage 3), no Adam
+LAMB_ZERO_KERNELS = dict(TRAIN_KERNELS, fused_adam=0, fused_lamb=1)
+
+
+def lamb_zero_phase(dev, bound):
+    """OPT-1.3B, the train configuration with LAMB, at ZeRO stages 0 and 3:
+    a warm-up and ZERO_STEPS timed steps each with exact launches; stage 3's
+    losses within ``bound`` (the zero phase's) of stage 0's."""
+    runs, counts = {}, {}
+    for stage in (0, 3):
+        cfg = dict(LAMB_ZERO_CONFIG, zero_optimization={"stage": stage})
+        engine, batch, init_s = make_trainer(dev, "train", cfg)
+        losses = [engine.train_batch(batch=batch)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(ZERO_STEPS):
+            losses.append(engine.train_batch(batch=batch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = launch_counts()
+        got = {name: c[name] for name in LAMB_ZERO_KERNELS}
+        want = {name: per * ZERO_STEPS
+                for name, per in LAMB_ZERO_KERNELS.items()}
+        if got != want:
+            raise AssertionError(f"lamb_zero stage {stage}: launches {got}, "
+                                 f"expected {want}")
+        for name, n in got.items():
+            counts[name] = counts.get(name, 0) + n
+        losses = [float(x) for x in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"lamb_zero stage {stage}: {losses}")
+        seg = engine.opt_state.segments
+        runs[stage] = dict(init_s=init_s, losses=losses,
+                           step_ms=wall / ZERO_STEPS * 1e3,
+                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           launches=got, segments=len(seg.sizes),
+                           leaves=seg.n_leaves or len(seg.sizes))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(runs[3]["losses"], runs[0]["losses"]))
+    if not rel <= bound:
+        raise AssertionError(f"lamb_zero: stage 3's losses {runs[3]['losses']}"
+                             f" against stage 0's {runs[0]['losses']}")
+    return counts, dict(phase="lamb_zero", model="opt-1.3b", dtype="bfloat16",
+                        optimizer=LAMB_ZERO_CONFIG["optimizer"],
+                        loss_rel_err=rel, loss_rtol=bound, stages=runs)
+
+
+# onebitadam's losses after its warm-up stay within ONEBIT_DENSE_RTOL of the
+# dense AdamW run's (the JAX package's tests/unit/test_onebit.py bound)
+ONEBIT_DENSE_RTOL = 0.05
+ONEBIT_STEPS = 5
+
+
+def onebit_config(kind: str, **params):
+    return dict(TRAIN_CONFIG, optimizer={"type": kind, "params": dict(
+        {"lr": 1e-4}, **params)})
+
+
+def onebit_run(dev, cfg, steps: int, logged=()):
+    """``steps`` train steps of OPT-1.3B under ``cfg``; the comms logger on
+    for the steps in ``logged``. Returns (losses, step seconds, per logged
+    step the comms summary, the engine's dense / compressed choice a
+    step)."""
+    engine, batch, _ = make_trainer(dev, "train", cfg)
+    clog = comm.get_comms_logger()
+    losses, secs, logs, kinds = [], [], {}, []
+    for step in range(steps):
+        ob = engine._onebit
+        count = engine.opt_state.count
+        kinds.append("dense" if count < ob["freeze"] or (
+            ob["zero_one"] is not None
+            and zero_one_var_step(count, *ob["zero_one"])) else "compressed")
+        if step in logged:
+            clog.reset()
+            clog.enabled = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        secs.append(time.perf_counter() - t0)
+        if step in logged:
+            clog.enabled = False
+            logs[step] = {op: {"count": v["count"], "bytes": v["bytes"]}
+                          for op, v in clog.summary().items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, secs, logs, kinds, peak
+
+
+def onebit_phase(dev, base_losses, bound):
+    """OPT-1.3B with the train configuration under the 1-bit optimizers at
+    world 1 (the exchange is a copy, but the quantization and the error
+    feedback run): onebitadam with freeze_step 2 for ONEBIT_STEPS steps,
+    against the train phase's dense AdamW losses: the first equal bit for
+    bit, the two after the dense warm-up steps within ``bound``, the rest
+    falling and within ONEBIT_DENSE_RTOL; then onebitlamb and zerooneadam 3
+    steps each. The comms logger reads a dense and a compressed step."""
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, logs, kinds, peak = onebit_run(
+        dev, onebit_config("onebitadam", freeze_step=2), ONEBIT_STEPS,
+        logged=(1, ONEBIT_STEPS - 1))
+    dense = base_losses[:ONEBIT_STEPS]
+    warm = max(abs(a - b) / abs(b) for a, b in zip(losses[1:3], dense[1:3]))
+    after = max(abs(a - b) / abs(b) for a, b in zip(losses[3:], dense[3:]))
+    if not (losses[0] == dense[0] and warm <= bound
+            and after <= ONEBIT_DENSE_RTOL and losses[-1] < losses[0]
+            and all(np.isfinite(losses))):
+        raise AssertionError(f"onebit: onebitadam losses {losses} against "
+                             f"dense AdamW's {dense}")
+    wire = {k: sum(v["bytes"] for op, v in log.items()
+                   if op.startswith("onebit_"))
+            for k, log in (("dense", logs[1]),
+                           ("compressed", logs[ONEBIT_STEPS - 1]))}
+    out = dict(phase="onebit", model="opt-1.3b", dtype="bfloat16",
+               world=comm.get_world_size(),
+               onebitadam=dict(freeze_step=2, losses=losses, kinds=kinds,
+                               dense_adamw_losses=dense,
+                               warmup_rel_err=warm, warmup_rtol=bound,
+                               compressed_rel_err=after,
+                               compressed_rtol=ONEBIT_DENSE_RTOL,
+                               step_ms=[x * 1e3 for x in secs],
+                               logged_steps=[1, ONEBIT_STEPS - 1],
+                               comm_dense_step=logs[1],
+                               comm_compressed_step=logs[ONEBIT_STEPS - 1],
+                               wire_bytes_a_step=wire, peak_mem_gb=peak))
+    for kind, params in (("onebitlamb", dict(freeze_step=1)),
+                         ("zerooneadam", dict(freeze_step=1,
+                                              var_update_scaler=1))):
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, _, kinds, peak = onebit_run(
+            dev, onebit_config(kind, **params), 3)
+        if not all(np.isfinite(losses)) or "compressed" not in kinds:
+            raise AssertionError(f"onebit: {kind} losses {losses}, {kinds}")
+        out[kind] = dict(params, losses=losses, kinds=kinds,
+                         step_ms=[x * 1e3 for x in secs], peak_mem_gb=peak)
+    return out
+
+
+# elements a sub-group of the offload tiers: each of its 16-bit grads and
+# params crosses the PCIe bus in one copy, and the host update works on the
+# whole group in place (host_adam_flat: three fp32 scratch rows of this size,
+# 1.2 GB, allocated once; two pinned staging buffers of each kind)
+OFFLOAD_SUB_GROUP = 10 ** 8
+
+
+def offload_config(tier: str, nvme_path: str = "", stage: int = 1,
+                   sub_group: int = OFFLOAD_SUB_GROUP, **extra):
+    zero = {"stage": stage, "sub_group_size": sub_group}
+    if tier != "none":
+        zero["offload_optimizer"] = {"device": tier, "nvme_path": nvme_path}
+    cfg = dict(TRAIN_CONFIG, zero_optimization=zero,
+               aio={"thread_count": 4, "queue_depth": 8})
+    cfg.update(extra)
+    return cfg
+
+
+OFFLOAD_PARITY_S = 1024
+OFFLOAD_PARITY_STEPS = 3
+# fused Adam launches over the parity phase's steps: the resident engine
+# once a step, the offload tiers never (their update runs on the host)
+OFFLOAD_PARITY_ADAM = {"cpu": 0, "nvme": 0, "none": OFFLOAD_PARITY_STEPS}
+# each step's resident loss against tier 1's, relative to that loss: every
+# step starts both engines from the same params (the resident state is
+# reset to tier 1's after each step's check), so they differ only by the
+# forward's run-to-run rounding
+OFFLOAD_PARITY_LOSS_RTOL = 1e-5
+
+
+def offload_parity_phase(dev, root):
+    """llama-7b's widths cut to 2 layers (bf16, 1 x OFFLOAD_PARITY_S
+    tokens, AdamW with weight decay, stage 1, OFFLOAD_SUB_GROUP) trained
+    OFFLOAD_PARITY_STEPS steps three ways: resident (the fused Adam
+    kernel), tier 1 (host memory) and tier 2 (NVMe under ``root``). Each
+    step the tier-1 engine's grads are copied into the other two after
+    their backward, so they differ in the optimizer alone (the flash
+    backward is not bit for bit from run to run). Tier 2's losses, master
+    and moments equal tier 1's bit for bit. Every step, the resident
+    master and moments are held to tier 1's by ``check_adam`` (the kernel
+    against the plain version's arithmetic on the host, from the same old
+    state and grads), then the resident state and params are set to tier
+    1's, so the next step starts both from the same state; each step's
+    losses agree within OFFLOAD_PARITY_LOSS_RTOL."""
+    model = create_model("llama-7b", dtype=torch.bfloat16, num_layers=2,
+                         max_seq_len=OFFLOAD_PARITY_S)
+    opt = {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.01}}
+    cfg = lambda tier: offload_config(  # noqa: E731
+        tier, os.path.join(root, tier), train_micro_batch_size_per_gpu=1,
+        optimizer=opt)
+    engines = {tier: initialize(model=model, config=cfg(tier))[0]
+               for tier in ("cpu", "nvme", "none")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    batch = {"input_ids": torch.randint(
+        0, model.config.vocab_size, (1, OFFLOAD_PARITY_S), generator=gen,
+        device=dev)}
+    st = {t: e.opt_state for t, e in engines.items()}
+    kinds = ("master", "exp_avg", "exp_avg_sq")
+    if not torch.equal(st["none"].master.cpu(), st["cpu"].master):
+        raise AssertionError("offload_parity: the tiers start from "
+                             "different masters")
+    losses = {t: [] for t in engines}
+    counts, stats, errs, rels = {}, {}, [], []
+    for step in range(OFFLOAD_PARITY_STEPS):
+        old = [getattr(st["cpu"], k).to(dev) for k in kinds]
+        grads = None
+        for tier in ("cpu", "nvme", "none"):
+            eng = engines[tier]
+            reset_launch_counts()
+            losses[tier].append(float(eng.forward(batch).detach()))
+            eng.backward()
+            if grads is None:
+                grads = st[tier].grad_flat.clone()
+            else:
+                st[tier].grad_flat.copy_(grads)
+            eng.step()
+            torch.cuda.synchronize()
+            c = launch_counts()
+            counts[tier] = counts.get(tier, 0) + c["fused_adam"]
+            if tier != "none":
+                stats[tier] = dict(st[tier].offload.stats)
+        kw = dict(step=step + 1, lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                  weight_decay=0.01)
+        ref = [getattr(st["cpu"], k).to(dev) for k in kinds]
+        got = [getattr(st["none"], k) for k in kinds]
+        errs.append(check_adam(f"offload_parity step {step + 1}", old, got,
+                               ref, grads, torch.ones(1, device=dev), kw))
+        rels.append(abs(losses["none"][-1] - losses["cpu"][-1])
+                    / abs(losses["cpu"][-1]))
+        for dst, src in zip(got, ref):
+            dst.copy_(src)
+        st["none"].shard_param.copy_(st["cpu"].shard_param)
+        del old, ref, got, grads
+    swapped = st["nvme"].offload.read_state(st["nvme"].n)
+    same = (losses["nvme"] == losses["cpu"] and all(
+        torch.equal(swapped[k], getattr(st["cpu"], k)) for k in kinds))
+    if not same:
+        raise AssertionError(f"offload_parity: tier 2 {losses['nvme']} is "
+                             f"not tier 1 {losses['cpu']} bit for bit")
+    if max(rels) > OFFLOAD_PARITY_LOSS_RTOL or counts != OFFLOAD_PARITY_ADAM:
+        raise AssertionError(f"offload_parity: resident losses "
+                             f"{losses['none']} against tier 1's "
+                             f"{losses['cpu']}; fused_adam launches {counts}")
+    n = st["cpu"].n
+    st["nvme"].offload.close(remove=True)
+    del engines, st, swapped
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(phase="offload_parity", model="llama-7b", layers=2,
+                dtype="bfloat16", tokens=OFFLOAD_PARITY_S, elements=n,
+                losses=losses, tier2_equals_tier1=True,
+                resident_step_max_abs_err=errs,
+                adam_tol=dict(rtol_of_terms=ADAM_RTOL,
+                              p_round=ADAM_P_ROUND),
+                resident_loss_rel_err=rels,
+                loss_rtol=OFFLOAD_PARITY_LOSS_RTOL,
+                fused_adam_launches=counts, last_step=stats)
+
+
+# the llama-7b train path's launches a step under offload: one flash
+# forward and backward a layer, two RMS norms a layer and the final one,
+# and no Adam launch (the update runs on the host)
+OFFLOAD_KERNELS = {"flash_attention": 32, "flash_attention_bwd": 32,
+                   "fused_layer_norm": 65, "fused_adam": 0}
+OFFLOAD_S = 2048
+# timed steps after the warm-up one
+OFFLOAD_STEPS = 2
+
+
+def host_memory_gb():
+    """(RSS, peak RSS) of this process in GB, from /proc/self/status."""
+    vals = {}
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith(("VmRSS:", "VmHWM:")):
+                key, kb = line.split()[:2]
+                vals[key[:-1]] = int(kb) * 1024 / 1e9
+    return vals.get("VmRSS"), vals.get("VmHWM")
+
+
+def offload_phase(dev):
+    """llama-7b at full size (H 4096, 32 layers, FFN 11008, vocab 32000,
+    bf16) trained under tier 1: ZeRO 1, micro batch 1 x OFFLOAD_S, gas 1,
+    AdamW, the master and moments (80.9 GB) in host memory, sub-groups of
+    OFFLOAD_SUB_GROUP elements. A warm-up step, then OFFLOAD_STEPS timed
+    step(s) on one seeded batch: losses finite and falling, exact launches
+    (no Adam), the state CPU tensors and the device holding the bf16 params
+    and grads alone; the step split into device forward + backward (the wall before
+    the host pipeline starts), D2H, host update and H2D."""
+    model = create_model("llama-7b", dtype=torch.bfloat16,
+                         max_seq_len=OFFLOAD_S)
+    check_llama_7b(model.config)
+    cfg = offload_config("cpu", train_micro_batch_size_per_gpu=1)
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=model, config=cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    st = engine.opt_state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    batch = {"input_ids": torch.randint(0, model.config.vocab_size,
+                                        (1, 1, OFFLOAD_S), generator=gen,
+                                        device=dev)}
+    t0 = time.perf_counter()
+    losses = [float(engine.train_batch(batch=batch))]
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    steps = []
+    for _ in range(OFFLOAD_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        wall = time.perf_counter() - t0
+        s = dict(st.offload.stats)
+        steps.append(dict(
+            step_s=wall, device_fwd_bwd_s=wall - s["apply_s"],
+            host_pipeline_s=s["apply_s"], host_update_s=s["update_s"],
+            host_wait_s=s["wait_s"], d2h_ms=s["d2h_ms"], h2d_ms=s["h2d_ms"],
+            d2h_gb=s["d2h_bytes"] / 1e9, h2d_gb=s["h2d_bytes"] / 1e9,
+            d2h_gb_per_s=(s["d2h_bytes"] / 1e6 / s["d2h_ms"]
+                          if s["d2h_ms"] else None),
+            h2d_gb_per_s=(s["h2d_bytes"] / 1e6 / s["h2d_ms"]
+                          if s["h2d_ms"] else None)))
+    counts = launch_counts()
+    got = {name: counts[name] for name in OFFLOAD_KERNELS}
+    want = {n: per * OFFLOAD_STEPS for n, per in OFFLOAD_KERNELS.items()}
+    if got != want:
+        raise AssertionError(f"offload: launches {got}, expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"offload: losses {losses} not finite and "
+                             "falling")
+    on_host = all(t.device.type == "cpu" for t in (
+        st.master, st.exp_avg, st.exp_avg_sq))
+    n = st.n
+    params_bytes = 2 * n * st.shard_param.element_size()   # params, grads
+    allocated = torch.cuda.memory_allocated()
+    # the state (12 bytes an element) is not on the card: what the card
+    # holds between steps is the 16-bit params and grads and little else
+    if not on_host or allocated > params_bytes + 2e9:
+        raise AssertionError(f"offload: state on the host {on_host}, the "
+                             f"card holds {allocated / 1e9:.1f} GB")
+    rss, hwm = host_memory_gb()
+    out = dict(phase="offload", model="llama-7b", dtype="bfloat16",
+               config=cfg, tokens=OFFLOAD_S, params=n, init_s=init_s,
+               warmup_s=warm_s, losses=losses, steps=steps,
+               step_ms=sum(x["step_s"] for x in steps) / len(steps) * 1e3,
+               tokens_per_s=OFFLOAD_S * len(steps)
+               / sum(x["step_s"] for x in steps),
+               launches=got, state_on_host=on_host,
+               host_state_gb=st.offload.host_bytes() / 1e9,
+               sub_groups=len(st.offload.groups),
+               device_allocated_gb=allocated / 1e9,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               host_rss_gb=rss, host_peak_rss_gb=hwm)
+    del engine, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+# steps before the checkpoint, and 1 after it on each engine
+NVME_STEPS = 2
+NVME_SUB_GROUP = OFFLOAD_SUB_GROUP
+# the nvme phase: OPT-1.3B's swap files (15.8 GB of master and moments),
+# the checkpoint's snapshot of them and the params, and the restoring
+# engine's swap files need this much free space
+NVME_NEED_BYTES = 40e9
+
+
+def nvme_phase(dev, base_losses, bound):
+    """OPT-1.3B, the train configuration under tier 2 (ZeRO 1, the state in
+    swap files on the largest local disk, sub-groups of NVME_SUB_GROUP
+    elements, 4 aio threads): NVME_STEPS steps and a checkpoint with its
+    swap snapshot, then one more step; the losses within ``bound`` of the
+    resident train phase's. The checkpoint restored into a fresh tier-2
+    engine: its state and its next step's loss equal bit for bit. The swap
+    directories are removed."""
+    root = largest_disk()
+    usage = shutil.disk_usage(root)
+    if usage.free < NVME_NEED_BYTES:
+        raise AssertionError(f"nvme: {root} has {usage.free / 1e9:.1f} GB "
+                             f"free; the phase needs "
+                             f"{NVME_NEED_BYTES / 1e9:.0f} GB")
+    d = tempfile.mkdtemp(prefix="nvme-", dir=root)
+    try:
+        t0 = time.perf_counter()
+        a, batch, _ = make_trainer(dev, "train", offload_config(
+            "nvme", os.path.join(d, "a"), sub_group=NVME_SUB_GROUP))
+        init_s = time.perf_counter() - t0
+        sw = a.opt_state.offload
+        losses, steps = [], []
+        for _ in range(NVME_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(a.train_batch(batch=batch)))
+            wall = time.perf_counter() - t0
+            s = dict(sw.stats)
+            steps.append(dict(
+                step_s=wall, host_pipeline_s=s["apply_s"],
+                host_update_s=s["update_s"], wait_s=s["wait_s"],
+                read_gb=s["read_bytes"] / 1e9,
+                written_gb=s["write_bytes"] / 1e9,
+                io_gb_per_s=(s["read_bytes"] + s["write_bytes"]) / 1e9
+                / s["apply_s"]))
+        rel = max(abs(x - y) / abs(y) for x, y in zip(losses, base_losses))
+        if not rel <= bound:
+            raise AssertionError(f"nvme: losses {losses} against the train "
+                                 f"phase's {base_losses[:NVME_STEPS]}")
+        t0 = time.perf_counter()
+        path = a.save_checkpoint(os.path.join(d, "ckpt"), tag="step2")
+        save_s = time.perf_counter() - t0
+        saved = {k: v for k, v in sw.read_state(a.opt_state.n).items()}
+        la = float(a.train_batch(batch=batch))
+        rel = max(rel, abs(la - base_losses[NVME_STEPS])
+                  / abs(base_losses[NVME_STEPS]))
+        if not rel <= bound:
+            raise AssertionError(f"nvme: next loss {la} against the train "
+                                 f"phase's {base_losses[NVME_STEPS]}")
+        snap = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                   os.walk(os.path.join(path, "nvme_state_p0")) for f in fs)
+        sw.close(remove=True)
+        del a, sw
+        gc.collect()
+        torch.cuda.empty_cache()
+        b = make_trainer(dev, "train", offload_config(
+            "nvme", os.path.join(d, "b"), sub_group=NVME_SUB_GROUP))[0]
+        t0 = time.perf_counter()
+        b.load_checkpoint(os.path.join(d, "ckpt"))
+        load_s = time.perf_counter() - t0
+        restored = b.opt_state.offload.read_state(b.opt_state.n)
+        differ = [k for k in saved if not torch.equal(saved[k], restored[k])]
+        del saved, restored
+        lb = float(b.train_batch(batch=batch))
+        if differ or la != lb or b.global_steps != NVME_STEPS + 1:
+            raise AssertionError(f"nvme: restored state differs in {differ}"
+                                 f", next losses {la} / {lb}")
+        groups = len(b.opt_state.offload.groups)
+        b.opt_state.offload.close(remove=True)
+        del b
+        return dict(phase="nvme", model="opt-1.3b", dtype="bfloat16",
+                    disk=root, disk_free_gb=usage.free / 1e9,
+                    sub_groups=groups, init_s=init_s, losses=losses + [la],
+                    train_losses=base_losses[:NVME_STEPS + 1],
+                    loss_rel_err=rel, loss_rtol=bound, steps=steps,
+                    save_s=save_s, snapshot_gb=snap / 1e9, load_s=load_s,
+                    restored_bit_equal=True, next_losses=[la, lb],
+                    reads="the page cache may hold them (warm)")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def comm_bench_phase(dev):
+    """``comm/benchmark.py``'s sweep in the world-1 NCCL group: one 64 MiB
+    bf16 message an op (each collective is a one-rank copy)."""
+    rows = run_comm_benchmark(minsize_log2=26, maxsize_log2=26, trials=5,
+                              warmups=2, dtype=torch.bfloat16, device=dev,
+                              quiet=True)
+    return dict(phase="comm_bench", world=comm.get_world_size(),
+                backend=torch.distributed.get_backend(),
+                rows=[{k: r[k] for k in ("op", "msg_bytes", "latency_ms",
+                                         "algbw_gbps", "busbw_gbps")}
+                      for r in rows])
 
 
 SPARSE_TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": SPARSE_B,
@@ -2919,6 +3488,36 @@ def quantize_phase(dev):
         worst_err_over_bound=worst, int4_bit_equal=True)
 
 
+def new_phases(dev, smi, base_losses, bound):
+    """The phases after ``checkpoint``, in the world-1 NCCL group:
+    lamb_zero, onebit, offload_parity, offload, nvme and comm_bench, each
+    line with its seconds. Returns the launch counts of the main-path runs
+    (lamb_zero's timed steps and offload's)."""
+    counts = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        c, out = res if isinstance(res, tuple) else ({}, res)
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+        emit(dict(out, seconds=time.perf_counter() - t0, card=smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    timed(lamb_zero_phase, dev, bound)
+    timed(onebit_phase, dev, base_losses, bound)
+    root = tempfile.mkdtemp(prefix="offload-", dir=largest_disk())
+    try:
+        timed(offload_parity_phase, dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timed(offload_phase, dev)
+    timed(nvme_phase, dev, base_losses, bound)
+    timed(comm_bench_phase, dev)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — nothing was run",
@@ -2987,7 +3586,9 @@ def main() -> int:
     try:
         zero_counts, zero = zero_phase(dev, train["losses"])
         emit(dict(zero, card=smi))
-        emit(dict(checkpoint_phase(dev), card=smi))
+        bound = zero["loss_rtol"]
+        emit(dict(checkpoint_phase(dev, bound), card=smi))
+        new_counts = new_phases(dev, smi, train["losses"], bound)
     finally:
         comm.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -3026,10 +3627,23 @@ def main() -> int:
             "fused_group_norm": lambda c: c["case"] == "vae_mid",
             "quantize_symmetric": lambda c: (c["case"] == "opt-1.3b"
                                              and c["bits"] == 8)}
+    # llama-7b's training shapes under offload (1 x 2048 tokens, 32 heads
+    # of 128, H 4096), as the offload phase runs them
+    llama_train = {
+        "fused_layer_norm": lambda c: (c["rows"] == 2048 and c["H"] == 4096
+                                       and c["rms"]),
+        "flash_attention": lambda c: c["case"] == "llama_train",
+        "flash_attention_bwd": lambda c: c["case"] == "llama_train"}
     kernels = []
     for name, (source, replaces, kernel) in SOURCES.items():
         bf16 = [c for c in cases[name] if c["dtype"] == str(torch.bfloat16)]
         main_case = next(c for c in bf16 if pick[name](c))
+        extra = {}
+        if name in llama_train:
+            c = next(c for c in bf16 if llama_train[name](c))
+            extra["llama_train"] = {k: c.get(k) for k in (
+                "plan", "kernel", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
         kernels.append(dict(
             name=name, kernel=kernel, route="cuda", source=source,
             replaces=replaces,
@@ -3037,13 +3651,14 @@ def main() -> int:
                       + quant_counts.get(name, 0)
                       + train_counts.get(name, 0)
                       + zero_counts.get(name, 0)
+                      + new_counts.get(name, 0)
                       + sparse_counts.get(name, 0)
                       + spatial_counts.get(name, 0)
                       + quantize_counts.get(name, 0)),
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-            library_ms=main_case["library_ms"]))
+            library_ms=main_case["library_ms"], **extra))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

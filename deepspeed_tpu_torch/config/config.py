@@ -10,9 +10,12 @@ triad (:1062-1192), copied with their validation. The JAX package's other
 root sections (observability, monitor, compression, curriculum and the like)
 are accepted as raw mappings so that a JAX config loads, and
 ``Config.check_ported`` raises ``NotImplementedError`` naming each one a
-config sets, as it does for offload, for a tensor / pipeline / sequence /
-expert degree above 1 and for the 1-bit optimizers. An unknown key raises
-``ConfigError`` naming it, as in JAX.
+config sets, as it does for parameter offload, for a tensor / pipeline /
+sequence / expert degree above 1, and for the combinations the port does
+not run (optimizer offload beside LAMB or the 1-bit optimizers, the NVMe
+tier in fp16, the 1-bit optimizers above stage 1). The ``aio`` section
+(:970) is ported. An unknown key raises ``ConfigError`` naming it, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -223,6 +226,21 @@ class CheckpointConfig(ConfigModel):
                               "Ignore|Warn|Fail")
 
 
+@dataclass
+class AIOConfig(ConfigModel):
+    """Reference: the ``aio`` section, the knobs of the async-I/O handle
+    (``ops/aio.py``) the NVMe tier reads and writes through. The handle
+    takes ``queue_depth`` and ``thread_count``; ``block_size``,
+    ``single_submit`` and ``overlap_events`` are accepted so that JAX
+    configs load, and ignored."""
+
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+
+
 # ---------------------------------------------------------------------------
 # root config
 # ---------------------------------------------------------------------------
@@ -232,12 +250,13 @@ UNPORTED_SECTIONS = (
     "activation_checkpointing", "flops_profiler", "monitor",
     "observability", "resilience", "rlhf", "elasticity",
     "curriculum_learning", "progressive_layer_drop", "data_efficiency",
-    "compression_training", "aio", "compile_cache",
+    "compression_training", "compile_cache",
     "tensorboard", "wandb", "csv_monitor")
 
-# optimizers whose compressed all-reduce (JAX comm/compressed.py) is not
-# ported yet
+# the optimizers whose grads cross the wire compressed (comm/compressed.py)
 ONEBIT_OPTIMIZERS = ("onebitadam", "onebitlamb", "zerooneadam")
+# the optimizers the offload tiers update on the host
+OFFLOAD_OPTIMIZERS = ("adam", "adamw", "fusedadam", "cpuadam")
 
 
 @dataclass
@@ -266,6 +285,7 @@ class Config(ConfigModel):
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
     checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    aio: AIOConfig = field(default_factory=AIOConfig)
 
     # JAX sections without a port: kept as given, refused by check_ported
     activation_checkpointing: Optional[Dict[str, Any]] = None
@@ -279,7 +299,6 @@ class Config(ConfigModel):
     progressive_layer_drop: Optional[Dict[str, Any]] = None
     data_efficiency: Optional[Dict[str, Any]] = None
     compression_training: Optional[Dict[str, Any]] = None
-    aio: Optional[Dict[str, Any]] = None
     compile_cache: Optional[Dict[str, Any]] = None
     tensorboard: Optional[Dict[str, Any]] = None
     wandb: Optional[Dict[str, Any]] = None
@@ -336,17 +355,18 @@ class Config(ConfigModel):
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming every setting of this config
-        that the port does not run yet: a JAX-only root section, offload, a
-        tensor / pipeline / sequence / expert degree above 1 (the port
-        trains data-parallel only), the 1-bit optimizers, and LAMB at a
-        ``data_parallel_size`` above 1 (the engine also refuses LAMB when
-        the process group's world is above 1)."""
+        that the port does not run yet: a JAX-only root section, parameter
+        offload, a tensor / pipeline / sequence / expert degree above 1
+        (the port trains data-parallel only), optimizer offload with an
+        optimizer outside the Adam family or with the NVMe tier in fp16,
+        and the 1-bit optimizers above ZeRO stage 1 or with zerooneadam in
+        fp16 (as JAX refuses them)."""
         missing = [f"config section '{name}'" for name in UNPORTED_SECTIONS
                    if getattr(self, name) is not None]
         zero = self.zero_optimization
-        for name in ("offload_param", "offload_optimizer"):
-            if getattr(zero, name).device != "none":
-                missing.append(f"zero_optimization.{name} (offload)")
+        if zero.offload_param.device != "none":
+            missing.append("zero_optimization.offload_param (parameter "
+                           "offload)")
         par = self.parallel
         for name in ("tensor_parallel_size", "pipeline_parallel_size",
                      "sequence_parallel_size", "expert_parallel_size"):
@@ -354,12 +374,23 @@ class Config(ConfigModel):
                 missing.append(f"parallel.{name}={getattr(par, name)} "
                                "(the port trains data-parallel only)")
         opt = self.optimizer.type.lower()
-        if opt in ONEBIT_OPTIMIZERS:
-            missing.append(f"optimizer '{opt}' (1-bit compressed "
-                           "all-reduce, comm/compressed.py)")
-        if opt == "lamb" and par.data_parallel_size > 1:
-            missing.append(f"optimizer 'lamb' at parallel.data_parallel_size="
-                           f"{par.data_parallel_size} (LAMB at world > 1)")
+        tier = zero.offload_optimizer.device
+        if tier != "none" and opt not in OFFLOAD_OPTIMIZERS:
+            missing.append(f"zero_optimization.offload_optimizer with "
+                           f"optimizer '{opt}' (offload runs the Adam "
+                           "family only)")
+        if tier == "nvme" and self.fp16.enabled:
+            missing.append("zero_optimization.offload_optimizer.device="
+                           "'nvme' with fp16 (the overflow skip needs "
+                           "resident state; use bf16)")
+        if opt in ONEBIT_OPTIMIZERS and zero.stage > 1:
+            missing.append(f"optimizer '{opt}' at ZeRO stage {zero.stage} "
+                           "(1-bit compression needs whole local grads: "
+                           "stage <= 1)")
+        if opt == "zerooneadam" and self.fp16.enabled:
+            missing.append("optimizer 'zerooneadam' with fp16 (an "
+                           "overflow-skipped step would desynchronize its "
+                           "variance schedule; use bf16)")
         if missing:
             raise NotImplementedError(
                 "not ported to deepspeed_tpu_torch yet: " + "; ".join(missing))

@@ -18,9 +18,15 @@ A ``LambSegments`` plan cuts the flat buffer into blocks of at most
 ``BLOCK`` elements that never straddle a segment, so one phase-1 launch
 covers a whole model and each segment (an optimizer leaf) gets its own
 exact norms; JAX's ``fused_lamb_flat`` over one tensor is the one-segment
-case. ``fused_lamb_flat`` keeps JAX's signature and defaults (eps 1e-6, the
-clamp [0.01, 10]) and updates params, exp_avg and exp_avg_sq in place (JAX
-donates the moments) and returns them. Beyond JAX's arguments the segmented
+case. Under ZeRO a rank's shard holds parts of leaves: its segments are
+those parts (and the padding between them), each carrying its leaf's id
+(``LambSegments.from_layout``). Phase 2 then adds the segments' sums into
+one row a leaf, hands that (2, n_leaves + 1) fp64 tensor to ``reduce``
+(the engine's all-reduce over the data-parallel group) and takes every
+segment's trust ratio from its whole leaf. ``fused_lamb_flat`` keeps
+JAX's signature and defaults (eps 1e-6, the clamp [0.01, 10]) and updates
+params, exp_avg and exp_avg_sq in place (JAX donates the moments) and
+returns them. Beyond JAX's arguments the segmented
 step takes what the optimizer needs so the host never waits on the card:
 ``grad_scale`` (a one-element fp32 device tensor multiplying the gradient:
 the clip coefficient and the fp16 unscale), ``skip`` (a one-element bool
@@ -35,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,7 +64,27 @@ class LambSegments:
     block_start: np.ndarray   # (nblocks,) int64
     block_len: np.ndarray     # (nblocks,) int32
     seg_end: np.ndarray       # (nseg,) int64
+    # (nseg,) int64: the leaf of each segment (n_leaves for padding), or
+    # None when every segment is a leaf of its own
+    leaf: Optional[np.ndarray] = None
+    n_leaves: int = 0
     _cache: Dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @classmethod
+    def from_layout(cls, sizes: Sequence[int], leaf_ids: Sequence[int],
+                    n_leaves: int) -> "LambSegments":
+        """Segments that are parts of ``n_leaves`` leaves: ``leaf_ids[i]``
+        is segment i's leaf (-1 for padding, whose ratio is never used).
+        Segments of one leaf share its trust ratio."""
+        ids = np.asarray(leaf_ids, np.int64)
+        if len(ids) != len(sizes) or (len(ids) and ids.max() >= n_leaves):
+            raise ValueError("one leaf id below n_leaves a segment")
+        base = cls.from_sizes(sizes)
+        if n_leaves == len(ids) and np.array_equal(ids, np.arange(len(ids))):
+            return base
+        return dataclasses.replace(
+            base, leaf=np.where(ids < 0, n_leaves, ids), n_leaves=n_leaves,
+            _cache={})
 
     @classmethod
     def from_sizes(cls, sizes: Sequence[int]) -> "LambSegments":
@@ -88,10 +114,17 @@ class LambSegments:
     def device_arrays(self, device: torch.device) -> Dict[str, torch.Tensor]:
         key = str(device)
         if key not in self._cache:
-            self._cache[key] = dict(
+            arrs = dict(
                 start=torch.from_numpy(self.block_start).to(device),
                 len=torch.from_numpy(self.block_len).to(device),
                 seg_end=torch.from_numpy(self.seg_end - 1).to(device))
+            if self.leaf is not None:
+                # (nseg, n_leaves + 1): a segment's row selects its leaf;
+                # a matmul adds the segments of each leaf in a fixed order
+                arrs["leaf"] = torch.from_numpy(self.leaf).to(device)
+                arrs["onehot"] = torch.nn.functional.one_hot(
+                    arrs["leaf"], self.n_leaves + 1).double()
+            self._cache[key] = arrs
         return self._cache[key]
 
     def views(self, flat: torch.Tensor):
@@ -217,13 +250,17 @@ def lamb_phase1(params: torch.Tensor, grads: torch.Tensor,
 def lamb_phase2(params: torch.Tensor, update: torch.Tensor,
                 partials: torch.Tensor, segments: LambSegments, lr: float,
                 max_coeff: float = 10.0, min_coeff: float = 0.01,
-                param_copy: Optional[torch.Tensor] = None) -> torch.Tensor:
+                param_copy: Optional[torch.Tensor] = None,
+                reduce: Optional[Callable[[torch.Tensor], Any]] = None
+                ) -> torch.Tensor:
     """Phase 2, in place on params (and ``param_copy``): each segment's
-    norms from its blocks' partials (summed in fp64 in block order), the
-    trust ratio ``||p|| / ||u||`` (1 where either norm is 0, clamped to
-    [min_coeff, max_coeff]) and ``p -= lr * ratio * u``. Returns the
-    (nseg,) ratios."""
-    ends = segments.device_arrays(params.device)["seg_end"]
+    norms from its blocks' partials (summed in fp64 in block order), added
+    up per leaf where segments are parts of leaves and then passed to
+    ``reduce`` (in place: the sums over every rank's parts), the trust ratio
+    ``||p|| / ||u||`` (1 where either norm is 0, clamped to [min_coeff,
+    max_coeff]) and ``p -= lr * ratio * u``. Returns the (nseg,) ratios."""
+    arrs = segments.device_arrays(params.device)
+    ends = arrs["seg_end"]
     # a scan along the inner dim: (nblocks, 2) scanned along dim 0 runs as
     # two sequential scans on the card (15 ms at OPT-1.3B's 160 K blocks).
     # torch.segment_reduce over the blocks, as the plain phase 1 sums its
@@ -232,6 +269,13 @@ def lamb_phase2(params: torch.Tensor, update: torch.Tensor,
     # (scripts/profile_torch_serving.py --scenario sparse_train)
     csum = partials.double().t().contiguous().cumsum(1)[:, ends]
     sums = torch.diff(csum, dim=1, prepend=torch.zeros_like(csum[:, :1]))
+    if segments.leaf is not None:
+        per_leaf = sums @ arrs["onehot"]
+        if reduce is not None:
+            reduce(per_leaf)
+        sums = per_leaf[:, arrs["leaf"]]
+    elif reduce is not None:
+        reduce(sums)
     p_norm, u_norm = sums.sqrt().float().unbind(0)
     ratio = torch.where((p_norm > 0.0) & (u_norm > 0.0),
                         torch.clamp(p_norm / u_norm, min_coeff, max_coeff),
@@ -255,16 +299,18 @@ def lamb_step(params: torch.Tensor, grads: torch.Tensor,
               param_copy: Optional[torch.Tensor] = None,
               grad_scale: Optional[torch.Tensor] = None,
               skip: Optional[torch.Tensor] = None,
-              plain: bool = False) -> torch.Tensor:
+              plain: bool = False,
+              reduce: Optional[Callable[[torch.Tensor], Any]] = None
+              ) -> torch.Tensor:
     """One segmented LAMB step in place: phase 1 (its kernel, or with
-    ``plain`` / on a CPU tensor its plain version) and phase 2. Returns
-    the per-segment trust ratios."""
+    ``plain`` / on a CPU tensor its plain version) and phase 2 (``reduce``:
+    see ``lamb_phase2``). Returns the per-segment trust ratios."""
     phase1 = reference_lamb_phase1 if plain else lamb_phase1
     partials = phase1(params, grads, exp_avg, exp_avg_sq, update, segments,
                       step, beta1, beta2, eps, weight_decay, bias_correction,
                       grad_scale, skip)
     return lamb_phase2(params, update, partials, segments, lr, max_coeff,
-                       min_coeff, param_copy)
+                       min_coeff, param_copy, reduce)
 
 
 def fused_lamb_flat(params: torch.Tensor, grads: torch.Tensor,

@@ -14,6 +14,10 @@ is left here is the kernel library itself:
   checkout root), so an edited source is rebuilt alone and an unchanged one
   is loaded as it is; ``library`` builds only its own source when that
   library is missing, ``build`` every missing one.
+* ``host_library(name)``: the same for a host source, ``csrc/<name>.cpp``
+  (the async-I/O handle), compiled by the host compiler (``g++``) into
+  ``build/torch_kernels/<name>-<hash>.so`` under the same hash scheme (its
+  own flags and source). A failed build raises.
 * ``function(source, symbol, argtypes)``: a C entry point bound once.
 * ``check_launch`` / ``launch_counts`` / ``reset_launch_counts``: one plain
   integer per kernel, incremented by its wrapper each time it launches the
@@ -38,6 +42,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 # kernel name -> the source (csrc/<source>.cu) whose library holds it
 KERNELS: Dict[str, str] = {
@@ -158,6 +163,44 @@ def function(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _functions[(source, symbol)] = fn
     return fn
+
+
+def host_library_path(name: str, csrc: Path = CSRC) -> Path:
+    """``build/torch_kernels/<name>-<hash>.so`` for ``csrc/<name>.cpp``: the
+    hash covers the host compiler's flags and the source."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    src = csrc / f"{name}.cpp"
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cpp``, built with
+    ``g++`` at first use when its library is missing; raises with the
+    compiler's output when the build fails."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = host_library_path(name)
+            if not path.exists():
+                cxx = shutil.which("g++")
+                if cxx is None:
+                    raise RuntimeError(
+                        f"g++ not found: csrc/{name}.cpp is compiled by the "
+                        "host compiler at first use")
+                BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+                proc = subprocess.run(
+                    [cxx, *HOST_FLAGS, str(CSRC / f"{name}.cpp"), "-o",
+                     str(tmp)], capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"host build of csrc/{name}.cpp "
+                                       f"failed:\n{proc.stderr}")
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib
 
 
 def launch_counts() -> Dict[str, int]:

@@ -219,6 +219,27 @@ class ZeroPartition:
                 out.append((pc, pc.start + a - pc.offset, b - a, a - lo))
         return out
 
+    def rank_segments(self, rank: int) -> Tuple[List[int], List[int]]:
+        """(sizes, leaf ids) of the runs that tile ``rank``'s shard in order:
+        its pieces, each with the index of its leaf in ``leaf_pieces()``
+        order, and the padding between and after them (leaf id -1)."""
+        leaf_index = {path: j for j, path in enumerate(self.leaf_pieces())}
+        sizes: List[int] = []
+        ids: List[int] = []
+        for i, u in enumerate(self.units):
+            at = 0
+            for pc, _, count, pos in self.rank_pieces(i, rank):
+                if pos > at:
+                    sizes.append(pos - at)
+                    ids.append(-1)
+                sizes.append(count)
+                ids.append(leaf_index[pc.path])
+                at = pos + count
+            if u.chunk > at:
+                sizes.append(u.chunk - at)
+                ids.append(-1)
+        return sizes, ids
+
     def describe(self) -> str:
         total = sum(u.numel for u in self.units)
         gathered = sum(u.numel for u in self.units if u.gathered)

@@ -522,11 +522,15 @@ def optax_keys(opt_config) -> Tuple[str, str]:
     the Adam state (count, mu, nu) and the schedule's count (JAX
     ``build_optax_transform``: ``adamw`` = [adam, decay, schedule],
     ``adam`` = [adam, schedule], adam with coupled decay = [decay, [adam,
-    schedule]], ``lamb`` = [adam, decay, trust ratio, schedule])."""
+    schedule]], ``lamb`` and ``onebitlamb`` = [adam, decay, trust ratio,
+    schedule], ``zerooneadam`` = [0/1 Adam, schedule]; ``onebitadam`` and
+    ``cpuadam`` build the Adam chains)."""
     name = opt_config.type.lower()
     params = opt_config.params
-    if name == "lamb":
+    if name in ("lamb", "onebitlamb"):
         return "0", "3"
+    if name == "zerooneadam":
+        return "0", "1"
     if name == "adamw":
         return "0", "2"
     wd = params.get("weight_decay", 0.0)
@@ -603,9 +607,14 @@ def engine_arrays(engine) -> List[ArrayPlan]:
 
     arrays = _plans(engine, "params", zero.shard,
                     {**whole(zero.shard), **zero.full})
+    if st.exp_avg is None:
+        # the NVMe tier: the swap files are the optimizer state, saved as
+        # the snapshot beside the tag (JAX engine.py:1873-1888)
+        return arrays
     adam, sched = optax_keys(engine.config.optimizer)
     bufs = [("mu", st.exp_avg), ("nu", st.exp_avg_sq)]
-    if st.master is not None:
+    if st.master is not None and st.shard_param.dtype != torch.float32:
+        # (the host tier keeps a master of fp32 params too: the params)
         arrays += _plans(engine, _join("opt", "master"), st.master,
                          whole(st.master))
     for name, buf in bufs:
@@ -635,8 +644,24 @@ def save_engine(engine, save_dir: str, tag: Optional[str],
     path = save_checkpoint(save_dir, tag, engine_arrays(engine), cs,
                            save_latest, engine.config.checkpoint.tag_validation,
                            async_save)
+    swapper = _swapper(engine)
+    if swapper is not None:
+        # the final tag directory exists once the commit has renamed it
+        wait_pending()
+        swapper.snapshot_to(os.path.join(path, _snapshot_name(engine)))
+        comm.barrier()
     log_dist(f"saved checkpoint {path}")
     return path
+
+
+def _swapper(engine):
+    st = engine.opt_state
+    return st.offload if st.exp_avg is None and st.offload is not None \
+        else None
+
+
+def _snapshot_name(engine) -> str:
+    return f"nvme_state_p{engine.rank}"
 
 
 def _fill(engine, reader: CheckpointReader, key_of: Callable[[Tuple], str],
@@ -672,7 +697,25 @@ def load_engine(engine, load_dir: str, tag: Optional[str],
     zero, st = engine.zero, engine.opt_state
     params_key = lambda path: _join("params", _leaf_key(path))  # noqa: E731
     _fill(engine, reader, params_key, zero.shard, zero.full)
-    if load_optimizer_states:
+    swapper = _swapper(engine)
+    if swapper is not None:
+        steps = reader.client_state.get("global_steps", 0)
+        if load_optimizer_states:
+            # the snapshot of the tag the reader resolved (JAX
+            # engine.py:1968-1998)
+            src = os.path.join(load_dir, reader.tag, _snapshot_name(engine))
+            if not os.path.isdir(src):
+                raise RuntimeError(
+                    f"checkpoint has no {_snapshot_name(engine)} snapshot "
+                    f"at {src}: the NVMe optimizer state cannot be restored "
+                    "(load_optimizer_states=False restores the params)")
+            swapper.restore_snapshot(src, steps)
+            st.count = st.inner_count = steps
+        else:
+            swapper.init_from_shard(zero.shard)
+            st.count = st.inner_count = 0
+        st.pending_skip = None
+    elif load_optimizer_states:
         adam, sched = optax_keys(engine.config.optimizer)
         if st.master is not None:
             master = _join("opt", "master")
@@ -680,6 +723,7 @@ def load_engine(engine, load_dir: str, tag: Optional[str],
                 engine.partition.leaf_pieces())))) in reader
             _fill(engine, reader,
                   (lambda p: _join(master, _leaf_key(p))) if has
+                  and st.shard_param.dtype != torch.float32
                   else params_key, st.master)
         for name, buf in (("mu", st.exp_avg), ("nu", st.exp_avg_sq)):
             _fill(engine, reader,

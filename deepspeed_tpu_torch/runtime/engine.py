@@ -32,18 +32,33 @@ the collectives itself (``comm``, NCCL on the card, gloo on the CPU):
                          the overflow skip as device scalars; stages 1-3
                          then all-gather the updated params that are held
                          whole
+  1-bit optimizers    -- ``onebitadam`` / ``onebitlamb`` / ``zerooneadam``
+                         at stages 0-1 (JAX ``_build_onebit_train_step``):
+                         each rank's grads (of ``loss / gas``) are averaged
+                         densely while ``count < freeze_step`` (and, for
+                         0/1 Adam, on its variance steps), else through the
+                         error-feedback int8 exchange of
+                         ``comm/compressed.py``, in JAX's leaf order; the
+                         worker and server residuals are the engine's and
+                         are not checkpointed, as in JAX
+  offload             -- ``zero_optimization.offload_optimizer.device``
+                         ``cpu`` keeps the master and moments in host
+                         memory (``runtime/offload.py``), ``nvme`` in swap
+                         files (``runtime/swap``); the update runs on the
+                         host in sub-groups of ``sub_group_size``
   fp16                -- the dynamic loss scale lives on the device
   checkpoints         -- ``runtime/checkpoint.py``: the JAX package's
                          format 2, written and read by both packages, at any
                          world and stage
 
 ``train_batch`` returns the mean of the micro losses as a device tensor and
-reads nothing back from the device except at ``steps_per_print``. Not
-ported yet (they raise): offload, tensor / pipeline / sequence / expert
-parallelism, the 1-bit optimizers, LAMB at world > 1 or under stage 3,
-activation checkpointing, dropout / progressive layer drop / random-LTD,
-compression, curriculum, observability, and optimizers other than the Adam
-family and LAMB.
+reads nothing back from the device except at ``steps_per_print`` (and,
+under offload, the one scalar sync of the host update). Not ported yet
+(they raise): parameter offload, optimizer offload beside LAMB or the 1-bit
+optimizers, the NVMe tier in fp16, tensor / pipeline / sequence / expert
+parallelism, activation checkpointing, dropout / progressive layer drop /
+random-LTD, compression, curriculum, observability, and optimizers other
+than the Adam family, LAMB and the 1-bit family.
 """
 
 from __future__ import annotations
@@ -56,7 +71,8 @@ import torch
 
 from .. import comm
 from ..comm.comms_logging import configure_comms_logger
-from ..config.config import Config, load_config
+from ..comm.compressed import compressed_allreduce_flat, padded_length
+from ..config.config import ONEBIT_OPTIMIZERS, Config, load_config
 from ..inference.engine import resolve_device
 from ..models.core import Model, cast_floating, param_count, tree_map
 from ..parallel.zero import ZeroParams, ZeroPartition, sharded
@@ -65,7 +81,10 @@ from .checkpoint import load_engine, save_engine, save_flat_weights
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .loss_scaler import LossScaleState, create_loss_scaler
 from .lr_schedules import build_lr_schedule
-from .optimizer import MixedPrecisionOptimizer, StepStats, build_optimizer
+from .offload import HostOptimizerState, gather_spans, scatter_spans
+from .optimizer import (MixedPrecisionOptimizer, StepStats, build_optimizer,
+                        zero_one_var_step)
+from .swap import NVMeOptimizerSwapper
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -96,10 +115,6 @@ class TrainEngine:
         if dp not in (0, self.world):
             raise ValueError(f"parallel.data_parallel_size={dp} but the "
                              f"process group has {self.world} rank(s)")
-        if self.world > 1 and config.optimizer.type.lower() == "lamb":
-            raise NotImplementedError(
-                f"optimizer 'lamb' at world {self.world} (LAMB at world > 1 "
-                "is not ported yet)")
         self.model = model
         self.config = config.resolve_batch_sizes(self.world)
         configure_comms_logger(self.config.comms_logger,
@@ -140,16 +155,20 @@ class TrainEngine:
         self.zero = ZeroParams(self.partition, params, self.compute_dtype,
                                self.device)
         stage3 = sharded(self.config.zero_stage, "params")
+        sizes, ids = self.partition.rank_segments(self.rank)
         self.opt_state = self.optimizer.init_shard(
             self.zero.shard, partitioned=self.partition.units[0].parts > 1,
-            leaf_sizes=None if stage3 else [p.numel for p in
-                                            self.partition.units[0].pieces])
+            layout=(sizes, ids, len(self.partition.leaf_pieces())),
+            offload=self._make_offload())
         if not stage3:
             self.opt_state.params = self.zero.params
             self.opt_state.param_flat = self.zero.full[0]
             self.opt_state.grads = tree_map(lambda t: t.grad,
                                             self.zero.params)
             self.opt_state.grad_flat = self.zero.grad_full[0]
+        self._onebit = None
+        if self.config.optimizer.type.lower() in ONEBIT_OPTIMIZERS:
+            self._onebit = self._onebit_state()
         del params
         self.scaler_state: LossScaleState = self.loss_scaler.init(self.device)
         gas = self.gradient_accumulation_steps()
@@ -311,8 +330,9 @@ class TrainEngine:
         scaled = (loss * self.scaler_state.scale if self.fp16_enabled()
                   else loss)
         self.zero.acquire_grads()
-        (scaled / (self.gradient_accumulation_steps() * self.world)
-         ).backward()
+        # the 1-bit exchange averages each rank's own grads, as JAX does
+        ranks = 1 if self._onebit is not None else self.world
+        (scaled / (self.gradient_accumulation_steps() * ranks)).backward()
         self.zero.release_all()
         if self.zero.acc is not None:
             self.zero.reduce_persistent_grads()
@@ -321,18 +341,90 @@ class TrainEngine:
             self._grad_acc.add_(self.zero.grad_full[0])
             self.zero.grad_full[0].zero_()
 
+    def _make_offload(self):
+        """The optimizer-state tier of ``offload_optimizer.device``: None
+        (on the device), host memory, or NVMe swap files."""
+        zcfg = self.config.zero_optimization
+        tier = zcfg.offload_optimizer.device
+        if tier == "cpu":
+            return HostOptimizerState(self.zero.shard, zcfg.sub_group_size)
+        if tier == "nvme":
+            swapper = NVMeOptimizerSwapper(
+                os.path.join(zcfg.offload_optimizer.nvme_path,
+                             f"dstpu_swap_p{self.rank}"),
+                self.partition, self.rank, zcfg.sub_group_size,
+                self.config.aio)
+            swapper.init_from_shard(self.zero.shard)
+            return swapper
+        return None
+
+    def _onebit_state(self) -> Dict[str, Any]:
+        """The 1-bit exchange's settings and error-feedback residuals: the
+        worker's over the padded flat grads (JAX ``npad``), the server's
+        over this rank's chunk of it, and the flat buffer's leaves in JAX's
+        order (sorted paths), which sets the chunks."""
+        params = self.config.optimizer.params
+        unit = self.partition.units[0]
+        n = unit.numel
+        npad = padded_length(n, self.world)
+        order = sorted(((pc.path, pc.offset, pc.numel) for pc in unit.pieces))
+        spans = [(off, size) for _, off, size in order]
+        zero_one = self.optimizer.zero_one
+        return dict(
+            n=n, npad=npad, freeze=int(params.get("freeze_step", 100)),
+            zero_one=zero_one,
+            spans=None if spans == sorted(spans) else spans,
+            worker=torch.zeros(npad, dtype=torch.float32,
+                               device=self.device),
+            server=torch.zeros(npad // self.world, dtype=torch.float32,
+                               device=self.device))
+
+    def _onebit_average(self, full: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks of every rank's flat grads ``full`` as an
+        fp32 buffer of ``full``'s length: dense during the warm-up (and on
+        0/1 Adam's variance steps), else compressed."""
+        ob = self._onebit
+        count = self.opt_state.count
+        dense = count < ob["freeze"] or (
+            ob["zero_one"] is not None
+            and zero_one_var_step(count, *ob["zero_one"]))
+        n, npad, spans = ob["n"], ob["npad"], ob["spans"]
+        size = max(full.numel(), npad)
+        vec = torch.zeros(size if spans is None else npad,
+                          dtype=torch.float32, device=full.device)
+        if spans is None:
+            vec[:n].copy_(full[:n])
+        else:
+            gather_spans(full, spans, out=vec[:n])
+        if dense:
+            comm.all_reduce(vec[:npad], op=comm.ReduceOp.AVG,
+                            log_name="onebit_dense_all_reduce")
+        else:
+            # the residuals are updated in place and the mean overwrites vec
+            compressed_allreduce_flat(vec[:npad], ob["worker"], ob["server"],
+                                      out=vec[:npad])
+        if spans is None:
+            return vec[:full.numel()]
+        avg = torch.zeros(size, dtype=torch.float32, device=full.device)
+        scatter_spans(avg, spans, vec[:n])
+        return avg[:full.numel()]
+
     def _apply(self) -> StepStats:
         """The optimizer step over the rank's accumulated grads (all-reduced
-        first at stages 0-1), the params held whole gathered back, the
-        loss-scale update, and the grads zeroed for the next step."""
+        first at stages 0-1, through the 1-bit exchange for those
+        optimizers), the params held whole gathered back, the loss-scale
+        update, and the grads zeroed for the next step."""
         if self.zero.acc is not None:
             grads = full = self.zero.acc
         else:
             full = (self._grad_acc if self._grad_acc is not None
                     else self.zero.grad_full[0])
-            comm.all_reduce(full, log_name="grad_all_reduce")
+            if self._onebit is not None:
+                avg = self._onebit_average(full)
+            else:
+                avg = comm.all_reduce(full, log_name="grad_all_reduce")
             lo, hi = self.partition.units[0].rank_range(self.rank)
-            grads = full[lo:hi]
+            grads = avg[lo:hi]
         fp16 = self.fp16_enabled()
         stats = self.optimizer.apply(
             self.opt_state, grads,

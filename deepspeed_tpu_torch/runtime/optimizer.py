@@ -43,11 +43,28 @@ compute-dtype buffer, ``apply`` takes the shard's grads, and with
 ``partitioned`` the squared grad norm of the shard is all-reduced over the
 data-parallel group before the square root, so every rank clips by the
 global norm and reads the fp16 overflow off it (a rank whose grads are not
-finite makes the sum not finite on every rank). LAMB keeps one shard that
-is the whole model (world 1, stages 0-2): its trust ratio is per leaf.
+finite makes the sum not finite on every rank). LAMB's shard is made of
+parts of leaves (``ZeroPartition.rank_segments``): its segments carry their
+leaf's id, and phase 2 all-reduces the per-leaf sums of ||p||^2 and
+||u||^2 before it takes each trust ratio, so every rank uses the ratio of
+the whole leaf.
 
-The other optimizer types of the JAX package (onebitlamb, adagrad, sgd,
-lion and the onebit / zero-one families) raise ``NotImplementedError``.
+``zerooneadam`` (JAX ``zero_one_adam_transform`` :96-139) is its own flat
+update, plain torch as in JAX (which has no kernel for it): momentum every
+step, the variance only on ``zero_one_var_step``'s schedule and frozen
+after ``var_freeze_step``, no bias correction, then ``p -= lr * u``.
+``onebitadam`` and ``onebitlamb`` update as Adam and LAMB do; the three
+differ from them in the engine's gradient exchange (``comm/compressed.py``).
+
+With an offload tier (``runtime/offload.py``: host memory, ``runtime/swap``:
+NVMe) the master and the moments live off the card; ``apply`` still takes
+the norm, the clip coefficient and the fp16 overflow on the device, reads
+them in one host sync, and the tier runs ``host_adam_flat`` (the plain
+Adam's arithmetic without temporaries) over the shard in sub-groups on the
+host (JAX ``engine.py:793-830``, ``:1135-1151``).
+
+The other optimizer types of the JAX package (adagrad, sgd, lion) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import comm
@@ -64,9 +82,13 @@ from ..ops.fused_adam import fused_adam_flat, reference_adam_flat
 from ..ops.fused_lamb import LambSegments, lamb_step
 from ..utils.logging import logger
 from .lr_schedules import as_schedule_fn, build_lr_schedule
+from .offload import host_adam_flat
 
 _LOW = (torch.bfloat16, torch.float16)
-_PORTED = ("adam", "adamw", "fusedadam", "lamb")
+_PORTED = ("adam", "adamw", "fusedadam", "cpuadam", "lamb", "onebitadam",
+           "onebitlamb", "zerooneadam")
+ADAM_FAMILY = ("adam", "adamw", "fusedadam", "cpuadam")
+ONEBIT = ("onebitadam", "onebitlamb", "zerooneadam")
 
 
 class StepStats(NamedTuple):
@@ -99,12 +121,15 @@ class OptimizerState:
     (``shard_param`` is ``param_flat``), whose views are ``params`` /
     ``grads``. ``count``: steps attempted (JAX's outer count);
     ``inner_count``: steps applied. ``partitioned``: the grads ``apply``
-    gets are the rank's shard, so the norm is all-reduced."""
+    gets are the rank's shard, so the norm is all-reduced. ``offload``: the
+    tier that holds the state off the card (the host-memory tier's master
+    and moments are CPU tensors here; the NVMe tier's are None, they live
+    in its files)."""
 
     shard_param: torch.Tensor
     master: Optional[torch.Tensor]
-    exp_avg: torch.Tensor
-    exp_avg_sq: torch.Tensor
+    exp_avg: Optional[torch.Tensor]
+    exp_avg_sq: Optional[torch.Tensor]
     params: Any = None
     param_flat: Optional[torch.Tensor] = None
     grads: Any = None
@@ -115,6 +140,7 @@ class OptimizerState:
     pending_skip: Optional[Tuple[torch.Tensor, Any]] = None
     lamb_update: Optional[torch.Tensor] = None
     segments: Optional[LambSegments] = None
+    offload: Any = None
 
     @property
     def n(self) -> int:
@@ -122,16 +148,18 @@ class OptimizerState:
 
 
 class MixedPrecisionOptimizer:
-    """Adam / AdamW, or LAMB with ``lamb``, with fp32 master weights,
-    global-norm clipping and the fp16 skip (see the module docstring).
-    ``plain`` runs the kernels' plain versions on any device: the reference
-    the kernels are held against."""
+    """Adam / AdamW, LAMB with ``lamb``, or 0/1 Adam with ``zero_one`` (its
+    ``var_freeze_step`` and ``var_update_scaler``), with fp32 master
+    weights, global-norm clipping and the fp16 skip (see the module
+    docstring). ``plain`` runs the kernels' plain versions on any device:
+    the reference the kernels are held against."""
 
     def __init__(self, lr_schedule: Any = 1e-3, grad_clip: float = 0.0,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, adam_w_mode: bool = True,
                  keep_master_weights: bool = True, plain: bool = False,
-                 lamb: bool = False):
+                 lamb: bool = False,
+                 zero_one: Optional[Tuple[int, int]] = None):
         self.lr_schedule: Callable = as_schedule_fn(lr_schedule)
         self.grad_clip = grad_clip
         self.betas = (float(betas[0]), float(betas[1]))
@@ -141,6 +169,7 @@ class MixedPrecisionOptimizer:
         self.keep_master_weights = keep_master_weights
         self.plain = plain
         self.lamb = lamb
+        self.zero_one = zero_one
 
     def init(self, params: Any) -> OptimizerState:
         """Copy ``params`` (one floating dtype, one device) into a flat
@@ -176,23 +205,40 @@ class MixedPrecisionOptimizer:
         return state
 
     def init_shard(self, shard_param: torch.Tensor, partitioned: bool = False,
-                   leaf_sizes: Optional[List[int]] = None) -> OptimizerState:
+                   leaf_sizes: Optional[List[int]] = None,
+                   layout: Optional[Tuple[List[int], List[int], int]] = None,
+                   offload: Any = None) -> OptimizerState:
         """The state over a flat compute-dtype buffer the update writes in
         place: the fp32 master (a copy of it, when it is 16-bit) and zeroed
-        moments. LAMB needs ``leaf_sizes``, the leaves the buffer holds in
-        order."""
+        moments, or the ``offload`` tier's. LAMB needs the leaves the buffer
+        holds: ``leaf_sizes`` when they are whole and in order, else
+        ``layout`` = (sizes, leaf ids, number of leaves) of the runs that
+        tile it (``ZeroPartition.rank_segments``)."""
         n, dev = shard_param.numel(), shard_param.device
-        master = (shard_param.float() if self.keep_master_weights
-                  and shard_param.dtype in _LOW else None)
         lamb = {}
         if self.lamb:
-            if partitioned or leaf_sizes is None:
-                raise NotImplementedError(
-                    "LAMB over a partitioned shard (LAMB at world > 1, or "
-                    "under ZeRO stage 3): its trust ratio is per leaf")
+            if layout is not None:
+                segments = LambSegments.from_layout(*layout)
+            elif leaf_sizes is not None and not partitioned:
+                segments = LambSegments.from_sizes(leaf_sizes)
+            else:
+                raise ValueError("LAMB needs the leaves of its buffer: "
+                                 "leaf_sizes, or a layout when it is a "
+                                 "partitioned shard")
             lamb = dict(
                 lamb_update=torch.zeros(n, dtype=torch.float32, device=dev),
-                segments=LambSegments.from_sizes(leaf_sizes))
+                segments=segments)
+        if offload is not None:
+            if self.lamb or self.zero_one:
+                raise NotImplementedError(
+                    "offload_optimizer with LAMB or the 1-bit optimizers: "
+                    "the offload tiers run the Adam family only")
+            return OptimizerState(
+                shard_param=shard_param, master=offload.master,
+                exp_avg=offload.exp_avg, exp_avg_sq=offload.exp_avg_sq,
+                partitioned=partitioned, offload=offload)
+        master = (shard_param.float() if self.keep_master_weights
+                  and shard_param.dtype in _LOW else None)
         return OptimizerState(
             shard_param=shard_param, master=master,
             exp_avg=torch.zeros(n, dtype=torch.float32, device=dev),
@@ -246,6 +292,8 @@ class MixedPrecisionOptimizer:
         if self.grad_clip and self.grad_clip > 0:
             coef = torch.clamp(self.grad_clip / (norm + 1e-6), max=1.0)
             scale = coef if scale is None else scale * coef
+        if state.offload is not None:
+            return self._apply_offload(state, grads, norm, scale, skip)
         target = state.master if state.master is not None \
             else state.shard_param
         if target.dtype != torch.float32:
@@ -261,10 +309,18 @@ class MixedPrecisionOptimizer:
                   skip=skip.reshape(1) if skip is not None else None)
         if self.lamb:
             # optax.lamb: per-leaf trust ratio, no clamp
+            reduce = ((lambda t: comm.all_reduce(t, log_name="lamb_norms"))
+                      if state.partitioned else None)
             lamb_step(target, grads, state.exp_avg, state.exp_avg_sq,
                       state.lamb_update, state.segments,
                       state.inner_count + 1, max_coeff=float("inf"),
-                      min_coeff=0.0, plain=self.plain, **kw)
+                      min_coeff=0.0, plain=self.plain, reduce=reduce, **kw)
+        elif self.zero_one:
+            del kw["bias_correction"]
+            zero_one_adam_flat(
+                target, grads, state.exp_avg, state.exp_avg_sq,
+                var_hit=zero_one_var_step(state.inner_count, *self.zero_one),
+                **kw)
         else:
             adam = reference_adam_flat if self.plain else fused_adam_flat
             adam(target, grads, state.exp_avg, state.exp_avg_sq,
@@ -285,6 +341,100 @@ class MixedPrecisionOptimizer:
             state.pending_skip = (flag, event)
         return StepStats(grad_norm=norm, skipped=skipped, lr=lr)
 
+    def _apply_offload(self, state: OptimizerState, grads: torch.Tensor,
+                       norm: torch.Tensor, scale: Optional[torch.Tensor],
+                       skip: Optional[torch.Tensor]) -> StepStats:
+        """The offload tiers' step: the clip / unscale coefficient and the
+        skip flag cross to the host in one sync, then the tier updates the
+        shard sub-group by sub-group with ``host_adam_flat`` on CPU
+        tensors (skipped steps change nothing)."""
+        vals = torch.zeros(2, dtype=torch.float32, device=grads.device)
+        if scale is not None:
+            vals[0] = scale.reshape(())
+        if skip is not None:
+            vals[1] = skip.reshape(())
+        vals = vals.cpu()
+        host_scale = vals[0:1].clone() if scale is not None else None
+        skipped = bool(vals[1])
+        lr = float(self.lr_schedule(state.inner_count))
+        step = state.inner_count + 1
+        kw = dict(lr=lr, beta1=self.betas[0], beta2=self.betas[1],
+                  eps=self.eps, weight_decay=self.weight_decay,
+                  bias_correction=True, adam_w_mode=self.adam_w_mode,
+                  grad_scale=host_scale)
+
+        def update(master, g, m, v, param_copy, scratch):
+            host_adam_flat(master, g, m, v, step, scratch,
+                           param_copy=param_copy, **kw)
+
+        if not skipped:
+            state.offload.step(state.shard_param, grads, update)
+            state.inner_count += 1
+        lr_outer = float(self.lr_schedule(state.count))
+        state.count += 1
+        return StepStats(grad_norm=norm,
+                         skipped=torch.tensor(skipped, device=grads.device),
+                         lr=lr_outer)
+
+
+# ---------------------------------------------------------------------------
+# 0/1 Adam (JAX runtime/optimizer.py:68-139)
+# ---------------------------------------------------------------------------
+
+
+def _zero_one_phase_table(scaler: int, max_phases: int = 40) -> np.ndarray:
+    """Last variance-update step of each phase of 0/1 Adam's schedule
+    (JAX ``_zero_one_phase_table``): phase k updates every 2^k steps, for
+    ``scaler`` hits after phase k-1's last one."""
+    last = [scaler]
+    for k in range(1, max_phases):
+        first = ((last[-1] // 2 ** k) + 1) * 2 ** k
+        last.append(first + (scaler - 1) * 2 ** k)
+    return np.asarray(last, np.int64)
+
+
+def zero_one_var_step(count: int, var_update_scaler: int,
+                      var_freeze_step: int) -> bool:
+    """Whether 0-based step ``count`` updates 0/1 Adam's variance (JAX
+    ``zero_one_var_step``): never after ``var_freeze_step``."""
+    s = int(count) + 1
+    table = _zero_one_phase_table(int(var_update_scaler))
+    k = int(np.searchsorted(table, s))
+    return s % (1 << k) == 0 and s <= var_freeze_step
+
+
+def zero_one_adam_flat(params: torch.Tensor, grads: torch.Tensor,
+                       exp_avg: torch.Tensor, exp_avg_sq: torch.Tensor,
+                       var_hit: bool, lr: float, beta1: float = 0.9,
+                       beta2: float = 0.999, eps: float = 1e-8,
+                       weight_decay: float = 0.0,
+                       param_copy: Optional[torch.Tensor] = None,
+                       grad_scale: Optional[torch.Tensor] = None,
+                       skip: Optional[torch.Tensor] = None) -> None:
+    """One 0/1 Adam step in place on flat fp32 buffers (JAX
+    ``zero_one_adam_transform`` then ``scale_by_schedule``): m always, v
+    only when ``var_hit``, u = m / (sqrt(v) + eps) + wd * p without bias
+    correction, p -= lr * u; ``param_copy`` / ``grad_scale`` / ``skip`` as
+    for ``reference_adam_flat``."""
+    g = grads.float()
+    if grad_scale is not None:
+        g = g * grad_scale.float()
+    p = params.float()
+    m = beta1 * exp_avg + (1 - beta1) * g
+    v = beta2 * exp_avg_sq + (1 - beta2) * (g * g) if var_hit else exp_avg_sq
+    u = m / (torch.sqrt(v) + eps)
+    if weight_decay != 0.0:
+        u = u + weight_decay * p
+    p = p - lr * u
+    outs = [(params, p), (exp_avg, m), (exp_avg_sq, v)]
+    if param_copy is not None:
+        outs.append((param_copy, p))
+    for dst, new in outs:
+        if skip is not None:
+            new = torch.where(skip.reshape(()), dst.float(), new)
+        if new is not dst:
+            dst.copy_(new)
+
 
 def build_optimizer(config: Config,
                     lr_schedule: Any = None) -> MixedPrecisionOptimizer:
@@ -296,7 +446,8 @@ def build_optimizer(config: Config,
     if lr_schedule is None:
         lr_schedule = float(params.get("lr", 1e-3))
     name = config.optimizer.type.lower()
-    if name == "cpuadam":
+    offload = config.zero_optimization.offload_optimizer.device
+    if name == "cpuadam" and offload != "cpu":
         raise ValueError(
             "optimizer 'cpuadam' is the host-offloaded Adam: it needs "
             "zero_optimization.offload_optimizer.device='cpu'")
@@ -311,9 +462,14 @@ def build_optimizer(config: Config,
     # lamb: DeepSpeed's FusedLamb keys max_coeff / min_coeff /
     # bias_correction are ignored, as the JAX engine's optax.lamb ignores
     # them (no clamp, bias correction always on)
+    zero_one = None
+    if name == "zerooneadam":
+        zero_one = (int(params.get("var_update_scaler", 16)),
+                    int(params.get("var_freeze_step", 100000)))
     return MixedPrecisionOptimizer(
         lr_schedule, grad_clip=config.gradient_clipping,
         betas=tuple(params.get("betas", (0.9, 0.999))),
         eps=params.get("eps", 1e-8),
         weight_decay=params.get("weight_decay", 0.0),
-        adam_w_mode=adam_w_mode, lamb=name == "lamb")
+        adam_w_mode=adam_w_mode, lamb=name in ("lamb", "onebitlamb"),
+        zero_one=zero_one)

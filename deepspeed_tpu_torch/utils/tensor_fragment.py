@@ -6,6 +6,8 @@ Counterpart of ``deepspeed_tpu/utils/tensor_fragment.py``
 holds only its range of a partitioned buffer, so each call gathers the
 buffer from every rank (a collective: every rank calls it) and returns the
 leaf at ``path`` ('/'-joined keys, e.g. ``"layers/attn/wq"``) as numpy.
+Under optimizer offload the state comes from the host tier's CPU tensors
+or the NVMe tier's files, moved to the device the group reduces.
 """
 
 from __future__ import annotations
@@ -24,10 +26,21 @@ def _leaf(tree, path: str) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
+def _state(engine, name: str) -> Optional[torch.Tensor]:
+    """The rank's shard of the optimizer buffer ``name`` (master, exp_avg,
+    exp_avg_sq) on the shard's device, wherever the tier keeps it."""
+    st = engine.opt_state
+    if st.exp_avg is None and st.offload is not None:
+        buf = st.offload.read_state(st.n)[name]
+    else:
+        buf = getattr(st, name)
+    return None if buf is None else buf.to(engine.zero.shard.device)
+
+
 def safe_get_full_fp32_param(engine, path: str) -> np.ndarray:
     """The fp32 master of a param (the param widened when there is no
     master)."""
-    master = engine.opt_state.master
+    master = _state(engine, "master")
     if master is None:
         return _leaf(engine.params, path).astype(np.float32)
     return _leaf(engine.zero.full_tree(master), path)
@@ -42,12 +55,11 @@ def safe_get_full_optimizer_state(engine, path: str, state_name: str
                                   ) -> Optional[np.ndarray]:
     """Adam's first ('exp_avg' / 'mu') or second ('exp_avg_sq' / 'nu')
     moment of a param; None for another name."""
-    buf = {"exp_avg": engine.opt_state.exp_avg, "mu": engine.opt_state.exp_avg,
-           "exp_avg_sq": engine.opt_state.exp_avg_sq,
-           "nu": engine.opt_state.exp_avg_sq}.get(state_name)
-    if buf is None:
+    name = {"exp_avg": "exp_avg", "mu": "exp_avg", "exp_avg_sq":
+            "exp_avg_sq", "nu": "exp_avg_sq"}.get(state_name)
+    if name is None:
         return None
-    return _leaf(engine.zero.full_tree(buf), path)
+    return _leaf(engine.zero.full_tree(_state(engine, name)), path)
 
 
 def safe_get_full_grad(engine, path: str) -> Optional[np.ndarray]:

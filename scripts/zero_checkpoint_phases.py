@@ -59,7 +59,8 @@ def main() -> int:
         _, zero = cs.zero_phase(dev, train["losses"])
         cs.emit(dict(zero, card=smi))
         if not args.skip_checkpoint:
-            cs.emit(dict(cs.checkpoint_phase(dev), card=smi))
+            cs.emit(dict(cs.checkpoint_phase(dev, zero["loss_rtol"]),
+                         card=smi))
     finally:
         comm.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)

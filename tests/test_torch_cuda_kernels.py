@@ -2238,3 +2238,72 @@ def test_flash_wide_backward_raises(dev):
     with pytest.raises(ValueError, match="head_dim 640 > 512"):
         flash_attention(*(torch.zeros(1, 4, 1, 640, device=dev)
                           for _ in range(3)))
+
+
+# ---------------------------------------------------------------------------
+# the 1-bit exchange's quantizer, and optimizer-state offload, on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1000, 1 << 20])
+def test_compressed_quantizer_codes_equal_the_cpu(dev, n):
+    """``comm/compressed._quantize`` divides by the scale as a tensor, so
+    the codes on the card are the CPU's bit for bit (a division by a Python
+    number would become a product with its reciprocal there); the scales
+    too, and the residuals within one rounding of the decoded value."""
+    from deepspeed_tpu_torch.comm.compressed import _quantize
+
+    g = torch.Generator().manual_seed(n)
+    for v in (torch.randn(n, generator=g) * 3,
+              torch.rand(n, generator=g) * 1e-3 - 5e-4,
+              torch.zeros(n)):
+        q_cpu, s_cpu, r_cpu = _quantize(v.clone())
+        q_gpu, s_gpu, r_gpu = _quantize(v.to(dev))
+        assert torch.equal(q_gpu.cpu(), q_cpu)
+        assert torch.equal(s_gpu.cpu(), s_cpu)
+        # the residual v - q * s: the card may fuse it into one rounding
+        tol = 2 * float(torch.finfo(torch.float32).eps) * float(
+            v.abs().max())
+        assert float((r_gpu.cpu() - r_cpu).abs().max()) <= tol
+
+
+def test_host_offload_trains_on_the_card(dev):
+    """Two steps of ``tiny`` in bf16 under optimizer offload to host memory
+    (sub-groups of 5000 elements, so the pipeline runs many): the master and
+    moments stay CPU tensors, no Adam launch runs, the losses are finite,
+    and the master equals the resident engine's fed the same grads within
+    the fused Adam tolerance."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import create_model
+
+    model = create_model("tiny", dtype=torch.bfloat16, max_seq_len=64)
+    base = {"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True},
+            "steps_per_print": 1000,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+    off = initialize(model=model, config=dict(base, zero_optimization={
+        "stage": 1, "sub_group_size": 5000,
+        "offload_optimizer": {"device": "cpu"}}), device=dev)[0]
+    res = initialize(model=model, config=base, device=dev)[0]
+    st = off.opt_state
+    ids = torch.randint(0, 250, (2, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    before = launch_counts()["fused_adam"]
+    for _ in range(2):
+        loss = off.forward({"input_ids": ids})
+        off.backward()
+        res.forward({"input_ids": ids})
+        res.backward()
+        res.opt_state.grad_flat.copy_(st.grad_flat)
+        off.step()
+        res.step()
+        assert torch.isfinite(loss)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_adam"] == before + 2    # the resident's
+    assert all(t.device.type == "cpu"
+               for t in (st.master, st.exp_avg, st.exp_avg_sq))
+    assert len(st.offload.groups) > 3 and st.offload.stats["d2h_bytes"] > 0
+    torch.testing.assert_close(st.master, res.opt_state.master.cpu(),
+                               atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(off.zero.shard.float().cpu(),
+                               res.zero.shard.float().cpu(), atol=2 ** -7,
+                               rtol=2 ** -7)

@@ -213,6 +213,11 @@ class TestPortRules:
                 "deepspeed_tpu_torch.comm, "
                 "deepspeed_tpu_torch.parallel, "
                 "deepspeed_tpu_torch.runtime.checkpoint, "
+                "deepspeed_tpu_torch.runtime.offload, "
+                "deepspeed_tpu_torch.runtime.swap, "
+                "deepspeed_tpu_torch.comm.compressed, "
+                "deepspeed_tpu_torch.comm.benchmark, "
+                "deepspeed_tpu_torch.ops.aio, "
                 "deepspeed_tpu_torch.utils.tensor_fragment, "
                 "deepspeed_tpu_torch.models.simple; "
                 "import chip_smoke; "
@@ -247,30 +252,43 @@ class TestPortRules:
          "sequence_parallel_size"),
         ({"parallel": {"expert_parallel_size": 2}}, "expert_parallel_size"),
         ({"zero_optimization": {"stage": 2, "offload_optimizer": {
-            "device": "cpu"}}}, "offload_optimizer"),
+            "device": "cpu"}}, "optimizer": {"type": "lamb"}},
+         "offload_optimizer"),
         ({"zero_optimization": {"stage": 3, "offload_param": {
             "device": "nvme"}}}, "offload_param"),
-        ({"optimizer": {"type": "onebitadam"}}, "onebitadam"),
-        ({"optimizer": {"type": "onebitlamb"}}, "onebitlamb"),
-        ({"optimizer": {"type": "zerooneadam"}}, "zerooneadam"),
-        ({"optimizer": {"type": "lamb"},
-          "parallel": {"data_parallel_size": 4}}, "LAMB at world > 1"),
+        ({"optimizer": {"type": "onebitadam"},
+          "zero_optimization": {"stage": 2}}, "onebitadam"),
+        ({"optimizer": {"type": "onebitlamb"},
+          "zero_optimization": {"stage": 3}}, "onebitlamb"),
+        ({"optimizer": {"type": "zerooneadam"}, "fp16": {"enabled": True}},
+         "zerooneadam"),
+        ({"zero_optimization": {"offload_optimizer": {"device": "nvme"}},
+          "fp16": {"enabled": True}}, "'nvme' with fp16"),
     ])
     def test_check_ported_still_refuses(self, section, what):
-        """Data parallelism is ported; the other degrees, offload, the
-        1-bit optimizers and LAMB at world > 1 still raise, naming
-        themselves."""
+        """Data parallelism, optimizer offload, the 1-bit optimizers at
+        stages 0-1 and LAMB at any world are ported; the other degrees,
+        parameter offload and the combinations the port does not run still
+        raise, naming themselves."""
         from deepspeed_tpu_torch.config import load_config
 
         cfg = dict({"train_micro_batch_size_per_gpu": 1}, **section)
         with pytest.raises(NotImplementedError, match=what):
             load_config(cfg).check_ported()
-        load_config({"train_micro_batch_size_per_gpu": 1, "parallel": {
-            "data_parallel_size": 4}}).check_ported()
+        for ok in ({"parallel": {"data_parallel_size": 4}},
+                   {"optimizer": {"type": "lamb"},
+                    "parallel": {"data_parallel_size": 4}},
+                   {"optimizer": {"type": "onebitlamb"},
+                    "zero_optimization": {"stage": 1}},
+                   {"zero_optimization": {"offload_optimizer": {
+                       "device": "nvme"}}, "aio": {"queue_depth": 4}}):
+            load_config(dict({"train_micro_batch_size_per_gpu": 1},
+                             **ok)).check_ported()
 
     def test_lamb_at_world_above_one_raises(self, monkeypatch):
-        """A process group of 2 with LAMB: the engine refuses it (and
-        LAMB under stage 3, whose shard is not whole leaves)."""
+        """LAMB at a world of 2 and under stage 3 is accepted (its segments
+        are the shard's parts of leaves, each with its leaf id); LAMB with
+        optimizer offload still raises."""
         from deepspeed_tpu_torch import comm, initialize
         from deepspeed_tpu_torch.models import create_model
 
@@ -278,15 +296,20 @@ class TestPortRules:
                "optimizer": {"type": "lamb"}}
         model = create_model("tiny", dtype=torch.float32)
         monkeypatch.setattr(comm, "get_world_size", lambda group=None: 2)
-        with pytest.raises(NotImplementedError, match="LAMB at world > 1"):
-            initialize(model=model, config=cfg, device="cpu")
+        eng = initialize(model=model, config=cfg, device="cpu")[0]
+        assert eng.world == 2 and eng.opt_state.segments.leaf is None
         monkeypatch.undo()
-        with pytest.raises(NotImplementedError, match="stage 3"):
-            initialize(model=model, config=dict(
-                cfg, zero_optimization={"stage": 3}), device="cpu")
         eng = initialize(model=model, config=dict(
-            cfg, zero_optimization={"stage": 2}), device="cpu")[0]
-        assert eng.opt_state.segments is not None
+            cfg, zero_optimization={
+                "stage": 3, "stage3_param_persistence_threshold": 0}),
+            device="cpu")[0]
+        seg = eng.opt_state.segments
+        assert seg.leaf is not None
+        assert seg.n_leaves == len(list(eng.partition.leaf_pieces()))
+        with pytest.raises(NotImplementedError, match="offload_optimizer"):
+            initialize(model=model, config=dict(
+                cfg, zero_optimization={"offload_optimizer": {
+                    "device": "cpu"}}), device="cpu")
 
     def test_out_of_scope_raises(self):
         with pytest.raises(NotImplementedError):

@@ -212,8 +212,20 @@ def test_optimizer_params_share_one_flat_buffer():
 @pytest.mark.parametrize("name", ["onebitlamb", "adagrad", "sgd", "lion",
                                   "onebitadam", "zerooneadam"])
 def test_unported_optimizers_raise(name):
+    """adagrad, sgd and lion are not ported; the 1-bit optimizers are, at
+    ZeRO stages 0-1, and above it the config still raises naming them."""
     cfg = load_config({"train_micro_batch_size_per_gpu": 1,
                        "optimizer": {"type": name, "params": {}}})
+    if name in ("onebitlamb", "onebitadam", "zerooneadam"):
+        opt = build_optimizer(cfg)
+        assert opt.lamb == (name == "onebitlamb")
+        assert (opt.zero_one is not None) == (name == "zerooneadam")
+        cfg = load_config({"train_micro_batch_size_per_gpu": 1,
+                           "optimizer": {"type": name, "params": {}},
+                           "zero_optimization": {"stage": 2}})
+        with pytest.raises(NotImplementedError, match=name):
+            cfg.check_ported()
+        return
     with pytest.raises(NotImplementedError, match=name):
         build_optimizer(cfg)
 
@@ -369,13 +381,14 @@ def test_unknown_keys_raise_naming_the_key(cfg, key):
     ({"activation_checkpointing": {"partition_activations": True}},
      "activation_checkpointing"),
     ({"zero_optimization": {"stage": 2,
-                            "offload_optimizer": {"device": "cpu"}}},
-     "offload_optimizer"),
+                            "offload_optimizer": {"device": "cpu"}},
+      "optimizer": {"type": "lamb"}}, "offload_optimizer"),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
      "offload_param"),
     ({"parallel": {"tensor_parallel_size": 2}}, "tensor_parallel_size"),
     ({"parallel": {"data_parallel_size": 2},
-      "optimizer": {"type": "lamb"}}, "data_parallel_size"),
+      "optimizer": {"type": "onebitlamb"},
+      "zero_optimization": {"stage": 2}}, "onebitlamb' at ZeRO stage 2"),
 ])
 def test_unported_config_raises(extra, what):
     cfg = load_config(dict(BENCH, **extra))

@@ -443,15 +443,18 @@ def test_unported_engine_features_raise():
     for extra in ({"optimizer": {"type": "lion"}},
                   {"parallel": {"tensor_parallel_size": 2}},
                   {"zero_optimization": {"stage": 2, "offload_optimizer":
-                                         {"device": "cpu"}}},
+                                         {"device": "cpu"}},
+                   "optimizer": {"type": "lamb"}},
                   {"progressive_layer_drop": {"enabled": True}}):
         with pytest.raises(NotImplementedError):
             initialize(model=_port_model("tiny"), config=_config(**extra),
                        device="cpu")
     for opt in ("onebitadam", "onebitlamb", "zerooneadam"):
+        # ported at stages 0-1 (test_torch_onebit.py); above, refused
         with pytest.raises(NotImplementedError, match=opt):
             initialize(model=_port_model("tiny"),
-                       config=_config(optimizer={"type": opt}),
+                       config=_config(optimizer={"type": opt},
+                                      zero_optimization={"stage": 2}),
                        device="cpu")
     eng = _engine()
     with pytest.raises(ValueError, match="leading dim"):

@@ -245,3 +245,144 @@ def checkpoint_step(rank, world, case, init, ckpt) -> Dict[str, Any]:
     state["loss3"] = float(eng.train_batch(batch=batches[2]))
     state["params3"] = params_to_numpy(eng.params)
     return state
+
+
+# ---------------------------------------------------------------------------
+# the 1-bit exchange, the 1-bit optimizers and the collective sweep
+# ---------------------------------------------------------------------------
+
+def exchange_vectors(world: int, n: int, steps: int, seed: int = 11
+                     ) -> List[np.ndarray]:
+    """Each step's (world, n) fp32 inputs of the compressed exchange."""
+    return [np.random.default_rng(seed + s).normal(
+        size=(world, n)).astype(np.float32) * (1 + s)
+        for s in range(steps)]
+
+
+def compressed_exchange(rank: int, world: int, n: int, steps: int
+                        ) -> Dict[str, Any]:
+    """``steps`` exchanges with error feedback of ``exchange_vectors``:
+    each step's codes of this rank's first quantization, the mean and both
+    residuals."""
+    from deepspeed_tpu_torch.comm.compressed import (
+        _quantize, compressed_allreduce_flat)
+
+    worker = torch.zeros(n)
+    server = torch.zeros(n // world)
+    out: Dict[str, Any] = {"codes": [], "mean": [], "worker": [],
+                           "server": []}
+    for vecs in exchange_vectors(world, n, steps):
+        v = torch.from_numpy(vecs[rank])
+        out["codes"].append(_quantize(v + worker)[0].numpy())
+        mean, worker, server = compressed_allreduce_flat(v, worker, server)
+        for k, t in (("mean", mean), ("worker", worker),
+                     ("server", server)):
+            out[k].append(t.numpy().copy())
+    return out
+
+
+def onebit_runs(rank: int, world: int, cases: Dict[str, Dict],
+                init: Any, steps: int, bench: bool) -> Dict[str, Any]:
+    """The exchange, every 1-bit case of ``cases`` at each of its stages
+    (``train_case``), and with ``bench`` the collective sweep."""
+    from deepspeed_tpu_torch.comm.benchmark import run_comm_benchmark
+
+    out: Dict[str, Any] = {"exchange": compressed_exchange(rank, world, 96,
+                                                           6)}
+    batches = token_batches(steps, 1, seed=3)
+    for name, case in cases.items():
+        for stage in case["stages"]:
+            out[(name, stage)] = train_case(case, init, world, stage,
+                                            batches)
+    if bench:
+        out["bench"] = run_comm_benchmark(minsize_log2=10, maxsize_log2=11,
+                                          trials=2, warmups=1,
+                                          dtype=torch.float32, quiet=True)
+    return out
+
+
+def stage_runs(rank: int, world: int, cases: Dict[str, Dict],
+               inits: Dict[str, Any]) -> Dict[str, Any]:
+    """Every case of ``cases`` at each of its stages (``train_case``)."""
+    out: Dict[str, Any] = {}
+    for name, case in cases.items():
+        batches = token_batches(case["steps"], case["gas"])
+        for stage in case["stages"]:
+            out[(name, stage)] = train_case(case, inits[name], world, stage,
+                                            batches)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# optimizer-state offload
+# ---------------------------------------------------------------------------
+
+SUB_GROUP = 5000     # elements: ``tiny`` in a few dozen sub-groups
+
+
+def offload_config(case: Dict[str, Any], world: int, stage: int,
+                   tier: str, swap_dir: str) -> Dict:
+    cfg = case_config(case, world, stage)
+    zero = dict(cfg["zero_optimization"], sub_group_size=SUB_GROUP)
+    if tier != "none":
+        zero["offload_optimizer"] = {"device": tier, "nvme_path": swap_dir}
+    cfg["zero_optimization"] = zero
+    return cfg
+
+
+def offload_state(eng) -> Dict[str, np.ndarray]:
+    """The rank's master and moments over its shard, wherever they live
+    (the params widened for the master of resident fp32 params)."""
+    st = eng.opt_state
+    if st.exp_avg is None:
+        return {k: v.numpy() for k, v in st.offload.read_state(
+            st.n).items()}
+    master = st.master if st.master is not None else st.shard_param
+    return {"master": master.detach().float().cpu().numpy().copy(),
+            "exp_avg": st.exp_avg.cpu().numpy().copy(),
+            "exp_avg_sq": st.exp_avg_sq.cpu().numpy().copy()}
+
+
+def offload_case(case: Dict[str, Any], init: Any, world: int, stage: int,
+                 tier: str, swap_dir: str) -> Dict[str, Any]:
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import params_to_numpy
+    from deepspeed_tpu_torch.models.core import tree_map
+
+    eng = initialize(model=port_model(case, init),
+                     config=offload_config(case, world, stage, tier,
+                                           swap_dir), device="cpu")[0]
+    losses, scales = [], []
+    for b in token_batches(case["steps"], case["gas"]):
+        losses.append(float(eng.train_batch(batch=b)))
+        scales.append(eng.cur_scale)
+    st = eng.opt_state
+    out = {"losses": losses, "scales": scales, "skipped": eng.skipped_steps,
+           "params": tree_map(np.copy, params_to_numpy(eng.params)),
+           "state": offload_state(eng),
+           "state_device": (None if st.exp_avg is None
+                            else str(st.exp_avg.device))}
+    if tier == "nvme":
+        sw = st.offload
+        out.update(peak_live_groups=sw.peak_live_groups,
+                   groups=len(sw.groups),
+                   sets=sum(s is not None for s in sw._sets),
+                   group_sizes=list(sw.group_sizes))
+        sw.close(remove=True)
+    return out
+
+
+def offload_runs(rank: int, world: int, cases: Dict[str, Dict],
+                 inits: Dict[str, Any], swap_root: str) -> Dict[str, Any]:
+    """Every case of ``cases`` whose ``worlds`` include ``world``, at each
+    of its stages and tiers."""
+    out: Dict[str, Any] = {}
+    for name, case in cases.items():
+        if world not in case["worlds"]:
+            continue
+        for stage in case["stages"]:
+            for tier in case["tiers"]:
+                out[(name, stage, tier)] = offload_case(
+                    case, inits[name], world, stage, tier,
+                    os.path.join(swap_root, f"{name}-{stage}-{world}"))
+    return out
