@@ -127,9 +127,33 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    the zero bound of the train phase's; the checkpoint restored into a
    fresh engine (state and next loss bit for bit). Prints GB read and written a step, GB/s, the host
    update's seconds. The swap directories are removed.
-19. ``comm_bench`` — ``comm/benchmark.py``'s sweep at world 1: a 64 MiB
+19. ``param_offload_parity`` — llama-7b's widths cut to 2 layers (bf16, 1 x
+   2048 tokens, AdamW, stage 3) trained side by side resident and under
+   parameter offload (``offload_param``) on the cpu and the nvme tier: 3
+   steps of the fused path, then from a fresh init 2 steps at gas 2 with a
+   clip that clips (the deferred path). The cpu tier's grads (the
+   executor's ``grad_hook``) feed the nvme tier and the resident engine's
+   accumulator; each step the resident master and moments are held to the
+   cpu tier's by the fused Adam tolerance from the same old state and
+   grads, then set to them; losses within the zero bound of the cpu
+   tier's; the nvme tier equals the cpu tier bit for bit (losses, params,
+   master, moments); exact launches a step (Adam once a block and once
+   for the resident part; the backward's recompute adds a flash forward and
+   two norms a layer).
+20. ``param_offload`` — llama-7b at full size (32 layers) on the nvme tier,
+   at full width and 16 layers on the cpu tier (its 14 bytes a param of
+   host memory would not fit at 32) and at 4 layers on the nvme tier: a
+   warm-up and 2 timed fused steps each, on the largest local disk (20 GB
+   free needed); losses finite and falling, exact launches, at most two
+   blocks on the card; peak device memory at 32 layers within 28 boundary
+   activations and a stated slack of 4 layers'. Prints each run's step
+   split (forward, backward with recompute, block updates), the card's
+   busy seconds (CUDA events around its work) and the host's staging-copy
+   seconds, GB each way and on disk, fetch waits, peak device memory and
+   host RSS.
+21. ``comm_bench`` — ``comm/benchmark.py``'s sweep at world 1: a 64 MiB
    message an op, latency and bandwidths. The group is destroyed.
-20. ``sparse_train`` — OPT-1.3B at full size with DeepSpeed's Fixed sparse
+22. ``sparse_train`` — OPT-1.3B at full size with DeepSpeed's Fixed sparse
    layout (block 16, 4 local blocks, 1 global, unidirectional) as its
    ``attention_impl`` and LAMB (lr 1e-3, weight decay 0.01), bf16, micro
    batch 2 x 2048 tokens: a warm-up step, then 5 timed ``train_batch``
@@ -139,13 +163,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    once. Prints step ms, tokens/s, MFU (PR 3's formula at S 2048), peak
    memory, and beside the formula's attention FLOPs (all S^2 pairs) those
    of the pairs the layout lets attend.
-21. ``e2e_sparse_train_parity`` — OPT-1.3B widths at 2 layers, fp32, S 512,
+23. ``e2e_sparse_train_parity`` — OPT-1.3B widths at 2 layers, fp32, S 512,
    the Fixed layout, LAMB with weight decay and clipping: 3 steps through
    the kernel path and through the plain path, held as in phase 11 (the
    update within E2E_SPARSE_TRAIN_TOL; ``scripts/lamb_parity_faults.py``
    reads the same measures with faults planted in the kernel path's LAMB).
 
-22. ``spatial`` — the Stable Diffusion v1.5 VAE decoder's mid block
+24. ``spatial`` — the Stable Diffusion v1.5 VAE decoder's mid block
    (resnet -> attention -> resnet) at full width: a 64 x 64 latent of 512
    channels, 32 groups, eps 1e-6, batch 4, seeded bf16 weights (10.5 M
    parameters): a warm-up, then 5 timed calls with exact launch counts (5
@@ -153,9 +177,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    The output must be finite and within SPATIAL_TOL of the plain path.
    Prints ms a call, latents/s, the share of the bf16 peak at its FLOPs and
    peak memory.
-23. ``e2e_spatial_parity`` — the same block in fp32 on a 16 x 16 latent, B
+25. ``e2e_spatial_parity`` — the same block in fp32 on a 16 x 16 latent, B
    2: the kernel path against ``plain=True`` within E2E_TOL.
-24. ``quantize`` — ``fake_quantize`` (int8, groups of 128) over every
+26. ``quantize`` — ``fake_quantize`` (int8, groups of 128) over every
    weight leaf of OPT-1.3B in bf16 under autograd: one quantize launch a
    leaf, the gradient passed through bit for bit, |deq - w| within half a
    scale plus one bf16 ulp; then int4 ``quantize_symmetric`` over the same
@@ -188,14 +212,18 @@ cross attention over 77 keys; SDPA as yardstick); and the flash forward
 and backward at OPT-1.3B's training shape and at llama-7b's under offload
 (B 1, S 2048, 32 heads of 128; causal, no mask; SDPA with ``is_causal`` as
 yardstick). The ``kernels`` line gives those three kernels' llama-7b
-training case under ``llama_train`` (kernel or plan, error, ms).
+training case under ``llama_train`` (kernel or plan, error, ms). Fused
+Adam also runs at parameter offload's two calls on llama-7b (a layer's
+block with fp32 grads and a clip scale; the resident part with bf16
+grads), given under ``param_offload`` in the ``kernels`` line.
 
 Then one ``{"kernels": [...]}`` line (``kernel``: the CUDA kernel that runs
 at the main path's shape; ``launches``: each wrapper's count over
 the serve run, the first generate call, the first call of each quantized
 mode, the int8 serve run, the 5 timed train steps, the zero phase's 2
 timed steps of each stage 1-3, lamb_zero's 2 timed steps a stage,
-offload's 2 timed steps, the 5 timed sparse_train steps, the 5 timed
+offload's 2 timed steps, param_offload's 2 timed steps of each run, the 5
+timed sparse_train steps, the 5 timed
 spatial calls and the quantize phase's fake_quantize pass), the nvidia-smi line, and as the last line ``{"ok":
 true, "device": {...}}``. Each phase's line carries ``at_s``, the seconds
 since the start, and the ``kernels`` phase's line the seconds each group
@@ -1167,27 +1195,45 @@ def check_adam(case: str, old, got, ref, g, scale, kw) -> float:
          ADAM_P_ROUND * ref[0].abs() + ADAM_RTOL * kw["lr"] * u_mag)))
 
 
+def llama_7b_offload_numels():
+    """Elements of one llama-7b layer (a block of parameter offload at the
+    default buffer_size) and of its resident part (embedding, final norm,
+    head), from the model's shapes."""
+    tree = create_model("llama-7b", num_layers=1).init(torch.Generator(),
+                                                       device="meta")
+    items = list(tree_items(tree))
+    return (sum(t.numel() for p, t in items if p[0] == "layers"),
+            sum(t.numel() for p, t in items if p[0] != "layers"))
+
+
 def adam_cases(dev, gen):
-    """Fused Adam on a flat buffer of 64 Mi elements: the train path's
-    update (fp32 master / moments, bf16 grads, bf16 working copy written,
-    the clip coefficient as a device scalar), then fp32 grads without a
-    copy. AdamW, lr 1e-4, weight decay 0.01, bias correction at step 10.
-    The second moments span 1e-16..1 (log-uniform), so some updates are
-    ~lr-sized and depend on eps and the bias corrections, others are
-    dominated by the weight decay. The yardstick is
-    ``torch.optim.AdamW(fused=True)``'s step on the same sizes (fp32
-    grads: it takes the param's dtype)."""
-    n = 64 * 2 ** 20
+    """Fused Adam on flat buffers: at 64 Mi elements the train path's update
+    (fp32 master / moments, bf16 grads, bf16 working copy written, the clip
+    coefficient as a device scalar), then fp32 grads without a copy; at
+    parameter offload's sizes on llama-7b its two calls: a block (one
+    layer) on the deferred path (fp32 accumulated grads, the bf16 copy, the
+    clip coefficient) and the resident part on the fused path (bf16 grads,
+    the bf16 copy, no scale; the blocks take the same call). AdamW, lr
+    1e-4, weight decay 0.01, bias correction at step 10. The second moments
+    span 1e-16..1 (log-uniform), so some updates are ~lr-sized and depend
+    on eps and the bias corrections, others are dominated by the weight
+    decay. The yardstick is ``torch.optim.AdamW(fused=True)``'s step on the
+    same sizes (fp32 grads: it takes the param's dtype)."""
     kw = dict(step=10, lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
               weight_decay=0.01, adam_w_mode=True)
+    block, resident = llama_7b_offload_numels()
     results = []
-    for case, gdt, copy in (("train", torch.bfloat16, True),
-                            ("fp32", torch.float32, False)):
+    for case, n, gdt, copy, scaled in (
+            ("train", 64 * 2 ** 20, torch.bfloat16, True, True),
+            ("fp32", 64 * 2 ** 20, torch.float32, False, True),
+            ("offload_block", block, torch.float32, True, True),
+            ("offload_resident", resident, torch.bfloat16, True, False)):
         p = torch.randn(n, generator=gen, device=dev)
         m = 1e-5 * torch.randn(n, generator=gen, device=dev)
         v = torch.pow(10.0, -16 * torch.rand(n, generator=gen, device=dev))
         g = (1e-5 * torch.randn(n, generator=gen, device=dev)).to(gdt)
-        scale = torch.tensor([0.37], device=dev)
+        one = torch.ones(1, device=dev)
+        scale = torch.tensor([0.37], device=dev) if scaled else None
         bufs = [[x.clone() for x in (p, m, v)] for _ in range(2)]
         copies = ([torch.empty(n, dtype=torch.bfloat16, device=dev)
                    for _ in range(2)] if copy else [None, None])
@@ -1195,7 +1241,8 @@ def adam_cases(dev, gen):
                         grad_scale=scale, **kw)
         reference_adam_flat(*bufs[1][:1], g, *bufs[1][1:],
                             param_copy=copies[1], grad_scale=scale, **kw)
-        err = check_adam(case, (p, m, v), bufs[0], bufs[1], g, scale, kw)
+        err = check_adam(case, (p, m, v), bufs[0], bufs[1], g,
+                         one if scale is None else scale, kw)
         if copy:
             check(f"fused_adam {case} copy", copies[0], copies[1],
                   ADAM_COPY_TOL)
@@ -1216,10 +1263,10 @@ def adam_cases(dev, gen):
         opt = torch.optim.AdamW([param], lr=1e-4, betas=(0.9, 0.999),
                                 eps=1e-8, weight_decay=0.01, fused=True)
         library = time_eager_ms(opt.step)
-        del opt, param
+        del opt, param, p, m, v, g
         results.append(dict(
             case=case, n=n, grad_dtype=str(gdt), param_copy=copy,
-            dtype=str(gdt), max_abs_err=err,
+            grad_scale=scaled, dtype=str(gdt), max_abs_err=err,
             tol=dict(rtol_of_terms=ADAM_RTOL, p_round=ADAM_P_ROUND),
             ms=ms, plain_ms=plain,
             library_ms=library, bound_ms=b_ms, bound_by=b_by))
@@ -3242,6 +3289,413 @@ def nvme_phase(dev, base_losses, bound):
         torch.cuda.empty_cache()
 
 
+# parameter offload (ZeRO-3 offload_param): llama-7b, bf16, 1 x 2048 tokens,
+# AdamW, the default buffer_size (1e8 bytes: one 405 MB layer a block)
+PARAM_OFFLOAD_S = 2048
+PARAM_OFFLOAD_OPT = {"type": "adamw",
+                     "params": {"lr": 1e-4, "weight_decay": 0.01}}
+# the parity phase's deferred path: gas 2 and a clip below llama-7b's grad
+# norm at its random init (the phase asserts that it clips)
+PARAM_PARITY_CLIP = 0.1
+PARAM_PARITY_RUNS = (("fused", 1, 0.0, 3), ("deferred", 2,
+                                             PARAM_PARITY_CLIP, 2))
+# timed steps after the warm-up one
+PARAM_OFFLOAD_STEPS = 2
+# (tier, layers) of the param_offload phase. The cpu tier holds 14 bytes a
+# layer param in host memory: 90.7 GB at 32 layers against the card
+# machine's 101 GiB, beside the ~9.3 GB of process overhead the offload
+# phase shows there, so it runs at 16 layers (45.3 GB); the nvme tier keeps the 16-bit params
+# in files and 12 bytes an element of fp32 state in host memory (77.7 GB at
+# 32 layers). The 4-layer nvme run is the other end of the L-independence
+# check.
+PARAM_OFFLOAD_RUNS = (("nvme", 32), ("cpu", 16), ("nvme", 4))
+# the 32-layer nvme tier's block files (13.0 GB) and room to spare
+PARAM_NVME_NEED_BYTES = 20e9
+# peak device memory at 32 layers against 4: the boundary activations (G +
+# 1 of them, 1 x 2048 x 4096 bf16 = 16.8 MB each: 28 more) are the only
+# storage that grows with the layers; the slack covers the allocator's
+# rounding of each of them (at most 2 MiB) and a reordering of frees
+PARAM_PEAK_SLACK = 28 * 2 * 2 ** 20 + 64 * 2 ** 20
+
+
+def param_offload_config(tier: str, swap: str = "", gas: int = 1,
+                         clip: float = 0.0):
+    zero = {"stage": 3}
+    if tier != "none":
+        zero["offload_param"] = {"device": tier, "nvme_path": swap}
+    return {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": gas, "gradient_clipping": clip,
+            "steps_per_print": 1000, "optimizer": PARAM_OFFLOAD_OPT,
+            "bf16": {"enabled": True}, "zero_optimization": zero,
+            "aio": {"thread_count": 4, "queue_depth": 8}}
+
+
+def param_offload_launches(tier: str, layers: int, blocks: int, gas: int):
+    """The train path's launches a step. Resident: a flash forward and
+    backward a layer and two norms a layer and the final one, a micro
+    batch; one Adam launch. Under parameter offload the backward recomputes
+    each block's forward (another flash forward and two norms a layer), and
+    Adam launches once a block and once for the resident part."""
+    if tier == "none":
+        return {"flash_attention": layers * gas,
+                "flash_attention_bwd": layers * gas,
+                "fused_layer_norm": (2 * layers + 1) * gas, "fused_adam": 1}
+    return {"flash_attention": 2 * layers * gas,
+            "flash_attention_bwd": layers * gas,
+            "fused_layer_norm": (4 * layers + 1) * gas,
+            "fused_adam": blocks + 1}
+
+
+def param_offload_state(ex):
+    """Every block's params (from the files on the nvme tier), master and
+    moments, and the resident part's, as CPU copies."""
+    out = {}
+    for g in range(ex.num_blocks):
+        out[f"params{g}"] = ex.block_params(g).clone()
+        for kind in ("master", "m", "v"):
+            out[f"{kind}{g}"] = getattr(ex, kind)[g].clone()
+    out["res_params"] = ex.res_flat.cpu()
+    for kind in ("master", "m", "v"):
+        out[f"res_{kind}"] = ex.res_state(kind).cpu()
+    return out
+
+
+def shard_runs(engine, path, lo: int, hi: int):
+    """The runs of ``engine``'s shard (world 1: every unit whole) that hold
+    elements [lo, hi) of leaf ``path`` in C order: (position in the shard,
+    position from ``lo``, count)."""
+    part = engine.partition
+    out = []
+    for i, pc in part.leaf_pieces()[path]:
+        a, b = max(lo, pc.start), min(hi, pc.start + pc.numel)
+        if a < b:
+            out.append((part.shard_offsets[i] + pc.offset + a - pc.start,
+                        a - lo, b - a))
+    return out
+
+
+def executor_runs(engine, ex):
+    """For each part of the executor's layout (its blocks, then the resident
+    part) the runs of ``engine``'s shard that hold it: (position in the
+    shard, position in the part, count)."""
+    parts = []
+    for g, (lo, hi) in enumerate(ex.bounds):
+        runs = []
+        for i, path in enumerate(ex.layer_paths):
+            n, at = ex.leaf_numel[i], ex.offsets[g][i]
+            runs += [(s, at + o, c) for s, o, c in
+                     shard_runs(engine, ("layers",) + path, lo * n, hi * n)]
+        parts.append(runs)
+    runs, at = [], 0
+    for (path, _), n in zip(ex.res_items, ex.res_numel):
+        runs += [(s, at + o, c) for s, o, c in shard_runs(engine, path, 0, n)]
+        at += n
+    parts.append(runs)
+    return parts
+
+
+def gather_runs(buf, runs, n: int):
+    out = torch.empty(n, dtype=buf.dtype, device=buf.device)
+    for s, o, c in runs:
+        out[o:o + c].copy_(buf[s:s + c])
+    return out
+
+
+def scatter_runs(buf, runs, src) -> None:
+    for s, o, c in runs:
+        buf[s:s + c].copy_(src[o:o + c])
+
+
+def executor_part(ex, p: int, kind: str, dev):
+    """A copy on ``dev`` of part ``p`` (a block, or the resident part after
+    the last) of the executor's ``kind`` (params, master, m, v)."""
+    if p < ex.num_blocks:
+        src = (ex.block_params(p) if kind == "params"
+               else getattr(ex, kind)[p])
+    else:
+        src = ex.res_flat if kind == "params" else ex.res_state(kind)
+    return src.to(dev, copy=True)
+
+
+# the resident engine's buffers that hold each executor kind
+RESIDENT_KINDS = {"params": "shard_param", "master": "master",
+                  "m": "exp_avg", "v": "exp_avg_sq"}
+
+
+def param_offload_parity_phase(dev, root, bound):
+    """llama-7b's widths cut to 2 layers (bf16, 1 x PARAM_OFFLOAD_S
+    tokens, AdamW, stage 3) trained three ways side by side: resident,
+    ``offload_param`` on the cpu tier and on the nvme tier, first 3 steps of
+    the fused path, then, from a fresh init, 2 steps at gas 2 with a clip
+    that clips (the deferred path). Each step the cpu tier records each
+    micro-batch's grads (the executor's ``grad_hook``), the nvme tier is
+    fed the same ones, and the resident engine's accumulated grads are set
+    to their sum after its backward; so the three differ in the update
+    alone (the flash backward's dq is not bit-repeatable). Every step: the
+    resident engine's master and moments, laid out as the executor's blocks
+    and resident part, are held to the cpu tier's by ``check_adam`` from the
+    same old state and grads (and their bit-equality reported), then the
+    resident params and state are set to the cpu tier's, so each step
+    starts all three from the same state; each step's losses against the
+    cpu tier's within ``bound`` (the zero phase's). The nvme tier holds to
+    the cpu tier bit for bit (losses, params, master, moments); exact
+    launches a step (Adam blocks + 1; the recompute's flash forwards and
+    norms)."""
+    model = create_model("llama-7b", dtype=torch.bfloat16, num_layers=2,
+                         max_seq_len=PARAM_OFFLOAD_S)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    # a new batch each step: on one repeated batch the 2-layer model's loss
+    # falls to ~6e-4 by the third step on an H100
+    ids = torch.randint(0, model.config.vocab_size,
+                        (max(r[3] for r in PARAM_PARITY_RUNS), 2, 1,
+                         PARAM_OFFLOAD_S), generator=gen, device=dev)
+    opt = PARAM_OFFLOAD_OPT["params"]
+    out, blocks = {}, None
+    for path, gas, clip, steps in PARAM_PARITY_RUNS:
+        engines = {tier: initialize(model=model, config=param_offload_config(
+            tier, os.path.join(root, f"{path}-{tier}"), gas, clip))[0]
+            for tier in ("none", "cpu", "nvme")}
+        res, cpu = engines["none"], engines["cpu"]._param_offload
+        nvme = engines["nvme"]._param_offload
+        blocks = cpu.num_blocks
+        runs = executor_runs(res, cpu)
+        sizes = cpu.block_numel + [sum(cpu.res_numel)]
+        parts = range(len(sizes))
+        ost = res.opt_state
+        start = [torch.equal(gather_runs(ost.shard_param, runs[p], sizes[p]),
+                             executor_part(cpu, p, "params", dev))
+                 for p in parts]
+        if not all(start):
+            raise AssertionError(f"param_offload_parity {path}: the resident "
+                                 "and offload inits differ")
+        grads = {}
+
+        def record(part, g, t):
+            grads.setdefault((part, g), []).append(t.clone())
+            return t
+
+        def replay(part, g, t):
+            return grads[(part, g)].pop(0)
+
+        cpu.grad_hook, nvme.grad_hook = record, replay
+        losses = {t: [] for t in engines}
+        launches = {t: {} for t in engines}
+        norms, errs, equal = [], [], []
+        for k in range(steps):
+            batch = {"input_ids": ids[k, :gas]}
+            old = [[executor_part(cpu, p, kind, "cpu") for kind in
+                    ("master", "m", "v")] for p in parts]
+            grads.clear()
+            for tier in ("cpu", "nvme", "none"):
+                reset_launch_counts()
+                if tier == "none":
+                    micro = []
+                    for j in range(gas):
+                        micro.append(float(res.forward(
+                            {"input_ids": ids[k, j]}).detach()))
+                        res.backward()
+                    for p in parts:
+                        scatter_runs(res.zero.acc, runs[p], summed[p])
+                    res.step()
+                    loss = sum(micro) / gas
+                else:
+                    loss = float(engines[tier].train_batch(batch=batch))
+                if tier == "cpu":
+                    # its grads summed as its accumulators sum them, for
+                    # the resident engine's fp32 accumulator
+                    summed = [sum(t.float() for t in grads[(
+                        "block", p) if p < blocks else ("resident", -1)])
+                        for p in parts]
+                torch.cuda.synchronize()
+                losses[tier].append(loss)
+                for name, n in launch_counts().items():
+                    launches[tier][name] = launches[tier].get(name, 0) + n
+            norm = cpu.last_step_stats["grad_norm"]
+            norms.append(norm)
+            scale = torch.ones(1, device=dev)
+            if clip:
+                scale = torch.clamp(clip / (torch.tensor(
+                    [norm], device=dev) + 1e-6), max=1.0)
+            kw = dict(step=k + 1, lr=opt["lr"], beta1=0.9, beta2=0.999,
+                      eps=1e-8, weight_decay=opt["weight_decay"])
+            same = True
+            for p in parts:
+                ref = [executor_part(cpu, p, kind, dev)
+                       for kind in ("master", "m", "v")]
+                got = [gather_runs(getattr(ost, RESIDENT_KINDS[kind]),
+                                   runs[p], sizes[p])
+                       for kind in ("master", "m", "v")]
+                errs.append(check_adam(
+                    f"param_offload_parity {path} step {k + 1} part {p}",
+                    [t.to(dev) for t in old[p]], got, ref, summed[p], scale,
+                    kw))
+                same = same and all(torch.equal(a, b)
+                                    for a, b in zip(got, ref))
+                for kind, t in zip(("master", "m", "v"), ref):
+                    scatter_runs(getattr(ost, RESIDENT_KINDS[kind]), runs[p],
+                                 t)
+                scatter_runs(ost.shard_param, runs[p],
+                             executor_part(cpu, p, "params", dev))
+                del ref, got
+            res.zero.gather_persistent()
+            equal.append(same)
+            del old, summed
+        want = {t: {name: n * steps for name, n in param_offload_launches(
+            t, 2, blocks, gas).items()} for t in engines}
+        got = {t: {name: launches[t].get(name, 0) for name in want[t]}
+               for t in engines}
+        if got != want:
+            raise AssertionError(f"param_offload_parity {path}: launches "
+                                 f"{got}, expected {want}")
+        snap, swapped = param_offload_state(cpu), param_offload_state(nvme)
+        differ = [k for k in snap if not torch.equal(snap[k], swapped[k])]
+        if differ or losses["nvme"] != losses["cpu"]:
+            raise AssertionError(f"param_offload_parity {path}: nvme differs "
+                                 f"from cpu in {differ}, losses {losses}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["none"],
+                                                   losses["cpu"])]
+        if not (max(rel) <= bound and all(np.isfinite(losses["none"]))):
+            raise AssertionError(f"param_offload_parity {path}: losses "
+                                 f"{losses} beyond {bound}")
+        if clip and not min(norms) > clip:
+            raise AssertionError(f"param_offload_parity: grad norms "
+                                 f"{norms} do not clip at {clip}")
+        out[path] = dict(gas=gas, clip=clip, steps=steps, losses=losses,
+                         loss_rel_err=rel, grad_norms=norms,
+                         state_max_abs_err=max(errs),
+                         state_bit_equal=equal, launches=got,
+                         nvme_equals_cpu=True)
+        nvme.close(remove=True)
+        del engines, res, cpu, nvme, ost, snap, swapped, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(phase="param_offload_parity", model="llama-7b", layers=2,
+                dtype="bfloat16", tokens=PARAM_OFFLOAD_S, blocks=blocks,
+                loss_rtol=bound,
+                adam_tol=dict(rtol_of_terms=ADAM_RTOL, p_round=ADAM_P_ROUND),
+                **out)
+
+
+def param_offload_run(dev, tier: str, layers: int, root: str):
+    """llama-7b at full width and ``layers`` layers under ``offload_param``
+    on ``tier`` (fused path): init, a warm-up step and PARAM_OFFLOAD_STEPS
+    timed ones on one seeded batch, with the launches of the timed steps."""
+    model = create_model("llama-7b", dtype=torch.bfloat16, num_layers=layers,
+                         max_seq_len=PARAM_OFFLOAD_S)
+    check_llama_7b(dataclasses.replace(model.config, num_layers=32))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = initialize(model=model, config=param_offload_config(
+        tier, os.path.join(root, f"{tier}{layers}")))[0]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    ex = engine._param_offload
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    batch = {"input_ids": torch.randint(
+        0, model.config.vocab_size, (1, 1, PARAM_OFFLOAD_S), generator=gen,
+        device=dev)}
+    t0 = time.perf_counter()
+    losses = [float(engine.train_batch(batch=batch))]
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    steps = []
+    for _ in range(PARAM_OFFLOAD_STEPS):
+        losses.append(float(engine.train_batch(batch=batch)))
+        st = dict(ex.last_step_stats)
+        steps.append(dict(
+            step_s=st["wall_s"], forward_s=st["forward_s"],
+            backward_recompute_s=st["backward_s"],
+            block_updates_s=st["update_s"],
+            h2d_gb=st["h2d_bytes"] / 1e9, d2h_gb=st["d2h_bytes"] / 1e9,
+            disk_read_gb=st["read_bytes"] / 1e9,
+            disk_written_gb=st["write_bytes"] / 1e9,
+            fetch_wait_s=st["fetch_wait_s"],
+            host_copy_s=st["host_copy_s"],
+            device_busy_s=st["device_busy_s"],
+            h2d_gb_per_s=st["achieved_h2d_gbps"],
+            total_gb_per_s=st["achieved_total_gbps"],
+            side_stream_copies=st["side_stream_copies"]))
+    counts = launch_counts()
+    want = {k: n * PARAM_OFFLOAD_STEPS for k, n in param_offload_launches(
+        tier, layers, ex.num_blocks, 1).items()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"param_offload {tier} {layers}: launches "
+                             f"{got}, expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"param_offload {tier} {layers}: losses "
+                             f"{losses} not finite and falling")
+    if ex.peak_live > 2:
+        raise AssertionError(f"param_offload: {ex.peak_live} blocks on the "
+                             "card at once")
+    peak = torch.cuda.max_memory_allocated()
+    rss, hwm = host_memory_gb()
+    h2d, d2h = ex.stream_bytes_per_step()
+    out = dict(tier=tier, layers=layers, blocks=ex.num_blocks,
+               params=ex.n_params, init_s=init_s, warmup_s=warm_s,
+               losses=losses, steps=steps,
+               step_s=sum(x["step_s"] for x in steps) / len(steps),
+               tokens_per_s=PARAM_OFFLOAD_S * len(steps)
+               / sum(x["step_s"] for x in steps),
+               counted_h2d_gb=h2d / 1e9, counted_d2h_gb=d2h / 1e9,
+               host_state_gb=sum(ex.block_numel) * 12 / 1e9,
+               init_peak_mem_gb=init_peak / 1e9, peak_mem_gb=peak / 1e9,
+               peak_mem_bytes=peak, peak_live_blocks=ex.peak_live,
+               host_rss_gb=rss, host_peak_rss_gb=hwm, launches=got,
+               activation_bytes=PARAM_OFFLOAD_S * model.config.hidden_size
+               * 2)
+    ex.close(remove=True)
+    del engine, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def param_offload_phase(dev):
+    """llama-7b at full size (32 layers) on the nvme tier, at full width
+    and 16 layers on the cpu tier, and at 4 layers on the nvme tier
+    (``param_offload_run`` each, on the largest local disk, which must have
+    PARAM_NVME_NEED_BYTES free); peak device memory at 32 layers within
+    28 boundary activations and PARAM_PEAK_SLACK of 4 layers'. Returns the
+    timed steps' launches and the phase's JSON."""
+    root = largest_disk()
+    usage = shutil.disk_usage(root)
+    if usage.free < PARAM_NVME_NEED_BYTES:
+        raise AssertionError(
+            f"param_offload: {root} has {usage.free / 1e9:.1f} GB free; "
+            f"the phase needs {PARAM_NVME_NEED_BYTES / 1e9:.0f} GB")
+    d = tempfile.mkdtemp(prefix="param-offload-", dir=root)
+    counts, runs = {}, []
+    try:
+        for tier, layers in PARAM_OFFLOAD_RUNS:
+            c, run = param_offload_run(dev, tier, layers, d)
+            runs.append(run)
+            for name, n in c.items():
+                counts[name] = counts.get(name, 0) + n
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    peaks = {r["layers"]: r["peak_mem_bytes"] for r in runs
+             if r["tier"] == "nvme"}
+    hi, lo = max(peaks), min(peaks)
+    act = runs[0]["activation_bytes"]
+    allowed = (hi - lo) * act + PARAM_PEAK_SLACK
+    if not peaks[hi] - peaks[lo] <= allowed:
+        raise AssertionError(f"param_offload: peak device memory {peaks[hi]}"
+                             f" at {hi} layers, {peaks[lo]} at {lo}: more "
+                             f"than {allowed} apart")
+    return counts, dict(phase="param_offload", model="llama-7b",
+                        dtype="bfloat16", tokens=PARAM_OFFLOAD_S,
+                        disk=root, disk_free_gb=usage.free / 1e9,
+                        runs=runs, peak_layers=[lo, hi],
+                        peak_difference_bytes=peaks[hi] - peaks[lo],
+                        peak_allowed_bytes=allowed,
+                        reads="the page cache may hold them (warm)")
+
+
 def comm_bench_phase(dev):
     """``comm/benchmark.py``'s sweep in the world-1 NCCL group: one 64 MiB
     bf16 message an op (each collective is a one-rank copy)."""
@@ -3490,9 +3944,10 @@ def quantize_phase(dev):
 
 def new_phases(dev, smi, base_losses, bound):
     """The phases after ``checkpoint``, in the world-1 NCCL group:
-    lamb_zero, onebit, offload_parity, offload, nvme and comm_bench, each
-    line with its seconds. Returns the launch counts of the main-path runs
-    (lamb_zero's timed steps and offload's)."""
+    lamb_zero, onebit, offload_parity, offload, nvme, param_offload_parity,
+    param_offload and comm_bench, each line with its seconds. Returns the
+    launch counts of the main-path runs (lamb_zero's timed steps,
+    offload's and param_offload's)."""
     counts = {}
 
     def timed(fn, *args):
@@ -3514,6 +3969,12 @@ def new_phases(dev, smi, base_losses, bound):
         shutil.rmtree(root, ignore_errors=True)
     timed(offload_phase, dev)
     timed(nvme_phase, dev, base_losses, bound)
+    root = tempfile.mkdtemp(prefix="param-parity-", dir=largest_disk())
+    try:
+        timed(param_offload_parity_phase, dev, root, bound)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timed(param_offload_phase, dev)
     timed(comm_bench_phase, dev)
     return counts
 
@@ -3644,6 +4105,12 @@ def main() -> int:
             extra["llama_train"] = {k: c.get(k) for k in (
                 "plan", "kernel", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")}
+        if name == "fused_adam":
+            # parameter offload's two calls at llama-7b's sizes
+            extra["param_offload"] = {c["case"]: {k: c[k] for k in (
+                "n", "grad_dtype", "grad_scale", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for c in cases[name] if c["case"].startswith("offload_")}
         kernels.append(dict(
             name=name, kernel=kernel, route="cuda", source=source,
             replaces=replaces,

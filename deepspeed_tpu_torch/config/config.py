@@ -10,8 +10,8 @@ triad (:1062-1192), copied with their validation. The JAX package's other
 root sections (observability, monitor, compression, curriculum and the like)
 are accepted as raw mappings so that a JAX config loads, and
 ``Config.check_ported`` raises ``NotImplementedError`` naming each one a
-config sets, as it does for parameter offload, for a tensor / pipeline /
-sequence / expert degree above 1, and for the combinations the port does
+config sets, as it does for a tensor / pipeline / sequence / expert degree
+above 1, and for the combinations the port does
 not run (optimizer offload beside LAMB or the 1-bit optimizers, the NVMe
 tier in fp16, the 1-bit optimizers above stage 1). The ``aio`` section
 (:970) is ported. An unknown key raises ``ConfigError`` naming it, as in
@@ -89,14 +89,23 @@ class SchedulerConfig(ConfigModel):
 
 @dataclass
 class OffloadParamConfig(ConfigModel):
-    """Reference: runtime/zero/offload_config.py (DeepSpeedZeroOffloadParamConfig)."""
+    """Reference: runtime/zero/offload_config.py (DeepSpeedZeroOffloadParamConfig).
+
+    ZeRO-3 parameter offload (``runtime/param_offload.py``): ``device``
+    ``cpu`` keeps the layer stack and all of its fp32 state in host memory,
+    ``nvme`` its 16-bit params in files under ``nvme_path``.
+    ``buffer_size`` is the bytes of one streamed block of layers (at least
+    one layer a block), as in JAX. ``buffer_count``, ``max_in_cpu`` and
+    ``pin_memory`` are accepted so that JAX configs load, and ignored, as
+    JAX ignores them (the executor streams through two pinned staging
+    buffers of its own)."""
 
     device: str = "none"  # none | cpu | nvme
     nvme_path: str = "/local_nvme"
-    buffer_count: int = 5
+    buffer_count: int = 5          # ignored
     buffer_size: int = 100_000_000
-    max_in_cpu: int = 1_000_000_000
-    pin_memory: bool = False
+    max_in_cpu: int = 1_000_000_000   # ignored
+    pin_memory: bool = False       # ignored
 
     def validate(self) -> None:
         if self.device not in ("none", "cpu", "nvme"):
@@ -355,8 +364,9 @@ class Config(ConfigModel):
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming every setting of this config
-        that the port does not run yet: a JAX-only root section, parameter
-        offload, a tensor / pipeline / sequence / expert degree above 1
+        that the port does not run yet: a JAX-only root section, a tensor /
+        pipeline / sequence / expert degree above 1, parameter offload beside
+        pipeline parallelism, random-LTD or pruning (JAX's refusals)
         (the port trains data-parallel only), optimizer offload with an
         optimizer outside the Adam family or with the NVMe tier in fp16,
         and the 1-bit optimizers above ZeRO stage 1 or with zerooneadam in
@@ -364,15 +374,14 @@ class Config(ConfigModel):
         missing = [f"config section '{name}'" for name in UNPORTED_SECTIONS
                    if getattr(self, name) is not None]
         zero = self.zero_optimization
-        if zero.offload_param.device != "none":
-            missing.append("zero_optimization.offload_param (parameter "
-                           "offload)")
         par = self.parallel
         for name in ("tensor_parallel_size", "pipeline_parallel_size",
                      "sequence_parallel_size", "expert_parallel_size"):
             if getattr(par, name) > 1:
                 missing.append(f"parallel.{name}={getattr(par, name)} "
                                "(the port trains data-parallel only)")
+        if zero.offload_param.device != "none":
+            missing += self._param_offload_refusals()
         opt = self.optimizer.type.lower()
         tier = zero.offload_optimizer.device
         if tier != "none" and opt not in OFFLOAD_OPTIMIZERS:
@@ -394,6 +403,28 @@ class Config(ConfigModel):
         if missing:
             raise NotImplementedError(
                 "not ported to deepspeed_tpu_torch yet: " + "; ".join(missing))
+
+    def _param_offload_refusals(self) -> List[str]:
+        """JAX's ``NotImplementedError`` gates of parameter offload, in its
+        words (JAX ``engine.py:163-188``)."""
+        out = []
+        if self.parallel.pipeline_parallel_size > 1:
+            out.append("offload_param + pipeline parallelism is not "
+                       "supported (the segmented step IS a pipeline over "
+                       "layer blocks)")
+        de = self.data_efficiency or {}
+        routing = de.get("data_routing")
+        if (de.get("enabled") and isinstance(routing, dict)
+                and (routing.get("random_ltd") or {}).get("enabled")):
+            out.append("offload_param + random_ltd is not supported")
+        ct = self.compression_training or {}
+        if any(ct.get(k) for k in ("sparse_pruning", "row_pruning",
+                                   "head_pruning", "channel_pruning")):
+            out.append("offload_param + pruning compression is not "
+                       "supported (magnitude thresholds couple across the "
+                       "full layer stack, which a streamed block cannot "
+                       "reproduce)")
+        return out
 
     # -- convenience ------------------------------------------------------
     @property

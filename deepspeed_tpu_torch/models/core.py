@@ -20,13 +20,17 @@ class Model:
     """A model bundle: ``init(generator)`` -> params on the generator's
     device, its config, and for training ``loss_fn(params, batch)`` -> the
     scalar loss the engine differentiates, with ``eval_loss_fn`` its
-    eval-mode variant (JAX ``core.Model``)."""
+    eval-mode variant (JAX ``core.Model``). ``streams_layers``: ``init``
+    also takes ``sink=`` (where each layer of the stack goes as it is
+    drawn, ``transformer.init_layer_params``) and ``device="meta"`` (shapes
+    only), as parameter offload needs (JAX ``init_layer_block``)."""
 
     init: Callable[..., Any]
     config: Any = None
     name: str = "model"
     loss_fn: Optional[Callable[..., Any]] = None
     eval_loss_fn: Optional[Callable[..., Any]] = None
+    streams_layers: bool = False
 
 
 def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:

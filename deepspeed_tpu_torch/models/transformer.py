@@ -217,14 +217,17 @@ def eval_config(cfg: TransformerConfig) -> TransformerConfig:
 # ---------------------------------------------------------------------------
 
 
-def init_params(generator: torch.Generator, cfg: TransformerConfig
-                ) -> Dict[str, Any]:
-    """Random parameters on ``generator.device``: the JAX init's shapes and
-    scales (std 0.02; residual-writing projections 0.02 / sqrt(2 L);
-    learned positions 0.01; norms at 1/0; biases 0). Draws come from the
-    torch generator, so values differ from the JAX init of the same seed."""
+def init_params(generator: torch.Generator, cfg: TransformerConfig,
+                sink: Optional[Callable[..., Any]] = None,
+                device: Any = None) -> Dict[str, Any]:
+    """Random parameters on ``generator.device`` (or ``device``): the JAX
+    init's shapes and scales (std 0.02; residual-writing projections 0.02 /
+    sqrt(2 L); learned positions 0.01; norms at 1/0; biases 0). Draws come
+    from the torch generator, so values differ from the JAX init of the same
+    seed. ``sink``: where the layer stack goes (``init_layer_params``);
+    ``device="meta"`` gives the shapes alone, drawing nothing."""
     check_servable(cfg)
-    dev = generator.device
+    dev = generator.device if device is None else torch.device(device)
     H, V = cfg.hidden_size, cfg.vocab_size
 
     def normal(shape, s=0.02):
@@ -240,7 +243,7 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig
     if cfg.embed_norm:
         params["embed_norm"] = {"scale": const((H,), 1.0),
                                 "bias": const((H,), 0.0)}
-    params["layers"] = init_layer_params(generator, cfg)
+    params["layers"] = init_layer_params(generator, cfg, sink, dev)
     if cfg.final_norm:
         params["final_norm"] = {"scale": const((H,), 1.0)}
         if cfg.norm == "layernorm":
@@ -252,45 +255,68 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig
     return params
 
 
-def init_layer_params(generator: torch.Generator, cfg: TransformerConfig
-                      ) -> Dict[str, Any]:
+def init_layer_params(generator: torch.Generator, cfg: TransformerConfig,
+                      sink: Optional[Callable[..., Any]] = None,
+                      device: Any = None) -> Dict[str, Any]:
     """Layer-stack params, leaves shaped (L, ...), drawn one layer at a time
-    (an fp32 draw of a whole llama-7b stack would need 6 GB at once)."""
-    dev = generator.device
+    (an fp32 draw of a whole llama-7b stack would need 6 GB at once).
+    ``sink(path, shape)``, when given, returns where the leaf at ``path``
+    (below ``layers``) of layer shape ``shape`` goes: an object taking
+    ``dst[li] = layer``, which receives each layer as it is drawn, in the
+    same order and from the same draws as without it (parameter offload
+    keeps the stack in host memory this way; its leaves are what ``sink``
+    returned)."""
+    dev = generator.device if device is None else torch.device(device)
     H, L = cfg.hidden_size, cfg.num_layers
     N, K, D, F_ = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                    cfg.ffn_hidden_size)
     std = 0.02
     resid_std = std / (2 * L) ** 0.5
 
-    def stacked(shape, s=std):
-        out = torch.empty((L, *shape), dtype=cfg.dtype, device=dev)
+    def rows(path, shape):
+        if sink is None:
+            return torch.empty((L, *shape), dtype=cfg.dtype, device=dev)
+        return sink(path, shape)
+
+    def stacked(path, shape, s=std):
+        out = rows(path, shape)
         for li in range(L):
             out[li] = torch.randn(shape, generator=generator, device=dev) * s
         return out
 
-    def const(shape, value):
-        return torch.full((L, *shape), value, dtype=cfg.dtype, device=dev)
+    def const(path, shape, value):
+        out = rows(path, shape)
+        for li in range(L):
+            out[li] = torch.full(shape, value, dtype=cfg.dtype, device=dev)
+        return out
 
     layer: Dict[str, Any] = {
-        "ln1": {"scale": const((H,), 1.0)},
-        "ln2": {"scale": const((H,), 1.0)},
-        "attn": {"wq": stacked((H, N * D)), "wk": stacked((H, K * D)),
-                 "wv": stacked((H, K * D)),
-                 "wo": stacked((N * D, H), resid_std)},
+        "ln1": {"scale": const(("ln1", "scale"), (H,), 1.0)},
+        "ln2": {"scale": const(("ln2", "scale"), (H,), 1.0)},
+        "attn": {"wq": stacked(("attn", "wq"), (H, N * D)),
+                 "wk": stacked(("attn", "wk"), (H, K * D)),
+                 "wv": stacked(("attn", "wv"), (H, K * D)),
+                 "wo": stacked(("attn", "wo"), (N * D, H), resid_std)},
     }
     if cfg.activation == "swiglu":
-        layer["mlp"] = {"w_gate": stacked((H, F_)), "w_up": stacked((H, F_)),
-                        "w_down": stacked((F_, H), resid_std)}
+        layer["mlp"] = {"w_gate": stacked(("mlp", "w_gate"), (H, F_)),
+                        "w_up": stacked(("mlp", "w_up"), (H, F_)),
+                        "w_down": stacked(("mlp", "w_down"), (F_, H),
+                                          resid_std)}
     else:
-        layer["mlp"] = {"w_up": stacked((H, F_)), "b_up": const((F_,), 0.0),
-                        "w_down": stacked((F_, H), resid_std),
-                        "b_down": const((H,), 0.0)}
+        layer["mlp"] = {"w_up": stacked(("mlp", "w_up"), (H, F_)),
+                        "b_up": const(("mlp", "b_up"), (F_,), 0.0),
+                        "w_down": stacked(("mlp", "w_down"), (F_, H),
+                                          resid_std),
+                        "b_down": const(("mlp", "b_down"), (H,), 0.0)}
     if cfg.norm == "layernorm":
         for ln in ("ln1", "ln2"):
-            layer[ln]["bias"] = const((H,), 0.0)
-        layer["attn"].update(bq=const((N * D,), 0.0), bk=const((K * D,), 0.0),
-                             bv=const((K * D,), 0.0), bo=const((H,), 0.0))
+            layer[ln]["bias"] = const((ln, "bias"), (H,), 0.0)
+        layer["attn"].update(
+            bq=const(("attn", "bq"), (N * D,), 0.0),
+            bk=const(("attn", "bk"), (K * D,), 0.0),
+            bv=const(("attn", "bv"), (K * D,), 0.0),
+            bo=const(("attn", "bo"), (H,), 0.0))
     return layer
 
 
@@ -822,20 +848,8 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
     dev = input_ids.device
     if positions is None:
         positions = torch.arange(S, device=dev) + int(start_pos)
-    x = params["embed"]["tokens"][input_ids].to(cfg.dtype)
-    if cfg.position == "learned":
-        x = x + params["pos"][positions.long()].to(cfg.dtype)
-    if cfg.embed_norm:
-        x = _norm(x, params["embed_norm"]["scale"],
-                  params["embed_norm"].get("bias"), "layernorm",
-                  cfg.norm_eps, plain)
-    alibi = (_alibi_table(cfg.num_heads, x.device)
-             if cfg.position == "alibi" else None)
-    impl = cfg.attention_impl
-    if alibi is not None and impl is not None:
-        _require_impl_kwarg(impl, "alibi",
-                            "position='alibi' models (BLOOM) — silently "
-                            "dropping the alibi bias would change the model")
+    x = embed(params, input_ids, positions, cfg, plain)
+    alibi, impl = _alibi_and_impl(cfg, x.device)
     if paged:
         step = _paged_step(block_table, positions, cache["k"].shape[2],
                            paged_write_mask, paged_chunk)
@@ -848,8 +862,8 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
                            key_positions, dev)
         attention = partial(_dense_attention, step=step, alibi=alibi,
                             plain=plain, impl=impl, causal=cfg.causal)
-    rope = (rope_table(positions, cfg.rotary_dim or cfg.head_dim,
-                       cfg.rope_theta) if cfg.position == "rope" else None)
+    rope = _rope(cfg, positions)
+
     def step(li: int, layer: Dict[str, Any], x: torch.Tensor):
         lc = (None if cache is None
               else {"k": cache["k"][li], "v": cache["v"][li]})
@@ -858,6 +872,63 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
 
     x = _run_layers(params["layers"], cfg.num_layers, x, step)
     return head_logits(params, x, cfg, plain), cache
+
+
+def embed(params: Dict[str, Any], input_ids: torch.Tensor,
+          positions: torch.Tensor, cfg: TransformerConfig,
+          plain: bool = False) -> torch.Tensor:
+    """The first layer's input: the token embedding, plus the learned
+    position embedding at ``positions``, then BLOOM's norm (JAX
+    ``embed_fwd``). ``forward`` and the parameter-offload executor both
+    call it."""
+    x = params["embed"]["tokens"][input_ids].to(cfg.dtype)
+    if cfg.position == "learned":
+        x = x + params["pos"][positions.long()].to(cfg.dtype)
+    if cfg.embed_norm:
+        x = _norm(x, params["embed_norm"]["scale"],
+                  params["embed_norm"].get("bias"), "layernorm",
+                  cfg.norm_eps, plain)
+    return x
+
+
+def _alibi_and_impl(cfg: TransformerConfig, device
+                    ) -> Tuple[Optional[torch.Tensor], Optional[Callable]]:
+    """The alibi slopes (alibi models) and the custom attention impl, which
+    must then take ``alibi=``."""
+    alibi = (_alibi_table(cfg.num_heads, device)
+             if cfg.position == "alibi" else None)
+    impl = cfg.attention_impl
+    if alibi is not None and impl is not None:
+        _require_impl_kwarg(impl, "alibi",
+                            "position='alibi' models (BLOOM) — silently "
+                            "dropping the alibi bias would change the model")
+    return alibi, impl
+
+
+def _rope(cfg: TransformerConfig, positions: torch.Tensor
+          ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    return (rope_table(positions, cfg.rotary_dim or cfg.head_dim,
+                       cfg.rope_theta) if cfg.position == "rope" else None)
+
+
+def layers_forward(layers: List[Dict[str, Any]], x: torch.Tensor,
+                   cfg: TransformerConfig,
+                   attention_mask: Optional[torch.Tensor] = None,
+                   plain: bool = False) -> torch.Tensor:
+    """``x`` through ``layers`` (per-layer param dicts, in order) as the
+    cache-less ``forward`` runs its layers: positions ``arange(S)``, the
+    same rope table, attention (flash, or the config's impl) and causal
+    mask. A block of parameter offload runs its layers through it (JAX
+    ``block_fwd``), so a block launches the train path's kernels."""
+    B, S = x.shape[:2]
+    alibi, impl = _alibi_and_impl(cfg, x.device)
+    step = _dense_step(S, B, None, attention_mask, 0, None, x.device)
+    attend = partial(_dense_attention, layer_cache=None, step=step,
+                     alibi=alibi, plain=plain, impl=impl, causal=cfg.causal)
+    rope = _rope(cfg, torch.arange(S, device=x.device))
+    for layer in layers:
+        x = _layer_forward(cfg, x, layer, rope, attend, plain)
+    return x
 
 
 def _run_layers(layers: Any, num_layers: int, x: torch.Tensor,
@@ -930,6 +1001,7 @@ def build_model(cfg: TransformerConfig, name: str = "transformer") -> Model:
         with torch.no_grad():
             return make_loss(eval_config(cfg))(params, batch, plain)
 
-    return Model(init=lambda generator: init_params(generator, cfg),
+    return Model(init=lambda generator, **kw: init_params(generator, cfg,
+                                                          **kw),
                  config=cfg, name=name, loss_fn=make_loss(cfg),
-                 eval_loss_fn=eval_loss_fn)
+                 eval_loss_fn=eval_loss_fn, streams_layers=True)

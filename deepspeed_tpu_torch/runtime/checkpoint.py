@@ -628,6 +628,172 @@ def engine_arrays(engine) -> List[ArrayPlan]:
     return arrays
 
 
+def offload_arrays(engine) -> List[ArrayPlan]:
+    """The arrays of a parameter-offload engine (world 1) in JAX's layout
+    (JAX ``params_for_checkpoint`` / ``opt_state_arrays``, :1283-1343):
+    ``params##<path>`` for every leaf in the tree's flatten order (sorted
+    paths), each stack leaf one shard a block; ``opt##layer_master##<i>``,
+    ``opt##layer_m##<i>``, ``opt##layer_v##<i>`` for stack leaf ``i`` in the
+    same order (the index ``consolidate_checkpoint`` pairs them by);
+    ``opt##res_master##<path>`` / ``res_m`` / ``res_v`` for the resident
+    leaves; ``opt##step`` (int64), the applied steps."""
+    ex = engine._param_offload
+    rank = engine.rank
+    res = {}
+    at = 0
+    for (path, shape), n in zip(ex.res_items, ex.res_numel):
+        res[path] = (at, shape, n)
+        at += n
+    L = ex.num_layers
+
+    def stack_plan(key: str, i: int, dtype: str, block_of) -> ArrayPlan:
+        tail = ex.leaf_tails[i]
+        plan = ArrayPlan(key, (L,) + tail, dtype)
+        for g, (lo, hi) in enumerate(ex.bounds):
+            def data(g=g, lo=lo, hi=hi):
+                src = block_of(g)[ex.leaf_slice(g, i)]
+                return _to_numpy(src).reshape((hi - lo,) + tail)
+            plan.add([[lo, hi]] + [[0, d] for d in tail],
+                     data if rank == 0 else None)
+        return plan
+
+    def res_plan(key: str, buf: torch.Tensor, path) -> ArrayPlan:
+        off, shape, n = res[path]
+        plan = ArrayPlan(key, shape, _DTYPE_STR[buf.dtype])
+        plan.add([[0, d] for d in shape],
+                 (lambda: _to_numpy(buf[off:off + n]).reshape(shape))
+                 if rank == 0 else None)
+        return plan
+
+    arrays = []
+    paths = sorted([("layers",) + p for p in ex.layer_paths] + list(res))
+    for path in paths:
+        key = _join("params", _leaf_key(path))
+        if path[0] == "layers":
+            arrays.append(stack_plan(key, ex.layer_paths.index(path[1:]),
+                                     _DTYPE_STR[ex.dtype], ex.block_params))
+        else:
+            arrays.append(res_plan(key, ex.res_flat, path))
+    for kind in ("master", "m", "v"):
+        for i in range(len(ex.layer_paths)):
+            arrays.append(stack_plan(_join("opt", f"layer_{kind}", str(i)),
+                                     i, "float32",
+                                     lambda g, kind=kind:
+                                     getattr(ex, kind)[g]))
+    for kind in ("master", "m", "v"):
+        buf = ex.res_state(kind).float()
+        for path in res:
+            arrays.append(res_plan(_join("opt", f"res_{kind}",
+                                         _leaf_key(path)), buf, path))
+    step = ArrayPlan(_join("opt", "step"), (), "int64")
+    step.add([], (lambda: np.asarray(ex.step_count, np.int64))
+             if rank == 0 else None)
+    return arrays + [step]
+
+
+class StateKeys:
+    """Where a checkpoint keeps each leaf's fp32 master and Adam moments,
+    and its step counts, in either layout: the resident engines'
+    (``opt##master##<path>`` for 16-bit params, ``opt##inner##<adam>##mu`` /
+    ``nu``, the counts) or JAX's param-offload one (``opt##layer_master`` /
+    ``layer_m`` / ``layer_v##<i>``, ``i`` the stack leaf's place among the
+    metadata's ``params##layers##`` keys, as ``consolidate_checkpoint``
+    pairs them; ``opt##res_*##<path>``; ``opt##step``). So each kind of
+    engine loads the other's checkpoints."""
+
+    _OFFLOAD = {"master": "master", "mu": "m", "nu": "v"}
+
+    def __init__(self, reader: CheckpointReader, opt_config):
+        self.reader = reader
+        self.offload = _join("opt", "step") in reader
+        head = _join("params", "layers") + _SEP
+        self.layer_index = {k[len("params" + _SEP):]: i for i, k in
+                            enumerate(k for k in reader.arrays
+                                      if k.startswith(head))}
+        self.adam = optax_keys(opt_config)[0]
+
+    def key(self, kind: str, path: Tuple[str, ...]) -> Optional[str]:
+        """The key of ``kind`` (master / mu / nu) of the leaf at ``path``;
+        None for a master the checkpoint does not have (fp32 params)."""
+        pkey = _leaf_key(path)
+        if self.offload:
+            name = self._OFFLOAD[kind]
+            if path[0] == "layers":
+                return _join("opt", f"layer_{name}",
+                             str(self.layer_index[pkey]))
+            return _join("opt", f"res_{name}", pkey)
+        if kind == "master":
+            key = _join("opt", "master", pkey)
+            return key if key in self.reader else None
+        return _join("opt", "inner", self.adam, kind, pkey)
+
+    def counts(self) -> Tuple[int, int]:
+        """(applied steps, attempted steps)."""
+        r = self.reader
+        if self.offload:
+            step = int(r.read(_join("opt", "step")))
+            return step, int(r.client_state.get("global_steps", step))
+        return (int(r.read(_join("opt", "inner", self.adam, "count"))),
+                int(r.read(_join("opt", "count"))))
+
+
+@torch.no_grad()
+def _load_offload(engine, reader: CheckpointReader,
+                  load_optimizer_states: bool) -> None:
+    """A checkpoint of either layout into a parameter-offload engine, a
+    block at a time (the nvme tier rewrites its block files)."""
+    ex = engine._param_offload
+    keys = StateKeys(reader, engine.config.optimizer)
+    params_key = lambda path: _join("params", _leaf_key(path))  # noqa: E731
+
+    def stack(g: int, dst: torch.Tensor, key_of) -> None:
+        lo, hi = ex.bounds[g]
+        for i, path in enumerate(ex.layer_paths):
+            n = ex.leaf_numel[i]
+            dst[ex.leaf_slice(g, i)].copy_(
+                reader.read_range(key_of(("layers",) + path), lo * n,
+                                  hi * n))
+
+    def resident(dst: torch.Tensor, key_of) -> None:
+        at = 0
+        for (path, shape), n in zip(ex.res_items, ex.res_numel):
+            dst[at:at + n].copy_(reader.read_range(key_of(path), 0, n))
+            at += n
+
+    has_master = load_optimizer_states and keys.key(
+        "master", ("layers",) + ex.layer_paths[0]) is not None
+    master_key = ((lambda p: keys.key("master", p)) if has_master
+                  else params_key)
+    for g in range(ex.num_blocks):
+        if ex.store is not None:
+            host = torch.empty(ex.block_numel[g], dtype=ex.dtype)
+            stack(g, host, params_key)
+            ex.store.write_block_host(g, host)
+        else:
+            stack(g, ex.params[g], params_key)
+        stack(g, ex.master[g], master_key)
+        for kind, name in (("m", "mu"), ("v", "nu")):
+            buf = getattr(ex, kind)[g]
+            if load_optimizer_states:
+                stack(g, buf, lambda p, name=name: keys.key(name, p))
+            else:
+                buf.zero_()
+    resident(ex.res_flat, params_key)
+    if ex.res_master is not None:
+        resident(ex.res_master, master_key)
+    for buf, name in ((ex.res_m, "mu"), (ex.res_v, "nu")):
+        if load_optimizer_states:
+            resident(buf, lambda p, name=name: keys.key(name, p))
+        else:
+            buf.zero_()
+    if load_optimizer_states:
+        ex.step_count, ex.attempts = keys.counts()
+    else:
+        # the executor's own count drives its schedule and bias correction
+        ex.step_count = ex.attempts = int(
+            reader.client_state.get("global_steps", 0))
+
+
 def save_engine(engine, save_dir: str, tag: Optional[str],
                 client_state: Optional[Dict], save_latest: bool,
                 async_save: bool) -> str:
@@ -641,8 +807,10 @@ def save_engine(engine, save_dir: str, tag: Optional[str],
         "loss_scale": float(engine.scaler_state.scale),
         "lr_scheduler": (sched.state_dict() if sched is not None
                          and hasattr(sched, "state_dict") else None)})
-    path = save_checkpoint(save_dir, tag, engine_arrays(engine), cs,
-                           save_latest, engine.config.checkpoint.tag_validation,
+    arrays = (offload_arrays(engine) if engine._param_offload is not None
+              else engine_arrays(engine))
+    path = save_checkpoint(save_dir, tag, arrays, cs, save_latest,
+                           engine.config.checkpoint.tag_validation,
                            async_save)
     swapper = _swapper(engine)
     if swapper is not None:
@@ -656,8 +824,8 @@ def save_engine(engine, save_dir: str, tag: Optional[str],
 
 def _swapper(engine):
     st = engine.opt_state
-    return st.offload if st.exp_avg is None and st.offload is not None \
-        else None
+    return st.offload if st is not None and st.exp_avg is None \
+        and st.offload is not None else None
 
 
 def _snapshot_name(engine) -> str:
@@ -694,6 +862,11 @@ def load_engine(engine, load_dir: str, tag: Optional[str],
     reader = open_checkpoint(load_dir, tag, verify)
     if reader is None:
         return None, {}
+    if engine._param_offload is not None:
+        _load_offload(engine, reader, load_optimizer_states)
+        _load_counters(engine, reader, load_dir, load_lr_scheduler_states)
+        engine._param_offload.scaler_state = engine.scaler_state
+        return load_dir, reader.client_state
     zero, st = engine.zero, engine.opt_state
     params_key = lambda path: _join("params", _leaf_key(path))  # noqa: E731
     _fill(engine, reader, params_key, zero.shard, zero.full)
@@ -716,27 +889,30 @@ def load_engine(engine, load_dir: str, tag: Optional[str],
             st.count = st.inner_count = 0
         st.pending_skip = None
     elif load_optimizer_states:
-        adam, sched = optax_keys(engine.config.optimizer)
+        keys = StateKeys(reader, engine.config.optimizer)
         if st.master is not None:
-            master = _join("opt", "master")
-            has = _join(master, _leaf_key(next(iter(
-                engine.partition.leaf_pieces())))) in reader
+            has = keys.key("master", next(iter(
+                engine.partition.leaf_pieces()))) is not None
             _fill(engine, reader,
-                  (lambda p: _join(master, _leaf_key(p))) if has
+                  (lambda p: keys.key("master", p)) if has
                   and st.shard_param.dtype != torch.float32
                   else params_key, st.master)
         for name, buf in (("mu", st.exp_avg), ("nu", st.exp_avg_sq)):
-            _fill(engine, reader,
-                  lambda p, name=name: _join("opt", "inner", adam, name,
-                                             _leaf_key(p)), buf)
-        st.inner_count = int(reader.read(_join("opt", "inner", adam,
-                                               "count")))
-        st.count = int(reader.read(_join("opt", "count")))
+            _fill(engine, reader, lambda p, name=name: keys.key(name, p),
+                  buf)
+        st.inner_count, st.count = keys.counts()
         st.pending_skip = None
     elif st.master is not None:
         # params only: the master follows the loaded params, the moments
         # and counts start afresh
         st.master.copy_(st.shard_param.float())
+    _load_counters(engine, reader, load_dir, load_lr_scheduler_states)
+    return load_dir, reader.client_state
+
+
+def _load_counters(engine, reader: CheckpointReader, load_dir: str,
+                   load_lr_scheduler_states: bool) -> None:
+    """The step counters, the loss scale and the schedule's state."""
     cs = reader.client_state
     engine.global_steps = cs.get("global_steps", 0)
     engine.micro_steps = cs.get("micro_steps", 0)
@@ -751,7 +927,6 @@ def load_engine(engine, load_dir: str, tag: Optional[str],
             and hasattr(sched, "load_state_dict")):
         sched.load_state_dict(cs["lr_scheduler"])
     log_dist(f"loaded checkpoint from {load_dir} (tag={reader.tag})")
-    return load_dir, cs
 
 
 # ---------------------------------------------------------------------------

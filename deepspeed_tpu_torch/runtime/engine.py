@@ -46,6 +46,13 @@ the collectives itself (``comm``, NCCL on the card, gloo on the CPU):
                          memory (``runtime/offload.py``), ``nvme`` in swap
                          files (``runtime/swap``); the update runs on the
                          host in sub-groups of ``sub_group_size``
+  parameter offload   -- ``zero_optimization.offload_param.device`` ``cpu``
+                         / ``nvme`` at stage 3, world 1: no params are
+                         built on the card; ``runtime/param_offload.py``
+                         keeps the layer stack and all of its state off
+                         it, streams blocks of layers through it and owns
+                         the step, eval and checkpoints (the staged
+                         forward / backward / step raise)
   fp16                -- the dynamic loss scale lives on the device
   checkpoints         -- ``runtime/checkpoint.py``: the JAX package's
                          format 2, written and read by both packages, at any
@@ -54,11 +61,12 @@ the collectives itself (``comm``, NCCL on the card, gloo on the CPU):
 ``train_batch`` returns the mean of the micro losses as a device tensor and
 reads nothing back from the device except at ``steps_per_print`` (and,
 under offload, the one scalar sync of the host update). Not ported yet
-(they raise): parameter offload, optimizer offload beside LAMB or the 1-bit
-optimizers, the NVMe tier in fp16, tensor / pipeline / sequence / expert
-parallelism, activation checkpointing, dropout / progressive layer drop /
-random-LTD, compression, curriculum, observability, and optimizers other
-than the Adam family, LAMB and the 1-bit family.
+(they raise): parameter offload at world > 1, optimizer offload beside LAMB
+or the 1-bit optimizers, the NVMe tier in fp16, tensor / pipeline /
+sequence / expert parallelism, activation checkpointing, dropout /
+progressive layer drop / random-LTD, compression, curriculum,
+observability, and optimizers other than the Adam family, LAMB and the
+1-bit family.
 """
 
 from __future__ import annotations
@@ -84,6 +92,7 @@ from .lr_schedules import build_lr_schedule
 from .offload import HostOptimizerState, gather_spans, scatter_spans
 from .optimizer import (MixedPrecisionOptimizer, StepStats, build_optimizer,
                         zero_one_var_step)
+from .param_offload import ParamOffloadExecutor, check_param_offload
 from .swap import NVMeOptimizerSwapper
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -98,6 +107,7 @@ class TrainEngine:
                  optimizer: Optional[MixedPrecisionOptimizer] = None,
                  lr_scheduler=None, training_data=None, collate_fn=None,
                  device: Union[None, str, torch.device] = None):
+        check_param_offload(config, comm.get_world_size())
         config.check_ported()
         if model.loss_fn is None:
             raise ValueError("model.loss_fn is required for training")
@@ -141,9 +151,53 @@ class TrainEngine:
                 self.config.scheduler.type, self.config.scheduler.params)
         self.optimizer = (optimizer if optimizer is not None else
                           build_optimizer(self.config, self.lr_scheduler))
+        self._param_offload: Optional[ParamOffloadExecutor] = None
+        self._onebit = None
+        self._grad_acc = None
+        if self.config.zero_optimization.offload_param.device != "none":
+            # the executor draws the params, keeps the layer stack and all
+            # of its state off the card, and runs the step
+            self._param_offload = ParamOffloadExecutor(
+                model, self.config, self.optimizer, self.loss_scaler,
+                self.device, self.compute_dtype)
+            self.partition = self.zero = self.opt_state = None
+            self.scaler_state = self._param_offload.scaler_state
+            described = (f"{self._param_offload.n_params / 1e6:.1f}M params, "
+                         f"parameter offload to "
+                         f"{self._param_offload.tier} in "
+                         f"{self._param_offload.num_blocks} blocks")
+        else:
+            self._build_state()
+            described = (f"{param_count(self.zero.params) / 1e6:.1f}M "
+                         f"whole params on each rank, "
+                         f"{self.partition.describe()}")
+        gas = self.gradient_accumulation_steps()
 
-        # every rank draws the same initial params from the seed and keeps
-        # its part of them
+        self.training_dataloader = None
+        if training_data is not None:
+            # every rank loads the global micro-batch and keeps its rows
+            self.training_dataloader = DeepSpeedDataLoader(
+                training_data,
+                batch_size=self.train_micro_batch_size_per_gpu() * self.world,
+                collate_fn=collate_fn, seed=self.config.seed)
+
+        self.global_steps = 0
+        self.micro_steps = 0
+        self._skipped_base = 0
+        self._staged_count = 0
+        self._pending_loss: Optional[torch.Tensor] = None
+        self._last_lr = float(self.config.optimizer.params.get("lr", 0.0))
+        self._window = (time.time(), 0)
+        log_dist(f"engine ready: {described}, "
+                 f"dtype={self.config.precision_dtype}, device={self.device}, "
+                 f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
+                 f"gas={gas}")
+
+    def _build_state(self) -> None:
+        """The rank's params and optimizer state on the device: every rank
+        draws the same initial params from the seed and keeps its part of
+        them."""
+        model = self.model
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.seed)
         params = tree_map(lambda t: t.to(self.device),
@@ -166,7 +220,6 @@ class TrainEngine:
             self.opt_state.grads = tree_map(lambda t: t.grad,
                                             self.zero.params)
             self.opt_state.grad_flat = self.zero.grad_full[0]
-        self._onebit = None
         if self.config.optimizer.type.lower() in ONEBIT_OPTIMIZERS:
             self._onebit = self._onebit_state()
         del params
@@ -178,32 +231,15 @@ class TrainEngine:
                           and self.zero.acc is None else None)
         self.zero.release_grads()
 
-        self.training_dataloader = None
-        if training_data is not None:
-            # every rank loads the global micro-batch and keeps its rows
-            self.training_dataloader = DeepSpeedDataLoader(
-                training_data,
-                batch_size=self.train_micro_batch_size_per_gpu() * self.world,
-                collate_fn=collate_fn, seed=self.config.seed)
-
-        self.global_steps = 0
-        self.micro_steps = 0
-        self._skipped_base = 0
-        self._staged_count = 0
-        self._pending_loss: Optional[torch.Tensor] = None
-        self._last_lr = float(self.config.optimizer.params.get("lr", 0.0))
-        self._window = (time.time(), 0)
-        log_dist(f"engine ready: {param_count(self.zero.params) / 1e6:.1f}M "
-                 f"whole params on each rank, {self.partition.describe()}, "
-                 f"dtype={self.config.precision_dtype}, device={self.device}, "
-                 f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
-                 f"gas={gas}")
-
     # -- config accessors -------------------------------------------------
     @property
     def params(self) -> Any:
         """The whole params: views of the flat buffer at stages 0-2, copies
-        gathered from every rank at stage 3 (a collective there)."""
+        gathered from every rank at stage 3 (a collective there), under
+        parameter offload the resident leaves with the layer stack
+        assembled on the host."""
+        if self._param_offload is not None:
+            return self._param_offload.full_params()
         return self.zero.full_params()
 
     def train_batch_size(self) -> int:
@@ -250,13 +286,16 @@ class TrainEngine:
     def skipped_steps(self) -> int:
         """Overflow-skipped steps (reading it may wait for the last step's
         overflow flag)."""
-        return self._skipped_base + self.optimizer.skipped_steps(
-            self.opt_state)
+        return self._skipped_base + self._skipped()
 
     @skipped_steps.setter
     def skipped_steps(self, value: int) -> None:
-        self._skipped_base = value - self.optimizer.skipped_steps(
-            self.opt_state)
+        self._skipped_base = value - self._skipped()
+
+    def _skipped(self) -> int:
+        if self._param_offload is not None:
+            return self._param_offload.skipped_steps
+        return self.optimizer.skipped_steps(self.opt_state)
 
     # -- data -------------------------------------------------------------
     def _tensor(self, x: Any) -> torch.Tensor:
@@ -443,6 +482,13 @@ class TrainEngine:
         ``data_iter`` / the training dataloader. Returns the mean micro loss
         over the ranks, a device tensor."""
         micros = self._micro_batches(data_iter, batch)
+        if self._param_offload is not None:
+            # the host-driven segmented step streams the layer blocks
+            mean, stats = self._param_offload.train_step(micros)
+            self.scaler_state = self._param_offload.scaler_state
+            self.micro_steps += len(micros)
+            self._end_step(stats, mean)
+            return mean
         losses = []
         for mb in micros:
             loss = self._loss(mb)
@@ -469,12 +515,17 @@ class TrainEngine:
         if (loss is not None
                 and self.global_steps % self.steps_per_print() == 0):
             wall = time.time() - start
+            streamed = ""
+            if self._param_offload is not None:
+                st = self._param_offload.last_step_stats
+                streamed = (f" h2d={st['achieved_h2d_gbps']:.2f}GB/s "
+                            f"total={st['achieved_total_gbps']:.2f}GB/s")
             log_dist(f"step={self.global_steps} loss={float(loss):.4f} "
                      f"lr={self._last_lr:.3e} "
                      f"grad_norm={float(stats.grad_norm):.3f} "
                      f"skipped={self.skipped_steps} throughput="
                      f"{(steps + 1) * self.train_batch_size() / wall:.1f} "
-                     "samples/s")
+                     f"samples/s{streamed}")
             self._window = (time.time(), 0)
 
     # -- staged forward / backward / step ------------------------------------
@@ -482,11 +533,13 @@ class TrainEngine:
         """The loss of this rank's rows of a global micro-batch;
         ``backward()`` then ``step()`` complete the reference's three-call
         protocol."""
+        self._no_staged_protocol()
         self._pending_loss = self._loss(self._local(batch))
         return self._pending_loss
 
     def backward(self, loss: Optional[torch.Tensor] = None) -> None:
         """Accumulate the grads of the loss ``forward`` returned."""
+        self._no_staged_protocol()
         if self._pending_loss is None:
             raise RuntimeError("backward() called before forward()")
         self._backward(self._pending_loss)
@@ -499,14 +552,24 @@ class TrainEngine:
 
     def step(self) -> None:
         """Apply the optimizer at the gas boundary."""
+        self._no_staged_protocol()
         if not self.is_gradient_accumulation_boundary():
             return
         self._staged_count = 0
         self._end_step(self._apply())
 
+    def _no_staged_protocol(self) -> None:
+        if self._param_offload is not None:
+            raise RuntimeError(
+                "offload_param drives the whole step from train_batch (the "
+                "host streaming loop owns fwd/bwd/update) — the staged "
+                "forward/backward/step protocol is not available")
+
     @torch.no_grad()
     def eval_loss(self, batch: Any) -> torch.Tensor:
         """The eval loss of the whole ``batch`` on every rank."""
+        if self._param_offload is not None:
+            return self._param_offload.eval_forward(self._to_device(batch))
         fn = self.model.eval_loss_fn or self.model.loss_fn
         params = (self.zero.step_params()
                   if sharded(self.config.zero_stage, "params")

@@ -27,12 +27,17 @@ pipeline runs the groups in order with no staging.
 ``stats`` holds the last step's split: the host update's seconds, the
 copies' device milliseconds (CUDA events on the side stream), the seconds
 the host waited for them, and the bytes moved each way.
+
+``PinnedStaging`` is the side stream both offload paths copy on: the
+pipeline issues its DMAs through ``run``; parameter offload
+(``runtime/param_offload.py``) also moves pageable host tensors through its
+chunked ``to_device`` / ``to_host``.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -107,9 +112,140 @@ def scatter_spans(dst: torch.Tensor, spans: List[Span], src: torch.Tensor,
         at += n
 
 
+# bytes of a pageable copy's chunk (two pinned buffers of it a direction)
+STAGE_CHUNK = 64 << 20
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view(torch.uint8)
+
+
+class PinnedStaging:
+    """Copies between the host and the card on a side stream. ``run(fn)``
+    issues ``fn``'s copies there and returns the events around them.
+    ``to_device`` / ``to_host`` move a contiguous pageable CPU tensor
+    through two pinned byte buffers a direction, ``chunk`` bytes at a time:
+    the host copies a chunk into (out of) one buffer while the other's DMA
+    runs. One pageable ``copy_`` of a llama-7b layer's fp32 state runs at a
+    sixth of this loop's rate to the card and a third back
+    (``scripts/staging_copy_bench.py``). On a CPU device, plain copies.
+    Counts: ``copies`` (copies issued on the side stream), ``wait_s`` (host
+    seconds waiting on them), ``host_copy_s`` (host seconds copying
+    pageable <-> pinned), ``h2d_bytes`` / ``d2h_bytes``."""
+
+    def __init__(self, device: torch.device, chunk: int = STAGE_CHUNK):
+        self.cuda = device.type == "cuda"
+        self.chunk = chunk
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self._up: Optional[List[torch.Tensor]] = None
+        self._down: Optional[List[torch.Tensor]] = None
+        self._up_done: List[Any] = [None, None]
+        self._k = 0
+        self.reset()
+
+    def reset(self) -> None:
+        self.copies = 0
+        self.wait_s = 0.0
+        self.host_copy_s = 0.0
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+
+    def _pinned(self) -> None:
+        if self._up is None:
+            mk = lambda: torch.empty(self.chunk, dtype=torch.uint8,  # noqa
+                                     pin_memory=True)
+            self._up = [mk(), mk()]
+            self._down = [mk(), mk()]
+
+    def wait(self, event) -> None:
+        t0 = time.perf_counter()
+        event.synchronize()
+        self.wait_s += time.perf_counter() - t0
+
+    def after(self, event) -> None:
+        """The side stream waits for ``event`` (of another stream)."""
+        if self.cuda and event is not None:
+            self.stream.wait_event(event)
+
+    def run(self, fn: Callable[[], Any], timed: bool = False
+            ) -> Tuple[Any, Any]:
+        """``fn``'s copies on the side stream; returns the events recorded
+        before (None unless ``timed``) and after them."""
+        with torch.cuda.stream(self.stream):
+            a = None
+            if timed:
+                a = torch.cuda.Event(enable_timing=True)
+                a.record(self.stream)
+            fn()
+            b = torch.cuda.Event(enable_timing=timed)
+            b.record(self.stream)
+        self.copies += 1
+        return a, b
+
+    def dma(self, dst: torch.Tensor, src: torch.Tensor):
+        """One copy (``src`` or ``dst`` pinned or on the card); returns its
+        event (None on the CPU)."""
+        if not self.cuda:
+            dst.copy_(src)
+            return None
+        return self.run(lambda: dst.copy_(src, non_blocking=True))[1]
+
+    def _host_copy(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        self.host_copy_s += time.perf_counter() - t0
+
+    def to_device(self, dst: torch.Tensor, src: torch.Tensor):
+        """``src`` (pageable CPU) into ``dst`` (the card); returns the event
+        of the last DMA."""
+        n = src.numel() * src.element_size()
+        self.h2d_bytes += n
+        if not self.cuda:
+            dst.copy_(src)
+            return None
+        self._pinned()
+        s8, d8 = as_bytes(src), as_bytes(dst)
+        ev = None
+        for lo in range(0, n, self.chunk):
+            hi = min(n, lo + self.chunk)
+            k, self._k = self._k, self._k ^ 1
+            if self._up_done[k] is not None:
+                self.wait(self._up_done[k])
+            buf = self._up[k][:hi - lo]
+            self._host_copy(buf, s8[lo:hi])
+            ev = self._up_done[k] = self.dma(d8[lo:hi], buf)
+        return ev
+
+    def to_host(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """``src`` (the card) into ``dst`` (pageable CPU); returns once it
+        has landed."""
+        n = src.numel() * src.element_size()
+        self.d2h_bytes += n
+        if not self.cuda:
+            dst.copy_(src)
+            return
+        self._pinned()
+        s8, d8 = as_bytes(src), as_bytes(dst)
+        pending: List[Tuple[Any, torch.Tensor, torch.Tensor]] = []
+        for i, lo in enumerate(range(0, n, self.chunk)):
+            hi = min(n, lo + self.chunk)
+            if len(pending) == 2:
+                self._land(*pending.pop(0))
+            buf = self._down[i % 2][:hi - lo]
+            pending.append((self.dma(buf, s8[lo:hi]), buf, d8[lo:hi]))
+        for p in pending:
+            self._land(*p)
+
+    def _land(self, event, buf: torch.Tensor, dst: torch.Tensor) -> None:
+        self.wait(event)
+        self._host_copy(dst, buf)
+
+
 class SubGroupPipeline:
     """The three-stage offload pipeline over ``groups`` (each a list of
-    spans of the shard). Subclasses hold the state: ``_acquire(gi)`` returns
+    spans of the shard), its copies on a ``PinnedStaging`` side stream; the
+    pinned buffers, a group's size, are the host update's operands.
+    Subclasses hold the state: ``_acquire(gi)`` returns
     group ``gi``'s (master, exp_avg, exp_avg_sq) as CPU fp32 tensors of the
     group's size, ``_release(gi, bufs)`` takes them back after its
     update. The update's scratch, three fp32 rows of a piece's size, is
@@ -132,7 +268,7 @@ class SubGroupPipeline:
         self.stats: Dict[str, float] = {}
         self._staging: Dict[Tuple[str, torch.dtype], List[torch.Tensor]] = {}
         self._scratch: Optional[torch.Tensor] = None
-        self._stream = None
+        self._copier: Optional[PinnedStaging] = None
 
     # -- the state (subclasses) -------------------------------------------
     def _begin(self) -> None:
@@ -198,9 +334,10 @@ class SubGroupPipeline:
 
     def _cuda_step(self, shard_param: torch.Tensor, grads: torch.Tensor,
                    update: Update, stats: Dict[str, float]) -> None:
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=grads.device)
-        side, main = self._stream, torch.cuda.current_stream(grads.device)
+        if self._copier is None:
+            self._copier = PinnedStaging(grads.device)
+        side = self._copier.stream
+        main = torch.cuda.current_stream(grads.device)
         side.wait_stream(main)
         gst = self._pinned("grads", grads.dtype)
         pst = self._pinned("params", shard_param.dtype)
@@ -208,12 +345,7 @@ class SubGroupPipeline:
 
         def on_side(kind: str, fn) -> Tuple[torch.cuda.Event,
                                             torch.cuda.Event]:
-            with torch.cuda.stream(side):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record(side)
-                fn()
-                b.record(side)
+            a, b = self._copier.run(fn, timed=True)
             timed.append((kind, a, b))
             return a, b
 

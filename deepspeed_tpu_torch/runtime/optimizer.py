@@ -5,7 +5,8 @@ turns the config's ``optimizer`` section into a ``MixedPrecisionOptimizer``
 with optax's semantics (JAX ``build_optax_transform`` :161-171), and
 ``apply`` is one step of it:
 
-* the global grad norm in fp32, and clipping by
+* the global grad norm (``grad_norm``: fp32, its squares summed in
+  float64 on the CPU), and clipping by
   ``min(max_norm / (norm + 1e-6), 1)`` (JAX :48-65);
 * an fp32 master copy of bf16 / fp16 params (JAX :187-246);
 * Adam with eps outside ``sqrt(v_hat)``, bias correction at the
@@ -95,6 +96,16 @@ class StepStats(NamedTuple):
     grad_norm: torch.Tensor       # () fp32, of the unscaled, unclipped grads
     skipped: torch.Tensor         # () bool: the update was skipped
     lr: float                     # the schedule at the outer count
+
+
+def grad_norm(grads: torch.Tensor) -> torch.Tensor:
+    """The 2-norm of flat grads, an fp32 scalar on their device. On the CPU
+    the squares are summed in float64: torch's fp32 CPU norm sums in fp32
+    (1e-5 relative off at 1e6 elements, 4e-4 at 1e7); on the card its tree
+    reduction stays within a few fp32 roundings."""
+    if grads.device.type == "cpu":
+        return torch.linalg.vector_norm(grads, dtype=torch.float64).float()
+    return torch.linalg.vector_norm(grads, dtype=torch.float32)
 
 
 def flat_views(flat: torch.Tensor, like: Any) -> Any:
@@ -279,7 +290,7 @@ class MixedPrecisionOptimizer:
             raise ValueError(f"grads must be flat ({state.n},), got "
                              f"{tuple(grads.shape)}")
         self._drain(state)
-        norm = torch.linalg.vector_norm(grads, dtype=torch.float32)
+        norm = grad_norm(grads)
         if state.partitioned:
             sq = comm.all_reduce(norm.square(), log_name="grad_norm")
             norm = sq.sqrt()

@@ -7,7 +7,8 @@ holds only its range of a partitioned buffer, so each call gathers the
 buffer from every rank (a collective: every rank calls it) and returns the
 leaf at ``path`` ('/'-joined keys, e.g. ``"layers/attn/wq"``) as numpy.
 Under optimizer offload the state comes from the host tier's CPU tensors
-or the NVMe tier's files, moved to the device the group reduces.
+or the NVMe tier's files, moved to the device the group reduces; under
+parameter offload from the executor's blocks (world 1).
 """
 
 from __future__ import annotations
@@ -37,9 +38,18 @@ def _state(engine, name: str) -> Optional[torch.Tensor]:
     return None if buf is None else buf.to(engine.zero.shard.device)
 
 
+def _offloaded(engine, kind: str, path: str) -> np.ndarray:
+    """A whole leaf of a parameter-offload engine (the stack's from the
+    host or its files)."""
+    t = engine._param_offload.leaf(kind, tuple(path.split("/")))
+    return t.detach().float().cpu().numpy()
+
+
 def safe_get_full_fp32_param(engine, path: str) -> np.ndarray:
     """The fp32 master of a param (the param widened when there is no
     master)."""
+    if engine._param_offload is not None:
+        return _offloaded(engine, "master", path)
     master = _state(engine, "master")
     if master is None:
         return _leaf(engine.params, path).astype(np.float32)
@@ -59,6 +69,9 @@ def safe_get_full_optimizer_state(engine, path: str, state_name: str
             "exp_avg_sq", "nu": "exp_avg_sq"}.get(state_name)
     if name is None:
         return None
+    if engine._param_offload is not None:
+        return _offloaded(engine, {"exp_avg": "m", "exp_avg_sq": "v"}[name],
+                          path)
     return _leaf(engine.zero.full_tree(_state(engine, name)), path)
 
 

@@ -4,10 +4,15 @@ tiers, alone: OPT-1.3B's stage-0 ``train`` phase (whose losses the others
 are held to), a repeat of stage 0 for the run-to-run spread (the bound of
 the zero phase), then in a world-1 NCCL group ``lamb_zero``, ``onebit``,
 ``offload_parity``, ``offload`` (llama-7b under host-memory offload),
-``nvme`` and ``comm_bench``, with the same checks as in ``chip_smoke.py``.
-Builds only the kernels these paths run (one nvcc each, in parallel).
+``nvme``, ``param_offload_parity``, ``param_offload`` (llama-7b under
+parameter offload) and ``comm_bench``, with the same checks as in
+``chip_smoke.py``. Builds only the kernels these paths run (one nvcc each,
+in parallel). ``--param-runs nvme:8,cpu:4,nvme:2`` replaces
+``param_offload``'s (tier, layers) runs (a shorter rehearsal; the first
+two tiers' nvme runs set the L-independence check).
 
     python3 scripts/offload_onebit_phases.py [--only PHASE ...] [--threads N]
+        [--param-runs TIER:LAYERS,...]
 
 Prints one JSON line a phase (``card``: the nvidia-smi name and power
 limit) and, last, ``{"ok": true}``. Needs one NVIDIA GPU.
@@ -33,7 +38,7 @@ from deepspeed_tpu_torch.ops import registry  # noqa: E402
 SOURCES = ["layer_norm", "flash_attention", "flash_attention_bwd",
            "fused_adam", "fused_lamb"]
 PHASES = ("lamb_zero", "onebit", "offload_parity", "offload", "nvme",
-          "comm_bench")
+          "param_offload_parity", "param_offload", "comm_bench")
 
 
 def main() -> int:
@@ -41,7 +46,13 @@ def main() -> int:
     ap.add_argument("--only", nargs="*", choices=PHASES, default=PHASES)
     ap.add_argument("--threads", type=int, default=0,
                     help="torch's host threads (default: torch's own)")
+    ap.add_argument("--param-runs", default="",
+                    help="param_offload's tier:layers runs, comma-separated")
     args = ap.parse_args()
+    if args.param_runs:
+        cs.PARAM_OFFLOAD_RUNS = tuple(
+            (t, int(n)) for t, n in (r.split(":") for r in
+                                     args.param_runs.split(",")))
     if args.threads:
         torch.set_num_threads(args.threads)
     if not torch.cuda.is_available():
@@ -75,6 +86,8 @@ def main() -> int:
                 "offload_parity": lambda: parity(dev),
                 "offload": lambda: cs.offload_phase(dev),
                 "nvme": lambda: cs.nvme_phase(dev, base, bound),
+                "param_offload_parity": lambda: param_parity(dev, bound),
+                "param_offload": lambda: cs.param_offload_phase(dev),
                 "comm_bench": lambda: cs.comm_bench_phase(dev)}
         for name in PHASES:
             if name not in args.only:
@@ -97,6 +110,14 @@ def parity(dev):
     root = tempfile.mkdtemp(prefix="offload-", dir=cs.largest_disk())
     try:
         return cs.offload_parity_phase(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def param_parity(dev, bound):
+    root = tempfile.mkdtemp(prefix="param-parity-", dir=cs.largest_disk())
+    try:
+        return cs.param_offload_parity_phase(dev, root, bound)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

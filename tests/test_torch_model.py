@@ -255,7 +255,8 @@ class TestPortRules:
             "device": "cpu"}}, "optimizer": {"type": "lamb"}},
          "offload_optimizer"),
         ({"zero_optimization": {"stage": 3, "offload_param": {
-            "device": "nvme"}}}, "offload_param"),
+            "device": "nvme"}}, "parallel": {"pipeline_parallel_size": 2}},
+         "offload_param"),
         ({"optimizer": {"type": "onebitadam"},
           "zero_optimization": {"stage": 2}}, "onebitadam"),
         ({"optimizer": {"type": "onebitlamb"},
@@ -266,10 +267,11 @@ class TestPortRules:
           "fp16": {"enabled": True}}, "'nvme' with fp16"),
     ])
     def test_check_ported_still_refuses(self, section, what):
-        """Data parallelism, optimizer offload, the 1-bit optimizers at
-        stages 0-1 and LAMB at any world are ported; the other degrees,
-        parameter offload and the combinations the port does not run still
-        raise, naming themselves."""
+        """Data parallelism, optimizer and parameter offload, the 1-bit
+        optimizers at stages 0-1 and LAMB at any world are ported; the
+        other degrees, parameter offload beside pipeline parallelism and
+        the combinations the port does not run still raise, naming
+        themselves."""
         from deepspeed_tpu_torch.config import load_config
 
         cfg = dict({"train_micro_batch_size_per_gpu": 1}, **section)
@@ -281,7 +283,9 @@ class TestPortRules:
                    {"optimizer": {"type": "onebitlamb"},
                     "zero_optimization": {"stage": 1}},
                    {"zero_optimization": {"offload_optimizer": {
-                       "device": "nvme"}}, "aio": {"queue_depth": 4}}):
+                       "device": "nvme"}}, "aio": {"queue_depth": 4}},
+                   {"zero_optimization": {"stage": 3, "offload_param": {
+                       "device": "nvme"}}}):
             load_config(dict({"train_micro_batch_size_per_gpu": 1},
                              **ok)).check_ported()
 

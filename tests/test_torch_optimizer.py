@@ -209,6 +209,24 @@ def test_optimizer_params_share_one_flat_buffer():
     assert offset == state.n and state.master.dtype == torch.float32
 
 
+def test_clip_norm_sums_in_float64_on_the_cpu():
+    """The clip norm of 1e6 fp32 grads on the CPU is their float64 norm
+    rounded to fp32 (torch's fp32 CPU norm sums in fp32 and was 1e-5
+    relative off here, enough to move the clip coefficient and so every
+    moment), and clipping scales by it."""
+    from deepspeed_tpu_torch.runtime.optimizer import grad_norm
+
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        10 ** 6).astype(np.float32) * 1e-3)
+    exact = torch.linalg.vector_norm(g.double()).float()
+    assert torch.equal(grad_norm(g), exact)
+    opt = build_optimizer(load_config({"train_micro_batch_size_per_gpu": 1,
+                                       "gradient_clipping": 1e-3}))
+    state = opt.init_shard(torch.zeros(g.numel()))
+    stats = opt.apply(state, g)
+    assert torch.equal(stats.grad_norm, exact)
+
+
 @pytest.mark.parametrize("name", ["onebitlamb", "adagrad", "sgd", "lion",
                                   "onebitadam", "zerooneadam"])
 def test_unported_optimizers_raise(name):
@@ -383,8 +401,8 @@ def test_unknown_keys_raise_naming_the_key(cfg, key):
     ({"zero_optimization": {"stage": 2,
                             "offload_optimizer": {"device": "cpu"}},
       "optimizer": {"type": "lamb"}}, "offload_optimizer"),
-    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}},
-     "offload_param"),
+    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}},
+      "parallel": {"pipeline_parallel_size": 2}}, "offload_param"),
     ({"parallel": {"tensor_parallel_size": 2}}, "tensor_parallel_size"),
     ({"parallel": {"data_parallel_size": 2},
       "optimizer": {"type": "onebitlamb"},

@@ -386,3 +386,20 @@ def offload_runs(rank: int, world: int, cases: Dict[str, Dict],
                     case, inits[name], world, stage, tier,
                     os.path.join(swap_root, f"{name}-{stage}-{world}"))
     return out
+
+
+def param_offload_refusal(rank: int, world: int) -> str:
+    """What ``initialize`` raises for parameter offload at this world."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import create_model
+
+    cfg = {"train_micro_batch_size_per_gpu": GLOBAL_ROWS // world,
+           "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+           "zero_optimization": {"stage": 3,
+                                 "offload_param": {"device": "cpu"}}}
+    try:
+        initialize(model=create_model("tiny", max_seq_len=SEQ), config=cfg,
+                   device="cpu")
+    except NotImplementedError as e:
+        return f"NotImplementedError: {e}"
+    return "accepted"
