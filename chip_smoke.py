@@ -184,6 +184,30 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    leaf, the gradient passed through bit for bit, |deq - w| within half a
    scale plus one bf16 ulp; then int4 ``quantize_symmetric`` over the same
    leaves, bit-equal to its plain version.
+27. ``moe_train`` — in the world-1 NCCL group, after ``comm_bench``:
+   moe-gpt-350m-8e at full width (H 1024, 24 layers, 16 heads of 64, 8
+   experts of FFN 4096, top-2, vocab 50257, tied; 1.76 B parameters, 0.56 B
+   active a token; seeded random bf16 weights) with the train
+   configuration, B 4 x S 1024: a warm-up step (its routing recorded through
+   ``parallel.moe.PLAN_LOG``: capacity, the share of assignments dropped,
+   the least and most tokens an expert kept, the aux loss), 3 timed steps
+   with exact launches (MOE_TRAIN_KERNELS) and falling losses, then a
+   stage-0 repeat and 2 steps at ZeRO stage 3 from the same weights and
+   batch, stage 3's losses within the zero bound of stage 0's, or within
+   ZERO_SPREAD_FACTOR times the repeat's spread where that is larger.
+   Prints step ms, tokens/s, MFU on the active parameters and peak memory.
+28. ``moe_generate`` — ``init_inference("moe-gpt-350m-8e")`` in bf16, then
+   int8 over the same weights (attention sites quantized, expert banks
+   dense): two ``generate`` calls each on the generate phase's prompts;
+   the first call of each launches the generate kernels, int8's exactly
+   4 x 24 x 31 int8 GEMMs. Prints TTFT, decode tokens/s and the bf16 / int8
+   token agreement (not a gate). ``moe_serve`` — ``init_serving`` over the
+   bf16 weights, the serve phase's 8 requests; the serving kernels run.
+29. ``e2e_moe`` — the same widths at 2 layers, fp32: cache-less, dense-arena
+   and paged logits of the kernel path within E2E_TOL of ``plain=True``,
+   each with its routing margin guarded (``RouterSpy``: the smallest gap of
+   a token's top-(k+1) gates above twice the two paths' gate difference),
+   and ``train_parity`` at E2E_TRAIN_TOL.
 
 The ``kernels`` phase holds the norm at llama-7b's decode step (8 x 4096)
 and serve chunk (256 rows, RMSNorm and LayerNorm with bias), generate's
@@ -215,7 +239,12 @@ yardstick). The ``kernels`` line gives those three kernels' llama-7b
 training case under ``llama_train`` (kernel or plan, error, ms). Fused
 Adam also runs at parameter offload's two calls on llama-7b (a layer's
 block with fp32 grads and a clip scale; the resident part with bf16
-grads), given under ``param_offload`` in the ``kernels`` line.
+grads), given under ``param_offload`` in the ``kernels`` line. At
+moe-gpt-350m-8e's training shapes the norm (4096 x 1024, LayerNorm with
+bias), the flash forward and backward (B 4, S = T 1024, 16 heads of 64,
+causal) and fused Adam over the model's 1.76 B elements in one launch
+(``adam_model_case``: held to the plain version slice by slice) are given
+under ``moe_train``.
 
 Then one ``{"kernels": [...]}`` line (``kernel``: the CUDA kernel that runs
 at the main path's shape; ``launches``: each wrapper's count over
@@ -224,7 +253,9 @@ mode, the int8 serve run, the 5 timed train steps, the zero phase's 2
 timed steps of each stage 1-3, lamb_zero's 2 timed steps a stage,
 offload's 2 timed steps, param_offload's 2 timed steps of each run, the 5
 timed sparse_train steps, the 5 timed
-spatial calls and the quantize phase's fake_quantize pass), the nvidia-smi line, and as the last line ``{"ok":
+spatial calls, the quantize phase's fake_quantize pass, moe_train's 3 + 2
+timed steps, the first bf16 and int8 moe_generate calls and the moe_serve
+run), the nvidia-smi line, and as the last line ``{"ok":
 true, "device": {...}}``. Each phase's line carries ``at_s``, the seconds
 since the start, and the ``kernels`` phase's line the seconds each group
 of cases took.
@@ -297,6 +328,7 @@ from deepspeed_tpu_torch.ops.normalization import ln_plan
 from deepspeed_tpu_torch.ops.paged_decode_attention import (
     paged_prefill_plan, paged_split_plan, prefill_kernel)
 from deepspeed_tpu_torch.ops.spatial import gn_plan
+from deepspeed_tpu_torch.parallel import moe
 from deepspeed_tpu_torch.runtime import MixedPrecisionOptimizer
 from deepspeed_tpu_torch.runtime.optimizer import zero_one_var_step
 from deepspeed_tpu_torch.runtime import checkpoint as ckpt
@@ -438,9 +470,11 @@ L2_BYTES = 50e6     # the H100's L2: rotated timings cycle through more
 # prefill chunk (256), 256 rows of LayerNorm with bias, generate's static
 # prefill (8 prompts padded to 512: 4096 rows), OPT-1.3B's training rows
 # (4 x 1024, H 2048, LayerNorm with bias), llama-7b's training rows under
-# offload (1 x 2048, RMSNorm)
+# offload (1 x 2048, RMSNorm), moe-gpt-350m-8e's training rows (4 x 1024,
+# H 1024, LayerNorm with bias)
 NORM_CASES = [(8, 4096, True), (256, 4096, True), (256, 4096, False),
-              (4096, 4096, True), (4096, 2048, False), (2048, 4096, True)]
+              (4096, 4096, True), (4096, 2048, False), (2048, 4096, True),
+              (4096, 1024, False)]
 SERVE_KERNELS = ("fused_layer_norm", "paged_decode_attention",
                  "paged_prefill_attention")
 GENERATE_KERNELS = ("fused_layer_norm", "flash_attention", "decode_attention")
@@ -497,6 +531,7 @@ QUANT_N = 1 << 26  # the quantize cases' second size (64 Mi elements)
 # D): OPT-1.3B's (train) and llama-7b's under offload (offload)
 TRAIN_FLASH = (4, 1024, 32, 64)
 LLAMA_TRAIN_FLASH = (1, 2048, 32, 128)
+MOE_TRAIN_FLASH = (4, 1024, 16, 64)
 
 
 def flash_fwd_kernel_name(dtype, D: int) -> str:
@@ -910,17 +945,19 @@ def flash_cases(dev, gen):
     results.append(flash_train_case(dev, gen, "train", TRAIN_FLASH))
     results.append(flash_train_case(dev, gen, "llama_train",
                                     LLAMA_TRAIN_FLASH))
+    results.append(flash_train_case(dev, gen, "moe_train", MOE_TRAIN_FLASH))
     return results
 
 
 def flash_train_case(dev, gen, case, shape):
     """The forward at a training shape (B, S = T, N = K, D), bf16, causal,
     no mask: OPT-1.3B's (B 4, S 1024, 32 heads of 64), as ``train`` runs it
-    24 times a step, or llama-7b's (B 1, S 2048, 32 heads of 128), as
-    ``offload`` runs it 32 times. o and the lse that the backward reads are
-    both held to the plain version. Bound: 4 D operations per visible pair
-    and q, k, v and o once. Yardstick: SDPA with ``is_causal``, its backend
-    named."""
+    24 times a step, llama-7b's (B 1, S 2048, 32 heads of 128), as
+    ``offload`` runs it 32 times, or moe-gpt-350m-8e's (B 4, S 1024, 16
+    heads of 64), as ``moe_train`` runs it 24 times. o and the lse that
+    the backward reads are both held to the plain version. Bound: 4 D
+    operations per visible pair and q, k, v and o once. Yardstick: SDPA
+    with ``is_causal``, its backend named."""
     dtype, (B, S, N, D) = torch.bfloat16, shape
     q, k, v = (torch.randn(B, S, N, D, generator=gen, device=dev).to(dtype)
                for _ in range(3))
@@ -1061,7 +1098,8 @@ def flash_bwd_cases(dev, gen):
     causal, no mask) in bf16 and fp32; then GQA (K 8) and alibi with
     right-padded masks with holes, whose masked keys hold STALE; then
     llama-7b's training shape under offload (bf16, B 1, S = T 2048, 32
-    heads of 128, causal, no mask: the fused pass at D 128). Inputs o /
+    heads of 128, causal, no mask: the fused pass at D 128) and
+    moe-gpt-350m-8e's (bf16, B 4, S = T 1024, 16 heads of 64). Inputs o /
     lse are the plain forward's; the yardstick is autograd of
     ``scaled_dot_product_attention`` (the backward alone, all three
     gradients) with the same causality and mask. The bound: 10 D operations
@@ -1069,11 +1107,14 @@ def flash_bwd_cases(dev, gen):
     lse (and the mask) read once and dq, dk, dv written once; the fp32 dq
     accumulator is scratch and is not counted."""
     LB, LS, LN, LD = LLAMA_TRAIN_FLASH
+    MB, MS, MN, MD = MOE_TRAIN_FLASH
     specs = [("train", torch.bfloat16, 4, 1024, 32, 32, 64, False, False),
              ("train", torch.float32, 4, 1024, 32, 32, 64, False, False),
              ("gqa_mask", torch.bfloat16, 4, 512, 32, 8, 64, True, False),
              ("alibi_mask", torch.bfloat16, 2, 512, 32, 32, 64, True, True),
              ("llama_train", torch.bfloat16, LB, LS, LN, LN, LD, False,
+              False),
+             ("moe_train", torch.bfloat16, MB, MS, MN, MN, MD, False,
               False)]
     out = []
     for case, dtype, B, S, N, K, D, masked, use_alibi in specs:
@@ -1271,7 +1312,96 @@ def adam_cases(dev, gen):
             ms=ms, plain_ms=plain,
             library_ms=library, bound_ms=b_ms, bound_by=b_by))
         torch.cuda.empty_cache()
+    results.append(adam_model_case(dev, gen, "moe_train",
+                                   moe_param_count(), kw))
     return results
+
+
+def check_adam_copy(case: str, got, ref, got_p, ref_p) -> int:
+    """Hold the kernel's bf16 working copy to the plain version's: each is
+    its fp32 master rounded to nearest, so they differ by at most half a
+    bf16 ulp of each master (2^-8 |p|) plus the masters' own difference,
+    which ``check_adam`` has held. Where a step cancels most of a param
+    (p - lr * u near 0) that difference is large beside |p|, and the copies
+    can sit more than ADAM_COPY_TOL apart; returns how many elements do."""
+    a, b = got_p.float(), ref_p.float()
+    diff = (got.float() - ref.float()).abs()
+    bound = 2.0 ** -8 * (a.abs() + b.abs()) + (a - b).abs()
+    bad = ~(diff <= bound)
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0])
+        raise AssertionError(
+            f"fused_adam {case} copy: {int(bad.sum())} elements outside the "
+            f"rounding of their masters; first at {i}: copy {float(got[i])} "
+            f"vs {float(ref[i])}, master {float(a[i])} vs {float(b[i])}")
+    atol, rtol = ADAM_COPY_TOL
+    return int((diff > atol + rtol * ref.float().abs()).sum())
+
+
+def moe_param_count() -> int:
+    """moe-gpt-350m-8e's parameter count, from the model's meta init: the
+    flat buffer's elements one fused Adam launch updates at ZeRO stage 0."""
+    tree = create_model(MOE_PRESET).init(torch.Generator(), device="meta")
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+# the plain version's check runs over slices of this many elements
+ADAM_CHECK_CHUNK = 1 << 27
+
+
+def adam_model_case(dev, gen, case: str, n: int, kw):
+    """Fused Adam over one flat buffer of a whole model's ``n`` elements, as
+    the train path launches it once a step: fp32 master and moments, bf16
+    grads, the bf16 working copy, a clip coefficient. The kernel runs once
+    over the whole buffer; its result is held to the plain version by
+    ``check_adam`` slice by slice (a whole second set of buffers and the
+    plain version's temporaries would not fit beside it). The initial
+    buffers are then released, and the kernel, the plain version (one call
+    over the whole buffer, in place) and ``torch.optim.AdamW(fused=True)``
+    are timed over it."""
+    p = torch.randn(n, generator=gen, device=dev)
+    m = 1e-5 * torch.randn(n, generator=gen, device=dev)
+    v = torch.pow(10.0, -16 * torch.rand(n, generator=gen, device=dev))
+    g = (1e-5 * torch.randn(n, generator=gen, device=dev)).to(torch.bfloat16)
+    scale = torch.tensor([0.37], device=dev)
+    kp, km, kv = (x.clone() for x in (p, m, v))
+    copy = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    fused_adam_flat(kp, g, km, kv, param_copy=copy, grad_scale=scale, **kw)
+    err, outside = 0.0, 0
+    for lo in range(0, n, ADAM_CHECK_CHUNK):
+        sl = slice(lo, min(n, lo + ADAM_CHECK_CHUNK))
+        ref = [x[sl].clone() for x in (p, m, v)]
+        rcopy = torch.empty_like(copy[sl])
+        reference_adam_flat(ref[0], g[sl], ref[1], ref[2], param_copy=rcopy,
+                            grad_scale=scale, **kw)
+        err = max(err, check_adam(case, (p[sl], m[sl], v[sl]),
+                                  (kp[sl], km[sl], kv[sl]), ref, g[sl],
+                                  scale, kw))
+        outside += check_adam_copy(case, copy[sl], rcopy, kp[sl], ref[0])
+        del ref, rcopy
+    del p, m, v
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound_ms(n * (12 + 2 + 12 + 2), 16.0 * n, FP32_FLOPS)
+    ms = time_ms(lambda: fused_adam_flat(kp, g, km, kv, param_copy=copy,
+                                         grad_scale=scale, **kw),
+                 iters=3, reps=3)
+    plain = time_eager_ms(lambda: reference_adam_flat(
+        kp, g, km, kv, param_copy=copy, grad_scale=scale, **kw), iters=2)
+    del km, kv, copy
+    torch.cuda.empty_cache()
+    param = torch.nn.Parameter(kp)
+    param.grad = g.float()
+    opt = torch.optim.AdamW([param], lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.01, fused=True)
+    library = time_eager_ms(opt.step, iters=2)
+    del opt, param, kp, g
+    torch.cuda.empty_cache()
+    return dict(case=case, n=n, grad_dtype=str(torch.bfloat16),
+                param_copy=True, grad_scale=True, dtype=str(torch.bfloat16),
+                max_abs_err=err, copy_outside_copy_tol=outside,
+                tol=dict(rtol_of_terms=ADAM_RTOL, p_round=ADAM_P_ROUND),
+                ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 SPARSE_B, SPARSE_S, SPARSE_N, SPARSE_D = 2, 2048, 32, 64
@@ -1912,20 +2042,20 @@ def per_forward(cfg) -> int:
     return 7 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
 
 
-def make_server(dtype=torch.bfloat16, params=None):
-    """llama-7b at full width in ``dtype`` (bf16, or a quantized mode) with
-    seeded random weights (or ``params``), every sampled logits row checked
-    finite, one short warm-up request served. Returns (server, seconds to
-    build it)."""
+def make_server(dtype=torch.bfloat16, params=None, preset="llama-7b"):
+    """llama-7b (or ``preset``: moe-gpt-350m-8e) at full width in ``dtype``
+    (bf16, or a quantized mode) with seeded random weights (or ``params``),
+    every sampled logits row checked finite, one short warm-up request
+    served. Returns (server, seconds to build it)."""
     scfg = ServingConfig(block_size=16, max_seqs=8, max_model_len=1024,
                          prefill_chunk=256)
     t0 = time.perf_counter()
-    srv = init_serving("llama-7b", serving_config=scfg, dtype=dtype,
+    srv = init_serving(preset, serving_config=scfg, dtype=dtype,
                        seed=0, params=params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     cfg = srv.engine.model.config
-    check_llama_7b(cfg)
+    (check_llama_7b if preset == "llama-7b" else check_moe_widths)(cfg)
     prefill, decode = srv._prefill, srv._decode
 
     def checked_prefill(*args):
@@ -2026,6 +2156,20 @@ def e2e_phase(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     params = init_params(gen, cfg)
+    errs, last = paged_parity(params, cfg, dev, gen, "e2e")
+    return dict(phase="e2e_parity", model="llama-7b", layers=2,
+                dtype="float32", prefill_chunk=256, n_valid=200,
+                decode_steps=8, max_abs_err=max(errs), per_step=errs,
+                tol=E2E_TOL, logits_absmax=float(last.abs().max()))
+
+
+def paged_parity(params, cfg, dev, gen, phase: str):
+    """One paged prefill chunk of 256 queries (200 valid, then chunk
+    padding at position -1) and 8 greedy decode steps beside an inactive
+    row, through the kernel path and ``plain=True`` on two copies of an
+    arena whose unwritten slots hold NaN; greedy on the plain path. Returns
+    (each step's max abs error of the last-position logits, the last
+    logits), raising above E2E_TOL."""
     BS, MAXB, C, n_valid = 16, 64, 256, 200
     NB = MAXB + 1
     arena = init_paged_cache(cfg, NB, BS, torch.float32, dev)
@@ -2053,18 +2197,14 @@ def e2e_phase(dev):
                         plain=bool(i))[0][0, -1] for i in range(2)]
         for o in outs:
             if not bool(torch.isfinite(o).all()):
-                raise AssertionError("e2e: non-finite logits")
+                raise AssertionError(f"{phase}: non-finite logits")
         errs.append(max_err(outs[0], outs[1]))
         tok = int(outs[1].argmax())
         length += 1
     if not max(errs) <= E2E_TOL:
-        raise AssertionError(f"e2e: logits max abs error {max(errs)} > "
+        raise AssertionError(f"{phase}: logits max abs error {max(errs)} > "
                              f"{E2E_TOL}")
-    scale = float(outs[1].abs().max())
-    return dict(phase="e2e_parity", model="llama-7b", layers=2,
-                dtype="float32", prefill_chunk=C, n_valid=n_valid,
-                decode_steps=8, max_abs_err=max(errs), per_step=errs,
-                tol=E2E_TOL, logits_absmax=scale)
+    return errs, outs[1]
 
 
 # ---------------------------------------------------------------------------
@@ -2502,7 +2642,8 @@ def leaf_names(tree, prefix: str = ""):
     return [] if tree is None else [prefix[:-1]]
 
 
-def train_parity(phase, model, cfg, plain_opt, batch, tol=E2E_TRAIN_TOL):
+def train_parity(phase, model, cfg, plain_opt, batch, tol=E2E_TRAIN_TOL,
+                 preset="opt-1.3b"):
     """3 steps of ``model`` under ``cfg`` through the kernel path and
     through the plain path (``loss_fn(..., plain=True)`` and ``plain_opt``)
     from the same seeded weights and one batch, on the batch's device; the
@@ -2555,7 +2696,7 @@ def train_parity(phase, model, cfg, plain_opt, batch, tol=E2E_TRAIN_TOL):
                               / (first[i] - start[i]).norm())
     grad_err, update_err = max(grad_rel.values()), max(update_rel.values())
     opt_err = max(opt_rel.values())
-    out = dict(phase=phase, model="opt-1.3b", layers=2, dtype="float32",
+    out = dict(phase=phase, model=preset, layers=2, dtype="float32",
                batch=list(batch["input_ids"].shape), steps=E2E_TRAIN_STEPS,
                optimizer=cfg["optimizer"], losses=losses,
                loss_rel_err=loss_err, grad_rel_err=grad_err,
@@ -3942,6 +4083,422 @@ def quantize_phase(dev):
         worst_err_over_bound=worst, int4_bit_equal=True)
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts: moe-gpt-350m-8e trained, generated and served at full
+# width, and 2-layer fp32 parity
+# ---------------------------------------------------------------------------
+
+
+MOE_PRESET = "moe-gpt-350m-8e"
+# (H, layers, heads, D, FFN, vocab, experts, top-k)
+MOE_WIDTHS = (1024, 24, 16, 64, 4096, 50257, 8, 2)
+MOE_B, MOE_S, MOE_STEPS, MOE_ZERO3_STEPS = 4, 1024, 3, 2
+# the train phase's configuration (bf16, AdamW lr 1e-4, gas 1) at a stage
+MOE_CONFIG = TRAIN_CONFIG
+# the MoE train path's launches a step: the flash forward and backward once
+# a layer, two norms a layer and the final one, one Adam launch; gating,
+# dispatch, combine and the expert GEMMs are PyTorch, as JAX's are jnp
+MOE_TRAIN_KERNELS = {"flash_attention": 24, "flash_attention_bwd": 24,
+                     "fused_layer_norm": 49, "fused_adam": 1}
+
+
+def check_moe_widths(cfg) -> None:
+    if (cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.head_dim,
+            cfg.ffn_hidden_size, cfg.vocab_size, cfg.moe_num_experts,
+            cfg.moe_top_k) != MOE_WIDTHS:
+        raise AssertionError(f"{MOE_PRESET} widths changed: {cfg}")
+
+
+def moe_active_params(cfg) -> int:
+    """Parameters one token's forward reads: the embeddings, final norm,
+    and per layer attention, norms, router and top-k experts' banks."""
+    H, F_, E, k = (cfg.hidden_size, cfg.ffn_hidden_size,
+                   cfg.moe_num_experts, cfg.moe_top_k)
+    layer = 4 * H * H + 4 * H + 4 * H + H * E + k * 2 * H * F_
+    return (cfg.vocab_size * H + cfg.max_seq_len * H + 2 * H
+            + cfg.num_layers * layer)
+
+
+def routing_stats(log) -> dict:
+    """``parallel.moe.PLAN_LOG``'s entries of one forward (one a layer):
+    the capacity, the share of top-k assignments dropped, the least and
+    most tokens an expert kept in any layer, and the aux loss (mean over the
+    layers; 1 is a perfect balance)."""
+    kept = sum(float(e["kept"]) for e in log)
+    assigned = sum(e["assigned"] for e in log)
+    loads = torch.stack([e["expert_load"] for e in log])
+    return dict(capacity=log[0]["capacity"], layers=len(log),
+                assignments=assigned, dropped_share=1.0 - kept / assigned,
+                expert_load_min=float(loads.min()),
+                expert_load_max=float(loads.max()),
+                aux_loss_mean=float(torch.stack(
+                    [e["aux_loss"] for e in log]).mean()))
+
+
+def make_moe_trainer(dev, stage: int):
+    """moe-gpt-350m-8e at full width (bf16, seeded random weights) under
+    the train configuration at ZeRO ``stage``, and one fixed seeded (1, B,
+    S) token batch on the card. Returns (engine, batch, seconds
+    ``initialize`` took)."""
+    model = create_model(MOE_PRESET, dtype=torch.bfloat16,
+                         max_seq_len=MOE_S)
+    check_moe_widths(model.config)
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=model, config=dict(
+        MOE_CONFIG, zero_optimization={"stage": stage}))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    ids = torch.randint(0, model.config.vocab_size, (1, MOE_B, MOE_S),
+                        generator=gen, device=dev)
+    return engine, {"input_ids": ids}, init_s
+
+
+def moe_steps(engine, batch, steps: int, phase: str):
+    """``steps`` timed ``train_batch`` calls with the launch counts zeroed
+    just before and held exactly to MOE_TRAIN_KERNELS. Returns (losses as
+    tensors, wall seconds, counts)."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch=batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    got = {name: counts[name] for name in MOE_TRAIN_KERNELS}
+    want = {name: per * steps for name, per in MOE_TRAIN_KERNELS.items()}
+    if got != want:
+        raise AssertionError(f"{phase}: launches {got}, expected {want}")
+    return losses, wall, counts
+
+
+def moe_train_phase(dev, bound):
+    """moe-gpt-350m-8e at stage 0: a warm-up step (routing statistics
+    recorded), MOE_STEPS timed steps, losses finite and falling; then a
+    repeat of stage 0 and MOE_ZERO3_STEPS steps at stage 3 from the same
+    weights and batch in the world-1 group. Stage 3's losses are held to
+    stage 0's within the zero phase's ``bound``, or within the zero phase's
+    rule applied to this model (ZERO_SPREAD_FACTOR times the repeat's
+    spread) where that is larger: a token whose top-2 gates nearly tie
+    moves to another expert when the flash backward's dq sums in another
+    order, so MoE's losses spread more from run to run than OPT-1.3B's.
+    Returns (the timed steps' counts, the phase's JSON)."""
+    engine, batch, init_s = make_moe_trainer(dev, 0)
+    cfg = engine.model.config
+    moe.PLAN_LOG = []
+    t0 = time.perf_counter()
+    try:
+        losses = [engine.train_batch(batch=batch)]
+        torch.cuda.synchronize()
+    finally:
+        log, moe.PLAN_LOG = moe.PLAN_LOG, None
+    warm_s = time.perf_counter() - t0
+    routing = routing_stats(log)
+    torch.cuda.reset_peak_memory_stats()
+    timed, wall, counts = moe_steps(engine, batch, MOE_STEPS, "moe_train")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses + timed]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe_train: losses {losses} not finite and "
+                             "falling")
+    n_params = param_count(engine.params)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def rel_err(other):
+        return max(abs(a - b) / abs(b) for a, b in zip(other, losses))
+
+    engine, batch, _ = make_moe_trainer(dev, 0)
+    repeat = [float(engine.train_batch(batch=batch))
+              for _ in range(MOE_ZERO3_STEPS)]
+    spread = rel_err(repeat)
+    moe_bound = max(bound, ZERO_SPREAD_FACTOR * spread)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, batch, init3_s = make_moe_trainer(dev, 3)
+    torch.cuda.reset_peak_memory_stats()
+    z3, wall3, c3 = moe_steps(engine, batch, MOE_ZERO3_STEPS,
+                              "moe_train stage 3")
+    peak3 = torch.cuda.max_memory_allocated()
+    z3 = [float(x) for x in z3]
+    rel = rel_err(z3)
+    if not all(np.isfinite(z3)) or not rel <= moe_bound:
+        raise AssertionError(f"moe_train stage 3: losses {z3} against stage"
+                             f" 0's {losses[:len(z3)]}: {rel} above "
+                             f"{moe_bound}")
+    units = engine.zero.peak_live
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in c3.items():
+        counts[name] = counts.get(name, 0) + n
+    active = moe_active_params(cfg)
+    L, H, S = cfg.num_layers, cfg.hidden_size, MOE_S
+    tokens = MOE_B * S
+    step_s = wall / MOE_STEPS
+    flops = (6 * active + 12 * L * H * S) * tokens
+    return counts, dict(
+        phase="moe_train", model=MOE_PRESET, dtype="bfloat16",
+        config=MOE_CONFIG, batch=[MOE_B, S], params=n_params,
+        active_params=active, init_s=init_s, warmup_s=warm_s,
+        steps=MOE_STEPS, losses=losses, step_ms=step_s * 1e3,
+        tokens_per_s=tokens / step_s, mfu_active=flops / step_s / BF16_FLOPS,
+        peak_mem_gb=peak / 1e9, routing_warmup_step=routing,
+        launches={n: counts[n] for n in MOE_TRAIN_KERNELS},
+        stage3=dict(init_s=init3_s, steps=MOE_ZERO3_STEPS, losses=z3,
+                    loss_rel_err=rel, zero_bound=bound,
+                    stage0_repeat=repeat, stage0_repeat_spread=spread,
+                    bound=moe_bound,
+                    step_ms=wall3 / MOE_ZERO3_STEPS * 1e3,
+                    peak_mem_gb=peak3 / 1e9, gather_units_peak=units))
+
+
+def moe_generate_phase(dev):
+    """``init_inference("moe-gpt-350m-8e")`` in bf16, then in int8 over the
+    same weights: two ``generate`` calls each on GEN_LENS' 8 right-padded
+    prompts, GEN_NEW greedy tokens. The first call of each mode: launch
+    counts zeroed before and read after, the generate kernels run, int8's
+    GEMM exactly 4 x layers x (GEN_NEW - 1) times (the attention sites of
+    every decode forward; the expert banks stay dense, the head is tied).
+    Returns (the counts of both first calls, the phase's JSON, the bf16
+    engine)."""
+    t0 = time.perf_counter()
+    eng = init_inference(MOE_PRESET, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = eng.model.config
+    check_moe_widths(cfg)
+    V = cfg.vocab_size
+    ids, mask = generate_prompts(V)
+    counts, modes, tokens = {}, {}, {}
+    for mode in ("bf16", "int8"):
+        if mode == "int8":
+            t0 = time.perf_counter()
+            qeng = init_inference(MOE_PRESET, dtype="int8",
+                                  params=eng.params)
+            torch.cuda.synchronize()
+            q_init = time.perf_counter() - t0
+        run = eng if mode == "bf16" else qeng
+        torch.cuda.reset_peak_memory_stats()
+        calls = []
+        for i in range(2):
+            toks, ttft, wall, c = generate_call(run, ids, mask)
+            if toks.shape != (len(GEN_LENS), GEN_NEW) or not (
+                    (toks >= 0) & (toks < V)).all():
+                raise AssertionError(f"moe_generate {mode}: bad tokens "
+                                     f"{toks}")
+            if i == 0:
+                tokens[mode] = toks
+                for name in GENERATE_KERNELS:
+                    if c[name] <= 0:
+                        raise AssertionError(f"moe_generate {mode}: kernel "
+                                             f"{name} never launched")
+                want = 4 * cfg.num_layers * (GEN_NEW - 1) \
+                    if mode == "int8" else 0
+                for name in QUANT_MODES.values():
+                    if c[name] != (want if name == "int8_matmul" else 0):
+                        raise AssertionError(
+                            f"moe_generate {mode}: {name} launched "
+                            f"{c[name]} times, expected "
+                            f"{want if name == 'int8_matmul' else 0}")
+                for name, n in c.items():
+                    counts[name] = counts.get(name, 0) + n
+            calls.append(dict(
+                ttft_ms=ttft * 1e3, wall_s=wall,
+                decode_tokens_per_s=len(GEN_LENS) * (GEN_NEW - 1)
+                / (wall - ttft),
+                launches={n: c[n] for n in GENERATE_KERNELS
+                          + ("int8_matmul",)}))
+        modes[mode] = dict(calls=calls,
+                           peak_mem_gb=torch.cuda.max_memory_allocated()
+                           / 1e9)
+        if mode == "int8":
+            modes[mode].update(init_s=q_init,
+                               weight_gb=tree_bytes(qeng.params) / 1e9)
+            del qeng, run
+            gc.collect()
+            torch.cuda.empty_cache()
+    agree = float((tokens["bf16"] == tokens["int8"]).mean())
+    return counts, dict(
+        phase="moe_generate", model=MOE_PRESET, prompt_lens=GEN_LENS,
+        new_tokens=GEN_NEW, init_s=init_s,
+        weight_gb=tree_bytes(eng.params) / 1e9, modes=modes,
+        bf16_int8_token_agreement=agree), eng
+
+
+def moe_serve_phase(params):
+    """``init_serving("moe-gpt-350m-8e")`` over the generate phase's bf16
+    weights: the 8-request scenario (``serve_requests``), launch counts
+    zeroed before it and read after; each of the serving path's kernels
+    must have run and every token be in the vocabulary."""
+    srv, init_s = make_server(torch.bfloat16, params, preset=MOE_PRESET)
+    V = srv.engine.model.config.vocab_size
+    reset_launch_counts()
+    handles, prompts, steps, wall = serve_requests(srv)
+    counts = launch_counts()
+    outs = [h.result() for h in handles]
+    for i, out in enumerate(outs):
+        if len(out) != 32 or not ((out >= 0) & (out < V)).all():
+            raise AssertionError(f"moe_serve: request {i} returned {out}")
+    for name in SERVE_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"moe_serve: kernel {name} never launched")
+    if srv.sched.prefix_hits < 1 or srv._cow_copies < 1:
+        raise AssertionError("moe_serve: prefix cache / copy-on-write did "
+                             "not run")
+    ttft = [h.ttft_s * 1e3 for h in handles]
+    tokens = sum(len(o) for o in outs)
+    out = dict(
+        phase="moe_serve", model=MOE_PRESET, dtype="bfloat16",
+        prompt_lens=[len(p) for p in prompts], new_tokens=32,
+        init_s=init_s, wall_s=wall, iterations=steps,
+        prefill_chunks=srv.prefill_chunks_run, tokens=tokens,
+        tokens_per_s=tokens / wall, ttft_ms=ttft,
+        ttft_ms_median=float(np.median(ttft)),
+        launches={n: counts[n] for n in SERVE_KERNELS},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    srv.close()
+    return counts, out
+
+
+class RouterSpy:
+    """Records the router logits of every gating call, in order, while
+    active. The parity checks call the kernel path then the plain path on
+    the same inputs, so the records come in blocks of 2 x layers: the
+    kernel path's layers, then the plain path's."""
+
+    def __init__(self, layers: int):
+        self.layers, self.seen, self.saved = layers, [], None
+
+    def __enter__(self):
+        self.saved = moe.top1_plan, moe.top2_plan
+
+        def wrap(real):
+            def spy(logits, *a, **kw):
+                self.seen.append(logits.detach().clone())
+                return real(logits, *a, **kw)
+            return spy
+
+        moe.top1_plan, moe.top2_plan = (wrap(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        moe.top1_plan, moe.top2_plan = self.saved
+
+    def guard(self, k: int, phase: str) -> dict:
+        """Over each (kernel, plain) pair of a layer's calls: the smallest
+        gap between consecutive ranks 1..k+1 of a token's gates on the
+        plain path (the routing margin) and the largest difference of a
+        gate between the two paths. A margin above twice that difference
+        cannot route a token differently; raises otherwise."""
+        L = self.layers
+        if len(self.seen) % (2 * L):
+            raise AssertionError(f"{phase}: {len(self.seen)} gating calls, "
+                                 f"not pairs of {L} layers")
+        margin, drift = float("inf"), 0.0
+        for b in range(0, len(self.seen), 2 * L):
+            for li in range(L):
+                gk = torch.softmax(self.seen[b + li].float(), -1)
+                gp = torch.softmax(self.seen[b + L + li].float(), -1)
+                drift = max(drift, max_err(gk, gp))
+                top = gp.sort(-1, descending=True).values
+                margin = min(margin, float((top[:, :k]
+                                            - top[:, 1:k + 1]).min()))
+        if not margin > 2 * drift:
+            raise AssertionError(
+                f"{phase}: routing margin {margin} not above twice the "
+                f"paths' gate difference {drift}: a near-tie could route a "
+                "token to another expert on the two paths")
+        self.seen = []
+        return dict(min_margin=margin, max_gate_diff=drift)
+
+
+def e2e_moe_phase(dev):
+    """moe-gpt-350m-8e's widths at 2 layers, fp32: the kernel path against
+    ``plain=True``: cache-less logits (B 2 x S 256, right-padded; capacity
+    drops on), dense-arena prefill and decode (``dense_parity``) and paged
+    prefill and decode (``paged_parity``; C = T), each with its routing
+    margin guarded (``RouterSpy``); then ``train_parity`` (3 AdamW steps)."""
+    cfg = transformer_config(MOE_PRESET, dtype=torch.float32, num_layers=2,
+                             max_seq_len=1024)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    params = init_params(gen, cfg)
+    k = cfg.moe_top_k
+    ids = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                        device=dev)
+    mask = torch.ones(2, 256, dtype=torch.int32, device=dev)
+    mask[1, 190:] = 0
+    spy = RouterSpy(cfg.num_layers)
+    with spy:
+        outs = [fn(params, ids, cfg, attention_mask=mask)[0]
+                for fn in (forward, plain_forward)]
+        cacheless = max_err(outs[0], outs[1])
+        margins = {"cacheless": spy.guard(k, "e2e_moe cache-less")}
+        if not cacheless <= E2E_TOL:
+            raise AssertionError(f"e2e_moe: cache-less logits max abs error"
+                                 f" {cacheless} > {E2E_TOL}")
+        dense, _ = dense_parity(params, cfg, dev, gen, "e2e_moe dense")
+        margins["dense"] = spy.guard(k, "e2e_moe dense")
+        paged, _ = paged_parity(params, cfg, dev, gen, "e2e_moe paged")
+        margins["paged"] = spy.guard(k, "e2e_moe paged")
+    del params, outs
+    model = create_model(MOE_PRESET, dtype=torch.float32, num_layers=2,
+                         max_seq_len=256)
+    tcfg = {"train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 1, "steps_per_print": 1000,
+            "gradient_clipping": 1.0,
+            "optimizer": {"type": "adamw",
+                          "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+    plain_opt = MixedPrecisionOptimizer(1e-4, grad_clip=1.0,
+                                        weight_decay=0.01, plain=True)
+    train = train_parity("e2e_moe", model, tcfg, plain_opt,
+                         {"input_ids": ids, "attention_mask": mask},
+                         preset=MOE_PRESET)
+    return dict(phase="e2e_moe", model=MOE_PRESET, layers=2,
+                dtype="float32", cacheless_max_abs_err=cacheless,
+                dense_max_abs_err=max(dense), paged_max_abs_err=max(paged),
+                tol=E2E_TOL, routing=margins,
+                train={k_: v for k_, v in train.items() if k_ != "phase"})
+
+
+def moe_phases(dev, smi, bound):
+    """moe_train (in the world-1 group main() opened), moe_generate,
+    moe_serve and e2e_moe, each line with its seconds. Returns the launch
+    counts of the main-path runs (moe_train's timed steps at both stages,
+    the first generate call of each mode, the serve run)."""
+    counts = {}
+
+    def add(c):
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+
+    t0 = time.perf_counter()
+    c, out = moe_train_phase(dev, bound)
+    add(c)
+    emit(dict(out, seconds=time.perf_counter() - t0, card=smi))
+    t0 = time.perf_counter()
+    c, out, eng = moe_generate_phase(dev)
+    add(c)
+    emit(dict(out, seconds=time.perf_counter() - t0, card=smi))
+    t0 = time.perf_counter()
+    eng._arena.clear()
+    c, out = moe_serve_phase(eng.params)
+    add(c)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(out, seconds=time.perf_counter() - t0, card=smi))
+    t0 = time.perf_counter()
+    out = e2e_moe_phase(dev)
+    emit(dict(out, seconds=time.perf_counter() - t0, card=smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def new_phases(dev, smi, base_losses, bound):
     """The phases after ``checkpoint``, in the world-1 NCCL group:
     lamb_zero, onebit, offload_parity, offload, nvme, param_offload_parity,
@@ -4050,6 +4607,7 @@ def main() -> int:
         bound = zero["loss_rtol"]
         emit(dict(checkpoint_phase(dev, bound), card=smi))
         new_counts = new_phases(dev, smi, train["losses"], bound)
+        moe_counts = moe_phases(dev, smi, bound)
     finally:
         comm.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -4095,6 +4653,14 @@ def main() -> int:
                                        and c["rms"]),
         "flash_attention": lambda c: c["case"] == "llama_train",
         "flash_attention_bwd": lambda c: c["case"] == "llama_train"}
+    # moe-gpt-350m-8e's training shapes (4 x 1024 tokens, 16 heads of 64,
+    # H 1024, LayerNorm with bias, 1.76 B elements updated)
+    moe_train = {
+        "fused_layer_norm": lambda c: (c["rows"] == 4096 and c["H"] == 1024
+                                       and not c["rms"]),
+        "flash_attention": lambda c: c["case"] == "moe_train",
+        "flash_attention_bwd": lambda c: c["case"] == "moe_train",
+        "fused_adam": lambda c: c["case"] == "moe_train"}
     kernels = []
     for name, (source, replaces, kernel) in SOURCES.items():
         bf16 = [c for c in cases[name] if c["dtype"] == str(torch.bfloat16)]
@@ -4104,6 +4670,11 @@ def main() -> int:
             c = next(c for c in bf16 if llama_train[name](c))
             extra["llama_train"] = {k: c.get(k) for k in (
                 "plan", "kernel", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+        if name in moe_train:
+            c = next(c for c in bf16 if moe_train[name](c))
+            extra["moe_train"] = {k: c.get(k) for k in (
+                "plan", "kernel", "n", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")}
         if name == "fused_adam":
             # parameter offload's two calls at llama-7b's sizes
@@ -4121,7 +4692,8 @@ def main() -> int:
                       + new_counts.get(name, 0)
                       + sparse_counts.get(name, 0)
                       + spatial_counts.get(name, 0)
-                      + quantize_counts.get(name, 0)),
+                      + quantize_counts.get(name, 0)
+                      + moe_counts.get(name, 0)),
             max_abs_err=max(c["max_abs_err"] for c in bf16),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],

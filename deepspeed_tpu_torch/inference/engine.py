@@ -17,8 +17,11 @@ waits on the card inside the loop.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"`` (as the
 tests do); asking for CUDA where there is none raises — there is no silent
-CPU fallback. Left out of this port (JAX has them): tensor / expert
-parallel meshes, observability spans and the tpuaudit program registration.
+CPU fallback. MoE models generate with exact routing (no capacity drops:
+``transformer._moe_ffn``); their expert banks stay dense under weight-only
+quantization, as in JAX. Left out of this port (JAX has them): tensor /
+expert parallel meshes (``expert_parallel`` above 1 raises), observability
+spans and the tpuaudit program registration.
 
 Quantized inference (JAX's ``dtype="int8" | "int4" | "w8a8" | "w4a8"``, or
 ``quantize_bits`` with a float dtype): the weights are cast to the compute
@@ -84,6 +87,7 @@ class InferenceConfig:
     #   one group per output channel)
     quantize_activations: bool = False     # W8A8 / W4A8: decode-shaped
     #   sites quantize their activation rows too. dtype='w8a8'/'w4a8' sets it
+    expert_parallel: int = 1   # JAX's expert-parallel degree; above 1 raises
 
     def __post_init__(self):
         # a quantized mode is storage, not a compute dtype: it computes in
@@ -165,6 +169,7 @@ class InferenceEngine:
         if model.config is None:
             raise ValueError("model.config is required for inference (the "
                              "KV-cache arena is sized from it)")
+        check_expert_parallel(config, model.config)
         check_quantized_compute(config, self.device)
         if config.quantize_activations:
             _a8_gate_preview(config, model.config)
@@ -321,6 +326,24 @@ class InferenceEngine:
         return (tokens, ttft) if return_ttft else tokens
 
 
+def check_expert_parallel(config: InferenceConfig, cfg) -> None:
+    """JAX's ``ValueError`` gates of ``expert_parallel`` (JAX
+    ``inference/engine.py:182-189``), then the port's refusal: it serves
+    every expert on one device."""
+    ep = int(config.expert_parallel)
+    if ep <= 1:
+        return
+    if cfg.moe_num_experts <= 0:
+        raise ValueError(f"expert_parallel={ep} requires an MoE model "
+                         "(moe_num_experts > 0)")
+    if cfg.moe_num_experts % ep != 0:
+        raise ValueError(f"expert_parallel={ep} must divide "
+                         f"moe_num_experts={cfg.moe_num_experts}")
+    raise NotImplementedError(
+        f"expert_parallel={ep} is not ported to deepspeed_tpu_torch yet: "
+        "the port keeps every expert on one device")
+
+
 def check_quantized_compute(config: InferenceConfig,
                             device: torch.device) -> None:
     """Refuse what the quantized decode kernels do not take, before any
@@ -390,13 +413,16 @@ def init_inference(model=None, config: Optional[InferenceConfig] = None,
                    params: Optional[Dict[str, Any]] = None,
                    device: Union[None, str, torch.device] = None,
                    seed: Optional[int] = None,
+                   expert_parallel: Optional[int] = None,
                    **model_overrides) -> InferenceEngine:
     """Counterpart of ``deepspeed_tpu.init_inference``. ``model``: a
     ``Model`` bundle or a preset name (e.g. "llama-7b"). ``dtype``: bf16 /
     fp16 / fp32 or a quantized mode, "int8", "int4", "w8a8", "w4a8".
     Weights: ``params`` (the port's tree, dense or already quantized at the
     config's bits, e.g. from ``models.convert.params_from_jax``), else
-    random from ``seed``. Runs on CUDA unless ``device="cpu"``."""
+    random from ``seed``. ``model_overrides`` go to the preset's config
+    (e.g. ``moe_capacity_factor``). ``expert_parallel`` above 1 raises.
+    Runs on CUDA unless ``device="cpu"``."""
     if isinstance(config, dict):
         config = InferenceConfig(**config)
     cfg = config or InferenceConfig()
@@ -407,6 +433,8 @@ def init_inference(model=None, config: Optional[InferenceConfig] = None,
         cfg.max_out_tokens = int(max_out_tokens)
     if seed is not None:
         cfg.seed = int(seed)
+    if expert_parallel is not None:
+        cfg.expert_parallel = int(expert_parallel)
     if isinstance(model, str):
         if model not in _SIZES:
             raise ValueError(f"unknown preset '{model}'")

@@ -51,11 +51,19 @@ the dense ``arena[block_table]`` view as the A/B baseline on both devices.
 
 Training: the cache-less forward runs under autograd (the flash and norm
 wrappers carry their backward), and ``build_model`` bundles the JAX
-``loss_fn`` (``cross_entropy_loss`` over next-token labels). The layer
-views of the stacked leaves are taken with one ``unbind`` per leaf, whose
-backward is one ``stack``.
+``loss_fn`` (``cross_entropy_loss`` over next-token labels, plus MoE's aux
+term). The layer views of the stacked leaves are taken with one ``unbind``
+per leaf, whose backward is one ``stack``.
 
-Out of scope here (they raise): MoE, sliding windows and
+MoE (``moe_num_experts > 0``, JAX :1054-1086): each layer's FFN is
+``parallel.moe.moe_mlp`` over the layer's ``router`` and expert banks, with
+PR-MoE's dense residual MLP mixed in when ``moe_use_residual``. Routing is
+exact when a cache is given (dense arena or paged: C = T, no drops, no
+RTS), capacity-limited otherwise (training and the eval loss).
+``forward(..., with_aux=True)`` also returns the sum of the layers' aux
+losses, which the loss adds as ``moe_aux_loss_coef * aux / num_layers``.
+
+Out of scope here (they raise): sliding windows and
 custom attention scales, post-LN / bidirectional encoders, token types, and
 the training features dropout, rematerialisation, progressive layer drop,
 random-LTD and activation quantization (``TransformerConfig`` carries their
@@ -85,6 +93,7 @@ from ..ops.quant_matmul import (int4_a8_matmul, int4_matmul, int8_a8_matmul,
                                 reference_int4_matmul,
                                 reference_int8_a8_matmul,
                                 reference_int8_matmul, unpack_int4)
+from ..parallel.moe import moe_mlp
 from .core import Model, is_quantized, tree_map
 
 
@@ -114,7 +123,18 @@ class TransformerConfig:
     lm_head_bias: bool = False
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # MoE (JAX :95-107): > 0 experts turns every layer's FFN into a gated
+    # expert bank with top-k routing and a load-balancing aux loss
     moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_min_capacity: int = 4
+    moe_aux_loss_coef: float = 0.01
+    moe_drop_tokens: bool = True      # False => infinite capacity (C = T)
+    moe_use_rts: bool = False         # random token selection (top-1 only)
+    moe_dispatch: str = "sparse"      # 'sparse' gathers or 'einsum'
+    moe_use_residual: bool = False    # PR-MoE: dense residual MLP mixed by
+    #   a learned 2-way softmax coefficient
     dtype: torch.dtype = torch.float32
     # JAX training features, default off; any of them on raises
     # (check_servable) until the port has them
@@ -154,8 +174,6 @@ class TransformerConfig:
 
 def check_servable(cfg: TransformerConfig) -> None:
     """Raise for the configurations this slice of the port does not run."""
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError("MoE models are not ported yet")
     if cfg.norm_position != "pre" or not cfg.causal:
         raise NotImplementedError(
             "post-LN / bidirectional encoders are not served by the port")
@@ -298,7 +316,27 @@ def init_layer_params(generator: torch.Generator, cfg: TransformerConfig,
                  "wv": stacked(("attn", "wv"), (H, K * D)),
                  "wo": stacked(("attn", "wo"), (N * D, H), resid_std)},
     }
-    if cfg.activation == "swiglu":
+    E = cfg.moe_num_experts
+    if E > 0:
+        # JAX's key order: router, PR-MoE's residual MLP and coefficient,
+        # then the expert banks (no biases)
+        layer["router"] = stacked(("router",), (H, E))
+        if cfg.moe_use_residual:
+            layer["res_mlp"] = {
+                "w_up": stacked(("res_mlp", "w_up"), (H, F_)),
+                "b_up": const(("res_mlp", "b_up"), (F_,), 0.0),
+                "w_down": stacked(("res_mlp", "w_down"), (F_, H),
+                                  resid_std),
+                "b_down": const(("res_mlp", "b_down"), (H,), 0.0)}
+            layer["res_coef"] = {"w": stacked(("res_coef", "w"), (H, 2)),
+                                 "b": const(("res_coef", "b"), (2,), 0.0)}
+        layer["mlp"] = {}
+        if cfg.activation == "swiglu":
+            layer["mlp"]["w_gate"] = stacked(("mlp", "w_gate"), (E, H, F_))
+        layer["mlp"]["w_up"] = stacked(("mlp", "w_up"), (E, H, F_))
+        layer["mlp"]["w_down"] = stacked(("mlp", "w_down"), (E, F_, H),
+                                         resid_std)
+    elif cfg.activation == "swiglu":
         layer["mlp"] = {"w_gate": stacked(("mlp", "w_gate"), (H, F_)),
                         "w_up": stacked(("mlp", "w_up"), (H, F_)),
                         "w_down": stacked(("mlp", "w_down"), (F_, H),
@@ -723,14 +761,45 @@ def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  key_positions=step.key_positions)
 
 
+def _moe_ffn(cfg: TransformerConfig, h: torch.Tensor, layer: Dict[str, Any],
+             infer: bool, rng: Optional[torch.Generator]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN of one layer and its aux loss (JAX :1054-1086). With a
+    cache (``infer``) routing is exact: no capacity drops and no RTS, so a
+    decode token is never dropped and chunk-padding queries steal no
+    capacity."""
+    out, aux = moe_mlp(h, layer["router"], layer["mlp"], cfg.activation,
+                       top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       min_capacity=cfg.moe_min_capacity,
+                       drop_tokens=cfg.moe_drop_tokens and not infer,
+                       use_rts=cfg.moe_use_rts and not infer, rng=rng,
+                       dispatch_impl=cfg.moe_dispatch)
+    if cfg.moe_use_residual:
+        # PR-MoE: a dense MLP beside the experts, mixed by a learned softmax
+        # coefficient over (moe, dense)
+        res = layer["res_mlp"]
+        inner = F.gelu(h @ res["w_up"] + res["b_up"], approximate="tanh")
+        res_out = inner @ res["w_down"] + res["b_down"]
+        coef = torch.softmax((h @ layer["res_coef"]["w"]
+                              + layer["res_coef"]["b"]).float(),
+                             dim=-1).to(h.dtype)
+        out = out * coef[..., 0:1] + res_out * coef[..., 1:2]
+    return out, aux
+
+
 def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
                    layer: Dict[str, Any],
                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
                    attend: Callable[..., torch.Tensor],
-                   plain: bool) -> torch.Tensor:
-    """One pre-LN decoder block. ``rope``: the (cos, sin) tables of this
-    step's positions, shared by every layer; ``attend(q, k, v)``: the
-    layer's attention in the forward's cache mode."""
+                   plain: bool, infer: bool = False,
+                   rng: Optional[torch.Generator] = None
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One pre-LN decoder block -> (x, the MoE aux loss or None). ``rope``:
+    the (cos, sin) tables of this step's positions, shared by every layer;
+    ``attend(q, k, v)``: the layer's attention in the forward's cache mode;
+    ``infer``: a cache is given (MoE routes exactly); ``rng``: RTS's
+    draws."""
     B, S, H = x.shape
     N, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn_p = layer["attn"]
@@ -772,7 +841,10 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
         h = _norm(x, layer["ln2"]["scale"], layer["ln2"].get("bias"),
                   cfg.norm, cfg.norm_eps, plain)
     mlp = layer["mlp"]
-    if cfg.activation == "swiglu":
+    aux = None
+    if cfg.moe_num_experts > 0:
+        mlp_out, aux = _moe_ffn(cfg, h, layer, infer, rng)
+    elif cfg.activation == "swiglu":
         inner = F.silu(qe(h, mlp["w_gate"])) * qe(h, mlp["w_up"])
         mlp_out = qe(inner, mlp["w_down"])
     else:
@@ -789,8 +861,8 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
             raise NotImplementedError(f"activation '{cfg.activation}'")
         mlp_out = qe(inner, mlp["w_down"]) + mlp["b_down"]
     if cfg.parallel_residual:
-        return x + attn_out + mlp_out
-    return x + mlp_out
+        return x + attn_out + mlp_out, aux
+    return x + mlp_out, aux
 
 
 def _layer_views(layers: Dict[str, Any], num_layers: int
@@ -813,11 +885,15 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
             plain: bool = False,
             attention_mask: Optional[torch.Tensor] = None,
             start_pos: int = 0,
-            key_positions: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+            key_positions: Optional[torch.Tensor] = None,
+            with_aux: bool = False,
+            rng: Optional[torch.Generator] = None) -> Tuple[Any, ...]:
     """Token ids (B, S) -> (logits (B, S, V), cache); the cache, if any, is
     written in place. ``plain`` runs the plain versions of the norm and
-    attention kernels on any device.
+    attention kernels on any device. ``with_aux``: return (logits, cache,
+    aux) as JAX does, aux the sum over the layers of the MoE load-balancing
+    loss (an fp32 zero for a dense model); ``rng``: the generator of MoE's
+    Random Token Selection (the device's default one when None).
 
     PAGED (``block_table`` (B, MAX_BLOCKS) int32 given): ``cache = {"k","v":
     (L, NUM_BLOCKS, BLOCK, K, D)}``; ``positions`` (B, S) per-row absolute
@@ -863,15 +939,36 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
         attention = partial(_dense_attention, step=step, alibi=alibi,
                             plain=plain, impl=impl, causal=cfg.causal)
     rope = _rope(cfg, positions)
+    auxes: List[torch.Tensor] = []
 
     def step(li: int, layer: Dict[str, Any], x: torch.Tensor):
+        # the aux loss rides beside x: its backward reaches the layer's
+        # params only through the router's product, which also waits for
+        # the layer output's gradient, so stage 3's re-gather hook on that
+        # output has run by then
         lc = (None if cache is None
               else {"k": cache["k"][li], "v": cache["v"][li]})
-        return _layer_forward(cfg, x, layer, rope,
-                              partial(attention, layer_cache=lc), plain)
+        x, aux = _layer_forward(cfg, x, layer, rope,
+                                partial(attention, layer_cache=lc), plain,
+                                infer=cache is not None, rng=rng)
+        if aux is not None:
+            auxes.append(aux)
+        return x
 
     x = _run_layers(params["layers"], cfg.num_layers, x, step)
-    return head_logits(params, x, cfg, plain), cache
+    logits = head_logits(params, x, cfg, plain)
+    if with_aux:
+        return logits, cache, _sum_aux(auxes, x.device)
+    return logits, cache
+
+
+def _sum_aux(auxes: List[torch.Tensor], device) -> torch.Tensor:
+    """The layers' aux losses summed in layer order from an fp32 zero, as
+    JAX's scan carries them."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for aux in auxes:
+        total = total + aux
+    return total
 
 
 def embed(params: Dict[str, Any], input_ids: torch.Tensor,
@@ -914,21 +1011,25 @@ def _rope(cfg: TransformerConfig, positions: torch.Tensor
 def layers_forward(layers: List[Dict[str, Any]], x: torch.Tensor,
                    cfg: TransformerConfig,
                    attention_mask: Optional[torch.Tensor] = None,
-                   plain: bool = False) -> torch.Tensor:
+                   plain: bool = False, with_aux: bool = False) -> Any:
     """``x`` through ``layers`` (per-layer param dicts, in order) as the
     cache-less ``forward`` runs its layers: positions ``arange(S)``, the
     same rope table, attention (flash, or the config's impl) and causal
     mask. A block of parameter offload runs its layers through it (JAX
-    ``block_fwd``), so a block launches the train path's kernels."""
+    ``block_fwd``), so a block launches the train path's kernels.
+    ``with_aux``: return (x, the sum of the layers' MoE aux losses)."""
     B, S = x.shape[:2]
     alibi, impl = _alibi_and_impl(cfg, x.device)
     step = _dense_step(S, B, None, attention_mask, 0, None, x.device)
     attend = partial(_dense_attention, layer_cache=None, step=step,
                      alibi=alibi, plain=plain, impl=impl, causal=cfg.causal)
     rope = _rope(cfg, torch.arange(S, device=x.device))
+    auxes = []
     for layer in layers:
-        x = _layer_forward(cfg, x, layer, rope, attend, plain)
-    return x
+        x, aux = _layer_forward(cfg, x, layer, rope, attend, plain)
+        if aux is not None:
+            auxes.append(aux)
+    return (x, _sum_aux(auxes, x.device)) if with_aux else x
 
 
 def _run_layers(layers: Any, num_layers: int, x: torch.Tensor,
@@ -979,27 +1080,35 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def build_model(cfg: TransformerConfig, name: str = "transformer") -> Model:
     """Bundle init, the training loss (JAX ``build_model``: labels default
-    to ``input_ids`` shifted left, the last position ignored) and its eval
-    variant. ``loss_fn(params, batch, plain=False)``; ``plain`` runs the
-    kernels' plain versions on any device."""
+    to ``input_ids`` shifted left, the last position ignored; an MoE model
+    adds ``moe_aux_loss_coef * aux / num_layers``) and its eval variant.
+    ``loss_fn(params, batch, plain=False, rng=None)``; ``plain`` runs the
+    kernels' plain versions on any device, ``rng`` draws MoE's RTS."""
 
     def make_loss(c: TransformerConfig):
-        def loss_fn(params, batch, plain: bool = False):
+        def loss_fn(params, batch, plain: bool = False,
+                    rng: Optional[torch.Generator] = None):
             ids = batch["input_ids"]
             mask = batch.get("attention_mask")
-            logits, _ = forward(params, ids, c, attention_mask=mask,
-                                plain=plain)
+            moe = c.moe_num_experts > 0
+            out = forward(params, ids, c, attention_mask=mask, plain=plain,
+                          with_aux=moe, rng=rng)
             labels = batch.get("labels")
             if labels is None:
                 labels = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1],
                                                                 -100)], 1)
-            return cross_entropy_loss(logits, labels, mask)
+            loss = cross_entropy_loss(out[0], labels, mask)
+            if moe:
+                loss = loss + c.moe_aux_loss_coef * out[2] / max(
+                    c.num_layers, 1)
+            return loss
 
         return loss_fn
 
-    def eval_loss_fn(params, batch, plain: bool = False):
+    def eval_loss_fn(params, batch, plain: bool = False,
+                     rng: Optional[torch.Generator] = None):
         with torch.no_grad():
-            return make_loss(eval_config(cfg))(params, batch, plain)
+            return make_loss(eval_config(cfg))(params, batch, plain, rng)
 
     return Model(init=lambda generator, **kw: init_params(generator, cfg,
                                                           **kw),

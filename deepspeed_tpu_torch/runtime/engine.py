@@ -60,8 +60,11 @@ the collectives itself (``comm``, NCCL on the card, gloo on the CPU):
 
 ``train_batch`` returns the mean of the micro losses as a device tensor and
 reads nothing back from the device except at ``steps_per_print`` (and,
-under offload, the one scalar sync of the host update). Not ported yet
-(they raise): parameter offload at world > 1, optimizer offload beside LAMB
+under offload, the one scalar sync of the host update). MoE models
+(``moe_num_experts > 0``) train at world 1, ZeRO stages 0-3, with the Adam
+family (``check_moe``). Not ported yet (they raise): MoE at world > 1, with
+parameter or optimizer offload, LAMB or the 1-bit optimizers; parameter
+offload at world > 1, optimizer offload beside LAMB
 or the 1-bit optimizers, the NVMe tier in fp16, tensor / pipeline /
 sequence / expert parallelism, activation checkpointing, dropout /
 progressive layer drop / random-LTD, compression, curriculum,
@@ -99,6 +102,40 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
 
 
+def check_moe(model_cfg: Any, config: Config, world: int) -> None:
+    """MoE trains at world 1 with the Adam family, at ZeRO stages 0-3.
+    JAX's ``ValueError`` for experts that an expert-parallel degree does not
+    divide comes first (JAX ``engine.py:263-272``); the rest raise
+    ``NotImplementedError`` naming themselves."""
+    experts = getattr(model_cfg, "moe_num_experts", 0) or 0
+    ep = config.parallel.expert_parallel_size
+    if ep > 1 and experts and experts % ep != 0:
+        raise ValueError(f"moe_num_experts={experts} must be divisible by "
+                         f"expert_parallel_size={ep}")
+    if not experts:
+        return
+    missing = []
+    if world > 1:
+        missing.append(
+            f"MoE at world {world}: JAX gates over the global batch (the "
+            "capacity, the queue positions and the aux loss's means span "
+            "every rank's tokens), which needs the router logits gathered "
+            "across ranks")
+    zero = config.zero_optimization
+    if zero.offload_param.device != "none":
+        missing.append("MoE with zero_optimization.offload_param (the aux "
+                       "loss through the streamed executor)")
+    if zero.offload_optimizer.device != "none":
+        missing.append("MoE with zero_optimization.offload_optimizer")
+    opt = config.optimizer.type.lower()
+    if opt == "lamb" or opt in ONEBIT_OPTIMIZERS:
+        missing.append(f"MoE with optimizer '{opt}' (MoE trains with the "
+                       "Adam family)")
+    if missing:
+        raise NotImplementedError(
+            "not ported to deepspeed_tpu_torch yet: " + "; ".join(missing))
+
+
 class TrainEngine:
     """Owns the rank's params and optimizer shard (``zero``, ``opt_state``),
     the loss-scale state, and the step."""
@@ -107,6 +144,7 @@ class TrainEngine:
                  optimizer: Optional[MixedPrecisionOptimizer] = None,
                  lr_scheduler=None, training_data=None, collate_fn=None,
                  device: Union[None, str, torch.device] = None):
+        check_moe(model.config, config, comm.get_world_size())
         check_param_offload(config, comm.get_world_size())
         config.check_ported()
         if model.loss_fn is None:

@@ -13,8 +13,15 @@ phase (bf16, micro batch 4 x 1024 tokens, AdamW) after one warm-up step, or
 ``sparse_train``: the same for its sparse_train phase (the Fixed sparse
 layout, LAMB, micro batch 2 x 2048 tokens); ``spatial``: the SD v1.5 VAE
 decoder's mid block of ``chip_smoke``'s spatial phase (bf16, a 64 x 64
-latent of 512 channels, B 4), 5 calls after one warm-up call. Prints one
-JSON line per scenario:
+latent of 512 channels, B 4), 5 calls after one warm-up call;
+``moe_train``: ``chip_smoke``'s moe_train phase (moe-gpt-350m-8e, bf16, B 4
+x 1024 tokens, AdamW, ZeRO 0), 3 steps after one warm-up step, with the
+device time also split by what launched it (``moe_split_ms``): gating +
+dispatch + combine (kernels launched inside ``moe_mlp`` outside the
+expert FFN, and by the backward nodes those ops made), the expert GEMMs
+(inside ``parallel.moe._expert_ffn`` and their backward nodes), the
+attention kernels, Adam, the norm, and the rest. Prints one JSON line per
+scenario:
 
 * ``wall_ms`` — host wall time of the profiled scenario (ends in a sync;
   the profiler's own host-side cost is inside it);
@@ -30,7 +37,7 @@ JSON line per scenario:
   for ``train``, per call for ``spatial``.
 
     python3 scripts/profile_torch_serving.py
-        [--scenario serve|generate|both|train|sparse_train|spatial]
+        [--scenario serve|generate|both|train|sparse_train|spatial|moe_train]
         [--dtype bf16|int8|int4|w8a8|w4a8] [--trace PATH]
 
 ``--trace`` also writes the Chrome trace (of the last scenario). Needs one
@@ -91,10 +98,17 @@ def union_ms(intervals) -> float:
     return total / 1e3
 
 
+def device_events(prof):
+    """The device's kernels and copies (not the spans of profiler ranges,
+    which cover the gaps between them)."""
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def breakdown(prof, wall_s: float, steps: int) -> dict:
     """Device time by group and by kernel, busy / idle share of the
     window; None when the profiler saw no device activity."""
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = device_events(prof)
     if not dev:
         return None
     by_group = defaultdict(float)
@@ -132,7 +146,7 @@ def main(argv) -> int:
                 else "serve")
     dtype = argv[argv.index("--dtype") + 1] if "--dtype" in argv else "bf16"
     if scenario not in ("serve", "generate", "both", "train",
-                        "sparse_train", "spatial"):
+                        "sparse_train", "spatial", "moe_train"):
         print(f"profile_torch_serving: unknown scenario {scenario}",
               file=sys.stderr)
         return 1
@@ -146,6 +160,8 @@ def main(argv) -> int:
         return profile_train(smi, trace, scenario == "sparse_train")
     if scenario == "spatial":
         return profile_spatial(smi, trace)
+    if scenario == "moe_train":
+        return profile_moe_train(smi, trace)
     srv, _ = chip_smoke.make_server(
         torch.bfloat16 if dtype == "bf16" else dtype)
     if scenario in ("serve", "both"):
@@ -216,6 +232,130 @@ def profile_train(smi: str, trace, sparse: bool) -> int:
         card=smi, scenario=f"chip_smoke {what}",
         steps=TRAIN_STEPS, losses=[float(x) for x in losses],
         step_ms=wall * 1e3 / TRAIN_STEPS, **out)), flush=True)
+    return 0
+
+
+MOE_ROUTING, MOE_EXPERTS = "moe_mlp", "moe_expert_ffn"
+BACKWARD = "autograd::engine::evaluate_function: "
+
+
+def moe_split(prof, steps: int) -> dict:
+    """Device ms a step by what launched each kernel. The port's kernels by
+    name (attention: the flash kernels; Adam; the norm). The rest through
+    the op that launched it: inside the profiler range MOE_EXPERTS
+    (``parallel.moe._expert_ffn``) the expert GEMMs, else inside
+    MOE_ROUTING (``moe_mlp``) gating + dispatch + combine; in the backward,
+    by the forward op whose autograd node ran (the evaluate_function event
+    carries that op's sequence number). ``unlinked``: kernels no op is
+    linked to."""
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+
+    def chain(e):
+        names = []
+        while e is not None:
+            names.append(e.name)
+            e = e.cpu_parent
+        return names
+
+    def tag_of(names):
+        if MOE_EXPERTS in names:
+            return "expert_gemms"
+        if MOE_ROUTING in names:
+            return "gating_dispatch_combine"
+        return None
+
+    # forward ops (none under a backward node): a sequence number's tag is
+    # the range of any op that carries it
+    by_seq = {}
+    for e in cpu:
+        names = chain(e)
+        if e.sequence_nr < 0 or any(n.startswith(BACKWARD) for n in names):
+            continue
+        tag = tag_of(names)
+        if tag == "expert_gemms" or by_seq.get(e.sequence_nr) is None:
+            by_seq[e.sequence_nr] = tag
+
+    def port_group(name):
+        if "flash_" in name:
+            return "attention"
+        if "adam_kernel" in name:
+            return "adam"
+        if "ln_rows_kernel" in name or "ln_scalar_kernel" in name:
+            return "norm"
+        return None
+
+    split = defaultdict(float)
+    total = 0.0
+    for e in device_events(prof):
+        dur = (e.time_range.end - e.time_range.start) / 1e3
+        total += dur
+        group_ = port_group(e.name)
+        if group_:
+            split[group_] += dur
+    for e in cpu:
+        kernels = [k for k in e.kernels if port_group(k.name) is None]
+        if not kernels:
+            continue
+        names = chain(e)
+        back = next((n for n in names if n.startswith(BACKWARD)), None)
+        if back is not None:
+            node = e
+            while not node.name.startswith(BACKWARD):
+                node = node.cpu_parent
+            tag = by_seq.get(node.sequence_nr)
+        else:
+            tag = tag_of(names)
+        for k in kernels:
+            split[tag or "other"] += k.duration / 1e3
+    split["unlinked"] = total - sum(split.values())
+    return {k: v / steps for k, v in split.items()}
+
+
+def profile_moe_train(smi: str, trace) -> int:
+    import chip_smoke
+    from torch.profiler import record_function
+
+    from deepspeed_tpu_torch.models import transformer
+    from deepspeed_tpu_torch.parallel import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine, batch, _ = chip_smoke.make_moe_trainer(torch.device("cuda"), 0)
+    engine.train_batch(batch=batch)                   # warm-up
+    torch.cuda.synchronize()
+    saved = transformer.moe_mlp, moe._expert_ffn
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    transformer.moe_mlp = ranged(MOE_ROUTING, saved[0])
+    moe._expert_ffn = ranged(MOE_EXPERTS, saved[1])
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            losses = [engine.train_batch(batch=batch)
+                      for _ in range(TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        transformer.moe_mlp, moe._expert_ffn = saved
+    out = breakdown(prof, wall, TRAIN_STEPS)
+    if out is None:
+        print("profile_torch_serving: the profiler recorded no device "
+              "activity (device time not measured)", file=sys.stderr)
+        return 1
+    if trace:
+        prof.export_chrome_trace(trace)
+    print(json.dumps(dict(
+        card=smi, scenario=f"chip_smoke moe_train: {chip_smoke.MOE_PRESET} "
+        f"bf16, micro batch {chip_smoke.MOE_B} x {chip_smoke.MOE_S} tokens, "
+        "AdamW, ZeRO 0", steps=TRAIN_STEPS,
+        losses=[float(x) for x in losses], step_ms=wall * 1e3 / TRAIN_STEPS,
+        moe_split_ms=moe_split(prof, TRAIN_STEPS), **out)), flush=True)
     return 0
 
 

@@ -147,7 +147,7 @@ def t(a, device, dtype=None):
     (1, 4096, True, False), (4096, 4096, True, False),
     (4096, 2048, False, True), (8, 8192, False, True),
     (300, 8192, True, False), (1, 768, False, True),
-    (513, 768, False, False)])
+    (513, 768, False, False), (4096, 1024, False, True)])
 @pytest.mark.parametrize("dtype,atol", LOW + [(torch.float16, 4e-3)])
 def test_layer_norm_matches_plain(dev, rows, H, rms, use_bias, dtype, atol):
     rng = np.random.default_rng(rows * H)
@@ -738,13 +738,14 @@ def dense_kv(B, T, K, D, mask, seed):
 # CUDA-core fallback (D 48), ragged edges (S, T not multiples of 64), GQA,
 # an odd count of work tiles at D 64 (the persistent route's last pair holds
 # one); then the static prefill of llama-7b's generate (S 512 over a
-# 1024-column arena) and OPT-1.3B's training shape (S = T 1024, 32 heads of
-# 64)
+# 1024-column arena), OPT-1.3B's training shape (S = T 1024, 32 heads of
+# 64) and moe-gpt-350m-8e's (16 heads of 64)
 FLASH_SHAPES = [(2, 16, 16, 4, 4, 32), (2, 12, 40, 4, 2, 32),
                 (2, 37, 37, 8, 2, 64), (1, 70, 130, 8, 2, 128),
                 (2, 65, 65, 4, 1, 16), (2, 20, 33, 4, 2, 48),
                 (1, 70, 70, 3, 1, 64),
-                (8, 512, 1024, 32, 32, 128), (4, 1024, 1024, 32, 32, 64)]
+                (8, 512, 1024, 32, 32, 128), (4, 1024, 1024, 32, 32, 64),
+                (4, 1024, 1024, 16, 16, 64)]
 
 
 @pytest.mark.parametrize("B,S,T,N,K,D,causal,use_alibi,dtype,atol", attn_params(
@@ -1107,7 +1108,7 @@ def test_decode_dense_repeatable(dev, B, T, N, K, D, dtype):
 BWD_SHAPES = [(2, 16, 16, 4, 4, 32), (2, 37, 37, 8, 2, 64),
               (1, 70, 130, 8, 2, 128), (2, 65, 65, 4, 1, 16),
               (2, 20, 33, 4, 2, 48), (2, 100, 100, 8, 8, 64),
-              (4, 1024, 1024, 32, 32, 64)]
+              (4, 1024, 1024, 32, 32, 64), (4, 1024, 1024, 16, 16, 64)]
 # twice the relative rounding error of one round-to-nearest in the type
 # (2^-9 bf16, 2^-12 fp16); fp32 rounds nothing
 BWD_ROUND = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11,
@@ -2349,3 +2350,89 @@ def test_param_offload_trains_on_the_card(dev):
         "stage": 3}), device=dev)[0]
     first = float(res.train_batch(batch={"input_ids": ids}))
     assert abs(first - losses[0]) <= 1e-5 * abs(first)
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("top_k,impl", [(1, "sparse"), (2, "sparse"),
+                                        (2, "einsum")])
+def test_moe_mlp_on_the_card_reads_nothing_back(dev, top_k, impl):
+    """``moe_mlp`` forward and backward on CUDA tensors with the CUDA sync
+    debug mode set to error: no host read (no ``.item()``, ``nonzero`` or
+    boolean-mask indexing), so a decode loop that routes never waits; the
+    values and gradients equal the CPU's within fp32 tolerance."""
+    from deepspeed_tpu_torch.parallel import moe
+
+    rng = np.random.default_rng(top_k)
+    E, H, Fd = 8, 64, 128
+    host = [rng.normal(size=(2, 96, H)), 0.5 * rng.normal(size=(H, E)),
+            0.1 * rng.normal(size=(E, H, Fd)),
+            0.1 * rng.normal(size=(E, Fd, H))]
+    results = []
+    for device in (dev, torch.device("cpu")):
+        x, router, w_up, w_down = (t(a, device, torch.float32).requires_grad_()
+                                   for a in host)
+        torch.cuda.set_sync_debug_mode("error" if device.type == "cuda"
+                                       else "default")
+        try:
+            out, aux = moe.moe_mlp(x, router, {"w_up": w_up, "w_down": w_down},
+                                   "gelu", top_k=top_k, capacity_factor=1.0,
+                                   dispatch_impl=impl)
+            (out.square().sum() + aux).backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        results.append([a.detach().cpu() for a in
+                        (out, x.grad, router.grad, w_up.grad, w_down.grad)])
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_moe_trains_generates_and_serves_on_the_card(dev):
+    """``moe-tiny`` in bf16 on the card: two training steps launch the
+    train path's kernels exactly (flash forward and backward a layer, two
+    norms a layer and the final one, one Adam launch a step); ``generate``
+    launches the flash, decode and norm kernels; serving launches the paged
+    kernels; every token is in the vocabulary."""
+    from deepspeed_tpu_torch import initialize, init_inference
+    from deepspeed_tpu_torch.models import create_model
+    from deepspeed_tpu_torch.serving import ServingConfig, ServingEngine
+
+    model = create_model("moe-tiny", dtype=torch.bfloat16, max_seq_len=64)
+    eng = initialize(model=model, config={
+        "train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True},
+        "steps_per_print": 1000,
+        "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}},
+        device=dev)[0]
+    ids = torch.randint(0, 250, (1, 2, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    before = launch_counts()
+    losses = [float(eng.train_batch(batch={"input_ids": ids}))
+              for _ in range(2)]
+    after = launch_counts()
+    L = model.config.num_layers
+    want = {"flash_attention": L, "flash_attention_bwd": L,
+            "fused_layer_norm": 2 * L + 1, "fused_adam": 1}
+    assert {k: after[k] - before[k] for k in want} == {
+        k: 2 * v for k, v in want.items()}
+    assert all(np.isfinite(losses))
+    inf = init_inference("moe-tiny", dtype=torch.bfloat16, device=dev)
+    before = launch_counts()
+    out = inf.generate(torch.randint(0, 250, (3, 20)), max_new_tokens=5)
+    after = launch_counts()
+    for name in ("flash_attention", "decode_attention", "fused_layer_norm"):
+        assert after[name] > before[name], name
+    assert out.shape == (3, 5) and int(out.max()) < 256
+    srv = ServingEngine(inf, ServingConfig(block_size=8, num_blocks=24,
+                                           max_seqs=4, max_model_len=64,
+                                           prefill_chunk=16))
+    before = launch_counts()
+    hs = [srv.submit(np.arange(n) % 250, max_new_tokens=4)
+          for n in (5, 23, 40)]
+    srv.run()
+    after = launch_counts()
+    for name in ("paged_decode_attention", "paged_prefill_attention"):
+        assert after[name] > before[name], name
+    assert all(len(h.tokens) == 4 and max(h.tokens) < 256 for h in hs)

@@ -317,7 +317,8 @@ class TestPortRules:
 
     def test_out_of_scope_raises(self):
         with pytest.raises(NotImplementedError):
-            init_inference("moe-tiny", dtype=torch.float32, device="cpu")
+            init_inference("moe-tiny", dtype=torch.float32, device="cpu",
+                           expert_parallel=2)
         with pytest.raises(NotImplementedError):
             init_inference("tiny-bert", dtype=torch.float32, device="cpu")
         # quantized inference is in scope: the mode computes in bf16
