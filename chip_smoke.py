@@ -188,7 +188,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    moe-gpt-350m-8e at full width (H 1024, 24 layers, 16 heads of 64, 8
    experts of FFN 4096, top-2, vocab 50257, tied; 1.76 B parameters, 0.56 B
    active a token; seeded random bf16 weights) with the train
-   configuration, B 4 x S 1024: a warm-up step (its routing recorded through
+   configuration, B 4 x S 1024, through the engine's MoE process groups
+   (global gating and the expert-parallel code at world 1, ep 1; two ranks
+   on the one card are not run: NCCL refuses them, as
+   ``scripts/nccl_shared_card_probe.py`` shows): a warm-up step (its routing
+   recorded through
    ``parallel.moe.PLAN_LOG``: capacity, the share of assignments dropped,
    the least and most tokens an expert kept, the aux loss), 3 timed steps
    with exact launches (MOE_TRAIN_KERNELS) and falling losses, then a
@@ -4185,6 +4189,10 @@ def moe_train_phase(dev, bound):
     Returns (the timed steps' counts, the phase's JSON)."""
     engine, batch, init_s = make_moe_trainer(dev, 0)
     cfg = engine.model.config
+    groups = engine.moe_groups
+    if groups is None or (groups.world, groups.ep) != (1, 1):
+        raise AssertionError(f"moe_train: the engine's MoE groups are "
+                             f"{groups}, not world 1 at ep 1")
     moe.PLAN_LOG = []
     t0 = time.perf_counter()
     try:
@@ -4242,6 +4250,7 @@ def moe_train_phase(dev, bound):
     return counts, dict(
         phase="moe_train", model=MOE_PRESET, dtype="bfloat16",
         config=MOE_CONFIG, batch=[MOE_B, S], params=n_params,
+        moe_groups=dict(world=groups.world, ep=groups.ep),
         active_params=active, init_s=init_s, warmup_s=warm_s,
         steps=MOE_STEPS, losses=losses, step_ms=step_s * 1e3,
         tokens_per_s=tokens / step_s, mfu_active=flops / step_s / BF16_FLOPS,

@@ -147,6 +147,16 @@ def barrier(group=None) -> None:
         dist.barrier(group)
 
 
+def new_group(ranks) -> Any:
+    """A process group of ``ranks`` (global ranks, in the order that sets
+    each member's group rank) for the collectives' ``group=``. A
+    collective: every rank of the world calls it for every group, in the
+    same order, members or not. Without a process group: None."""
+    if not is_initialized():
+        return None
+    return dist.new_group(ranks=sorted(ranks))
+
+
 # ---------------------------------------------------------------------------
 # timed_op wrapper (reference comm.py:104-144)
 # ---------------------------------------------------------------------------
@@ -171,13 +181,16 @@ def timed_op(fn: Callable) -> Callable:
         if not is_initialized() or clog is None or not clog.wants(name):
             return fn(tensor, *args, **kwargs)
         nbytes = tensor.numel() * tensor.element_size()
+        group = kwargs.get("group")
+        ranks = get_world_size(group)
         if fn.__name__ == "reduce_scatter":
-            nbytes //= get_world_size(kwargs.get("group"))
+            nbytes //= ranks
         _sync(tensor)
         t0 = time.perf_counter()
         out = fn(tensor, *args, **kwargs)
         _sync(tensor)
-        clog.append(fn.__name__, name, time.perf_counter() - t0, nbytes)
+        clog.append(fn.__name__, name, time.perf_counter() - t0, nbytes,
+                    ranks=ranks)
         return out
 
     return wrapper

@@ -75,13 +75,14 @@ class CommsLogger:
                                  or record_name in self.prof_ops)
 
     def append(self, raw_name: str, record_name: str, latency_s: float,
-               msg_size: int) -> None:
+               msg_size: int, ranks: Optional[int] = None) -> None:
         """Record one call of ``raw_name`` (the collective) under
-        ``record_name`` (its log name)."""
+        ``record_name`` (its log name), over a group of ``ranks`` (default
+        the world)."""
         if not self.prof_all and record_name not in self.prof_ops:
             return
         size, algbw, busbw = calc_bw_log(raw_name, msg_size, latency_s,
-                                         self.world_size)
+                                         ranks or self.world_size)
         self.comms_dict[record_name][msg_size].append(latency_s * 1000.0)
         if self.verbose:
             log_dist(f"comm op: {record_name} | time (ms): "

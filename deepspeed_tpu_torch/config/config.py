@@ -10,10 +10,10 @@ triad (:1062-1192), copied with their validation. The JAX package's other
 root sections (observability, monitor, compression, curriculum and the like)
 are accepted as raw mappings so that a JAX config loads, and
 ``Config.check_ported`` raises ``NotImplementedError`` naming each one a
-config sets, as it does for a tensor / pipeline / sequence / expert degree
-above 1, and for the combinations the port does
-not run (optimizer offload beside LAMB or the 1-bit optimizers, the NVMe
-tier in fp16, the 1-bit optimizers above stage 1). The ``aio`` section
+config sets, as it does for a tensor / pipeline / sequence degree above 1,
+and for the combinations the port does not run (an expert degree above 1
+at ZeRO stage 3, optimizer offload beside LAMB or the 1-bit optimizers,
+the NVMe tier in fp16, the 1-bit optimizers above stage 1). The ``aio`` section
 (:970) is ported. An unknown key raises ``ConfigError`` naming it, as in
 JAX.
 """
@@ -182,8 +182,9 @@ class ZeroConfig(ConfigModel):
 class ParallelConfig(ConfigModel):
     """Mesh-axis degrees (JAX ``ParallelConfig``). ``data_parallel_size`` 0
     means the process group's world size (1 without a group), as JAX's 0
-    means every device; the port has no tensor / pipeline / sequence /
-    expert parallelism yet, so those degrees above 1 raise in
+    means every device. ``expert_parallel_size`` splits it into expert
+    groups (``parallel/topology.py``); the port has no tensor / pipeline /
+    sequence parallelism yet, so those degrees above 1 raise in
     ``Config.check_ported``."""
 
     data_parallel_size: int = 0
@@ -365,21 +366,27 @@ class Config(ConfigModel):
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming every setting of this config
         that the port does not run yet: a JAX-only root section, a tensor /
-        pipeline / sequence / expert degree above 1, parameter offload beside
-        pipeline parallelism, random-LTD or pruning (JAX's refusals)
-        (the port trains data-parallel only), optimizer offload with an
-        optimizer outside the Adam family or with the NVMe tier in fp16,
-        and the 1-bit optimizers above ZeRO stage 1 or with zerooneadam in
-        fp16 (as JAX refuses them)."""
+        pipeline / sequence degree above 1 (the port trains data- and
+        expert-parallel only), an expert degree above 1 at ZeRO stage 3,
+        parameter offload beside pipeline parallelism, random-LTD or
+        pruning (JAX's refusals), optimizer offload with an optimizer
+        outside the Adam family or with the NVMe tier in fp16, and the
+        1-bit optimizers above ZeRO stage 1 or with zerooneadam in fp16 (as
+        JAX refuses them)."""
         missing = [f"config section '{name}'" for name in UNPORTED_SECTIONS
                    if getattr(self, name) is not None]
         zero = self.zero_optimization
         par = self.parallel
         for name in ("tensor_parallel_size", "pipeline_parallel_size",
-                     "sequence_parallel_size", "expert_parallel_size"):
+                     "sequence_parallel_size"):
             if getattr(par, name) > 1:
                 missing.append(f"parallel.{name}={getattr(par, name)} "
-                               "(the port trains data-parallel only)")
+                               "(the port trains data- and expert-parallel "
+                               "only)")
+        if par.expert_parallel_size > 1 and zero.stage == 3:
+            missing.append(f"parallel.expert_parallel_size="
+                           f"{par.expert_parallel_size} at ZeRO stage 3 "
+                           "(JAX shards the banks with fsdp over 'data')")
         if zero.offload_param.device != "none":
             missing += self._param_offload_refusals()
         opt = self.optimizer.type.lower()

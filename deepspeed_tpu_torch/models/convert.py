@@ -8,12 +8,13 @@ port never imports JAX), so conversion is a leaf-for-leaf copy.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .core import is_quantized, tree_map
+from .transformer import expert_axes
 
 
 def _to_tensor(a: Any, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -29,21 +30,29 @@ def _to_tensor(a: Any, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg=None, device="cpu",
-                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                    dtype: Optional[torch.dtype] = None,
+                    banks: Optional[Tuple[int, int]] = None
+                    ) -> Dict[str, Any]:
     """The JAX param pytree (numpy leaves, layer axis first) -> the port's
     params on ``device``; floating leaves cast to ``dtype`` (default
     ``cfg.dtype``; with neither, each leaf keeps its numpy dtype). Quantized
     sites (``{"q8"|"q4", "s"}``) come over as they are: int8 / uint8
     values, fp32 scales. A tree with no ``cfg`` (the spatial mid block's:
-    nested dicts, no layer axis) converts the same way."""
+    nested dicts, no layer axis) converts the same way. ``banks`` = (lo,
+    hi): an MoE model's expert leaves keep only experts [lo, hi), the banks
+    one rank holds under expert parallelism
+    (``parallel.topology.Topology.banks``)."""
     if dtype is None and cfg is not None:
         dtype = cfg.dtype
+    axes = expert_axes(cfg, np_params) if banks is not None else {}
 
-    def walk(node):
+    def walk(node, path=()):
         if is_quantized(node):
             return {k: _to_tensor(v, device, None) for k, v in node.items()}
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if path in axes:
+            node = np.take(np.asarray(node), range(*banks), axis=axes[path])
         return _to_tensor(node, device, dtype)
 
     return walk(np_params)

@@ -62,6 +62,9 @@ exact when a cache is given (dense arena or paged: C = T, no drops, no
 RTS), capacity-limited otherwise (training and the eval loss).
 ``forward(..., with_aux=True)`` also returns the sum of the layers' aux
 losses, which the loss adds as ``moe_aux_loss_coef * aux / num_layers``.
+Beyond one rank the training engine passes ``moe_groups``: the gating spans
+every rank's tokens and, with expert parallelism, a rank holds only its
+banks of the ``expert_axes`` leaves.
 
 Out of scope here (they raise): sliding windows and
 custom attention scales, post-LN / bidirectional encoders, token types, and
@@ -94,7 +97,7 @@ from ..ops.quant_matmul import (int4_a8_matmul, int4_matmul, int8_a8_matmul,
                                 reference_int8_a8_matmul,
                                 reference_int8_matmul, unpack_int4)
 from ..parallel.moe import moe_mlp
-from .core import Model, is_quantized, tree_map
+from .core import Model, is_quantized, tree_items, tree_map
 
 
 @dataclasses.dataclass
@@ -233,6 +236,18 @@ def eval_config(cfg: TransformerConfig) -> TransformerConfig:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+
+def expert_axes(cfg: Any, params: Dict[str, Any]
+                ) -> Dict[Tuple[str, ...], int]:
+    """The leaves of ``params`` that hold MoE expert banks, each with the
+    axis of its expert dim (1, after the layer axis): ``layers/mlp/*`` of an
+    MoE model, the leaves JAX gives its ``expert`` logical axis. Empty for
+    a dense model."""
+    if not getattr(cfg, "moe_num_experts", 0):
+        return {}
+    return {path: 1 for path, _ in tree_items(params)
+            if path[:2] == ("layers", "mlp")}
 
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig,
@@ -762,19 +777,20 @@ def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _moe_ffn(cfg: TransformerConfig, h: torch.Tensor, layer: Dict[str, Any],
-             infer: bool, rng: Optional[torch.Generator]
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             infer: bool, rng: Optional[torch.Generator],
+             groups: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN of one layer and its aux loss (JAX :1054-1086). With a
     cache (``infer``) routing is exact: no capacity drops and no RTS, so a
     decode token is never dropped and chunk-padding queries steal no
-    capacity."""
+    capacity. ``groups``: the rank's ``ExpertGroups`` when the batch and
+    the banks span ranks (global gating, expert parallelism)."""
     out, aux = moe_mlp(h, layer["router"], layer["mlp"], cfg.activation,
                        top_k=cfg.moe_top_k,
                        capacity_factor=cfg.moe_capacity_factor,
                        min_capacity=cfg.moe_min_capacity,
                        drop_tokens=cfg.moe_drop_tokens and not infer,
                        use_rts=cfg.moe_use_rts and not infer, rng=rng,
-                       dispatch_impl=cfg.moe_dispatch)
+                       dispatch_impl=cfg.moe_dispatch, groups=groups)
     if cfg.moe_use_residual:
         # PR-MoE: a dense MLP beside the experts, mixed by a learned softmax
         # coefficient over (moe, dense)
@@ -793,13 +809,14 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
                    attend: Callable[..., torch.Tensor],
                    plain: bool, infer: bool = False,
-                   rng: Optional[torch.Generator] = None
+                   rng: Optional[torch.Generator] = None,
+                   groups: Any = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One pre-LN decoder block -> (x, the MoE aux loss or None). ``rope``:
     the (cos, sin) tables of this step's positions, shared by every layer;
     ``attend(q, k, v)``: the layer's attention in the forward's cache mode;
     ``infer``: a cache is given (MoE routes exactly); ``rng``: RTS's
-    draws."""
+    draws; ``groups``: the rank's MoE process groups (``_moe_ffn``)."""
     B, S, H = x.shape
     N, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn_p = layer["attn"]
@@ -843,7 +860,7 @@ def _layer_forward(cfg: TransformerConfig, x: torch.Tensor,
     mlp = layer["mlp"]
     aux = None
     if cfg.moe_num_experts > 0:
-        mlp_out, aux = _moe_ffn(cfg, h, layer, infer, rng)
+        mlp_out, aux = _moe_ffn(cfg, h, layer, infer, rng, groups)
     elif cfg.activation == "swiglu":
         inner = F.silu(qe(h, mlp["w_gate"])) * qe(h, mlp["w_up"])
         mlp_out = qe(inner, mlp["w_down"])
@@ -887,13 +904,16 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
             start_pos: int = 0,
             key_positions: Optional[torch.Tensor] = None,
             with_aux: bool = False,
-            rng: Optional[torch.Generator] = None) -> Tuple[Any, ...]:
+            rng: Optional[torch.Generator] = None,
+            moe_groups: Any = None) -> Tuple[Any, ...]:
     """Token ids (B, S) -> (logits (B, S, V), cache); the cache, if any, is
     written in place. ``plain`` runs the plain versions of the norm and
     attention kernels on any device. ``with_aux``: return (logits, cache,
     aux) as JAX does, aux the sum over the layers of the MoE load-balancing
     loss (an fp32 zero for a dense model); ``rng``: the generator of MoE's
-    Random Token Selection (the device's default one when None).
+    Random Token Selection (the device's default one when None);
+    ``moe_groups``: the rank's ``parallel.topology.ExpertGroups`` when the
+    batch and the expert banks span ranks (training beyond one rank).
 
     PAGED (``block_table`` (B, MAX_BLOCKS) int32 given): ``cache = {"k","v":
     (L, NUM_BLOCKS, BLOCK, K, D)}``; ``positions`` (B, S) per-row absolute
@@ -950,7 +970,8 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
               else {"k": cache["k"][li], "v": cache["v"][li]})
         x, aux = _layer_forward(cfg, x, layer, rope,
                                 partial(attention, layer_cache=lc), plain,
-                                infer=cache is not None, rng=rng)
+                                infer=cache is not None, rng=rng,
+                                groups=moe_groups)
         if aux is not None:
             auxes.append(aux)
         return x
@@ -1082,17 +1103,20 @@ def build_model(cfg: TransformerConfig, name: str = "transformer") -> Model:
     """Bundle init, the training loss (JAX ``build_model``: labels default
     to ``input_ids`` shifted left, the last position ignored; an MoE model
     adds ``moe_aux_loss_coef * aux / num_layers``) and its eval variant.
-    ``loss_fn(params, batch, plain=False, rng=None)``; ``plain`` runs the
-    kernels' plain versions on any device, ``rng`` draws MoE's RTS."""
+    ``loss_fn(params, batch, plain=False, rng=None, moe_groups=None)``;
+    ``plain`` runs the kernels' plain versions on any device, ``rng`` draws
+    MoE's RTS, ``moe_groups`` are the rank's MoE process groups
+    (``forward``)."""
 
     def make_loss(c: TransformerConfig):
         def loss_fn(params, batch, plain: bool = False,
-                    rng: Optional[torch.Generator] = None):
+                    rng: Optional[torch.Generator] = None,
+                    moe_groups: Any = None):
             ids = batch["input_ids"]
             mask = batch.get("attention_mask")
             moe = c.moe_num_experts > 0
             out = forward(params, ids, c, attention_mask=mask, plain=plain,
-                          with_aux=moe, rng=rng)
+                          with_aux=moe, rng=rng, moe_groups=moe_groups)
             labels = batch.get("labels")
             if labels is None:
                 labels = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1],
@@ -1106,9 +1130,11 @@ def build_model(cfg: TransformerConfig, name: str = "transformer") -> Model:
         return loss_fn
 
     def eval_loss_fn(params, batch, plain: bool = False,
-                     rng: Optional[torch.Generator] = None):
+                     rng: Optional[torch.Generator] = None,
+                     moe_groups: Any = None):
         with torch.no_grad():
-            return make_loss(eval_config(cfg))(params, batch, plain, rng)
+            return make_loss(eval_config(cfg))(params, batch, plain, rng,
+                                               moe_groups)
 
     return Model(init=lambda generator, **kw: init_params(generator, cfg,
                                                           **kw),

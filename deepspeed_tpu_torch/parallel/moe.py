@@ -27,8 +27,32 @@ Two dispatch formulations (``dispatch_impl``):
 * ``"einsum"``: the GShard (T, E, C) one-hot contraction
   (``_densify``), which the sparse path is held against.
 
-Expert parallelism (experts sharded over ranks with an all-to-all) is not
-ported: MoE runs at world 1 (see ``runtime/engine.py``).
+Beyond one rank (``groups``, a ``parallel.topology.ExpertGroups``), as JAX
+computes the layer under SPMD over its ``(expert, data)`` batch sharding:
+
+* global gating: each rank's fp32 router logits are all-gathered in rank
+  order (``_GatherRows``; its backward sums the gathered grads back,
+  reduce-scatter), every rank plans over the global tokens (the capacity,
+  the queue positions and the aux loss span them), and keeps its own
+  tokens' rows of the plan;
+* a rank then builds a slab of its own tokens only: (E, C_loc, H) with
+  ``C_loc = min(C, T_local)``, each expert's kept assignments of this rank
+  in JAX's queue order (top-1 before top-2, tokens in order). The expert
+  FFN works row by row, so the values are JAX's, and a rank's expert FLOPs
+  do not grow with the world;
+* with expert parallelism (``ep > 1``, the rank holding banks
+  ``[e * E / ep, (e + 1) * E / ep)``), the slab's rows go by all-to-all
+  within the expert-parallel group to the rank holding their bank
+  (``_AllToAll``), that rank runs its banks over the ``ep`` slabs it
+  received, and the inverse all-to-all brings the outputs back; the
+  backward sends the grads the same two ways. JAX replicates a bank's C
+  slots over its ``data`` ranks; here each rank of the expert-data group
+  computes the slots of the tokens of its own expert-parallel group, so
+  every slot is computed once.
+
+At world 1 the local slab is JAX's (E, C, H) slab (C_loc = C when T >= C,
+and the queue positions agree), so the single-rank path is this one with
+no collective.
 """
 
 from __future__ import annotations
@@ -37,6 +61,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .. import comm
 
 # When a list, ``moe_mlp`` appends each call's routing statistics to it as
 # device tensors (no host read): a measurement hook, off by default.
@@ -261,6 +287,37 @@ class _CombineGather(torch.autograd.Function):
                 None)
 
 
+class _GatherRows(torch.autograd.Function):
+    """Forward: every rank's (T, E) rows all-gathered in rank order.
+    Backward: the gathered grads summed over the ranks, this rank's rows
+    kept (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return comm.all_gather(x.contiguous(), log_name="moe_gate_gather")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return comm.reduce_scatter(grad.contiguous(),
+                                   log_name="moe_gate_grad_reduce_scatter")
+
+
+class _AllToAll(torch.autograd.Function):
+    """Dim 0 split into the group's ranks' chunks, chunk j sent to rank j;
+    the backward is the same exchange of the grads."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return comm.all_to_all(x.contiguous(), group=group,
+                               log_name="moe_all_to_all")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return comm.all_to_all(grad.contiguous(), group=ctx.group,
+                               log_name="moe_all_to_all"), None
+
+
 def _log_plan(plan: GatePlan, num_experts: int) -> None:
     counts = torch.zeros(num_experts, device=plan.valid.device)
     counts.index_add_(0, plan.expert_idx.reshape(-1),
@@ -271,49 +328,141 @@ def _log_plan(plan: GatePlan, num_experts: int) -> None:
                          aux_loss=plan.aux_loss.detach()))
 
 
-def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
-            experts: Dict[str, torch.Tensor], activation: str,
-            top_k: int = 2, capacity_factor: float = 1.25,
-            min_capacity: int = 4, drop_tokens: bool = True,
-            use_rts: bool = False, rng: Optional[torch.Generator] = None,
-            dispatch_impl: str = "sparse"
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN of one layer (JAX :290). x (B, S, H); router_w (H, E);
-    ``experts``: ``w_up`` / ``w_down`` (and ``w_gate`` for SwiGLU) with a
-    leading expert dim E. Returns (out (B, S, H), aux_loss). The router
-    logits are ``x.float() @ router.float()``: fp32, as the caller's TF32
-    setting leaves them (the port keeps TF32 off)."""
-    B, S, H = x.shape
-    E = router_w.shape[-1]
-    T = B * S
-    xt = x.reshape(T, H)
-    logits = xt.float() @ router_w.float()
+def _rows(plan: GatePlan, lo: int, n: int) -> GatePlan:
+    """Tokens ``[lo, lo + n)`` of a plan; the capacity, the aux loss and the
+    counts stay the global ones."""
+    return plan._replace(expert_idx=plan.expert_idx[lo:lo + n],
+                         slot_pos=plan.slot_pos[lo:lo + n],
+                         weight=plan.weight[lo:lo + n],
+                         valid=plan.valid[lo:lo + n])
+
+
+def local_slots(plan: GatePlan, num_experts: int) -> torch.Tensor:
+    """(T, K) 0-based position of each kept assignment among this plan's
+    kept assignments to its expert, top-1 before top-2 and tokens in order
+    (JAX's queue order; 0 where dropped). Over every token of a plan it is
+    ``slot_pos``; over a rank's rows it packs them below min(C, T).
+
+    A rank's tokens are consecutive in the global order and each expert
+    keeps a prefix of its top-1 queue, then of its top-2 queue, so the
+    rank's kept k-th choices of an expert hold consecutive global slots:
+    the local slot is the global one less the first of them, after the
+    rank's kept choices before k. Scatters over T, no scan."""
+    T, K = plan.expert_idx.shape
+    dev = plan.slot_pos.device
+    out = torch.zeros_like(plan.slot_pos)
+    before = torch.zeros(num_experts, dtype=torch.long, device=dev)
+    far = plan.capacity + T
+    for k in range(K):
+        e, p, v = (plan.expert_idx[:, k], plan.slot_pos[:, k],
+                   plan.valid[:, k])
+        first = torch.full((num_experts,), far, dtype=torch.long,
+                           device=dev).scatter_reduce(
+            0, e, torch.where(v, p, torch.full_like(p, far)), "amin")
+        out[:, k] = torch.where(v, before[e] + p - first[e],
+                                torch.zeros_like(p))
+        before = before.index_add(0, e, v.long())
+    return out
+
+
+def global_plan(logits: torch.Tensor, top_k: int = 2,
+                capacity_factor: float = 1.25, min_capacity: int = 4,
+                drop_tokens: bool = True, use_rts: bool = False,
+                rng: Optional[torch.Generator] = None,
+                groups: Any = None) -> GatePlan:
+    """This rank's rows of the plan over every rank's tokens: the (T, E)
+    fp32 router logits of this rank gathered in rank order (with their
+    backward), ``top1_plan`` / ``top2_plan`` over them, and rows ``[rank *
+    T, (rank + 1) * T)`` kept; the capacity, the aux loss and the counts are
+    the global ones. With no ``groups`` (one rank) the plan itself.
+    ``PLAN_LOG`` records the global plan."""
     if top_k == 2 and use_rts:
         raise ValueError("use_rts (Random Token Selection) is top-1 only, "
                          "as in the reference (sharded_moe.py top1gating)")
-    if dispatch_impl not in ("sparse", "einsum"):
-        raise ValueError(f"unknown moe dispatch_impl {dispatch_impl!r} "
-                         "(expected 'sparse' or 'einsum')")
+    T, E = logits.shape
+    world = groups.world if groups is not None else 1
+    if world > 1:
+        if use_rts and drop_tokens:
+            raise NotImplementedError(
+                "Random Token Selection beyond one rank: every rank would "
+                "draw its own priorities for the global plan")
+        logits = _GatherRows.apply(logits)                       # (W T, E)
     plan = (top2_plan(logits, capacity_factor, min_capacity,
                       drop_tokens=drop_tokens) if top_k == 2 else
             top1_plan(logits, capacity_factor, min_capacity,
                       drop_tokens=drop_tokens, use_rts=use_rts, rng=rng))
     if PLAN_LOG is not None:
         _log_plan(plan, E)
-    C = plan.capacity
+    if world > 1:
+        plan = _rows(plan, groups.topology.rank * T, T)
+    return plan
+
+
+def _experts(dispatched: torch.Tensor, experts: Dict[str, torch.Tensor],
+             activation: str, groups: Any) -> torch.Tensor:
+    """(E, C_loc, H) rows of this rank's tokens -> their expert outputs.
+    With expert parallelism the rows of each bank group go to the rank
+    holding it and come back (``_AllToAll`` twice)."""
+    ep = groups.ep if groups is not None else 1
+    E, C, H = dispatched.shape
+    banks = next(iter(experts.values())).shape[0]
+    if banks * ep != E:
+        raise ValueError(f"{banks} expert bank(s) a rank at "
+                         f"expert_parallel_size={ep}, but the router has "
+                         f"{E} experts")
+    if ep == 1:
+        return _expert_ffn(dispatched, experts, activation)
+    recv = _AllToAll.apply(dispatched.reshape(E * C, H), groups.exchange)
+    # (source, bank, C, H) -> (bank, source x C, H)
+    slab = recv.view(ep, banks, C, H).transpose(0, 1).reshape(
+        banks, ep * C, H)
+    out = _expert_ffn(slab, experts, activation)
+    back = out.view(banks, ep, C, H).transpose(0, 1).reshape(E * C, H)
+    return _AllToAll.apply(back, groups.exchange).view(E, C, H)
+
+
+def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
+            experts: Dict[str, torch.Tensor], activation: str,
+            top_k: int = 2, capacity_factor: float = 1.25,
+            min_capacity: int = 4, drop_tokens: bool = True,
+            use_rts: bool = False, rng: Optional[torch.Generator] = None,
+            dispatch_impl: str = "sparse", groups: Any = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN of one layer (JAX :290). x (B, S, H): this rank's rows;
+    router_w (H, E); ``experts``: ``w_up`` / ``w_down`` (and ``w_gate`` for
+    SwiGLU) with a leading expert dim, E / ep banks a rank; ``groups``: the
+    rank's ``ExpertGroups`` beyond one rank (None: one rank). Returns (out
+    (B, S, H), aux_loss). The router logits are ``x.float() @
+    router.float()``: fp32, as the caller's TF32 setting leaves them (the
+    port keeps TF32 off)."""
+    B, S, H = x.shape
+    E = router_w.shape[-1]
+    T = B * S
+    xt = x.reshape(T, H)
+    if dispatch_impl not in ("sparse", "einsum"):
+        raise ValueError(f"unknown moe dispatch_impl {dispatch_impl!r} "
+                         "(expected 'sparse' or 'einsum')")
+    plan = global_plan(xt.float() @ router_w.float(), top_k,
+                       capacity_factor, min_capacity, drop_tokens, use_rts,
+                       rng, groups)
+    # this rank's kept assignments, packed below C_loc in each expert; one
+    # rank's plan is already packed so (local_slots would return slot_pos)
+    C = min(plan.capacity, T)
+    pos = (local_slots(plan, E) if groups is not None and groups.world > 1
+           else plan.slot_pos)
 
     if dispatch_impl == "einsum":
-        gate = _densify(plan, E)
+        gate = _densify(plan._replace(slot_pos=pos, capacity=C), E)
         dispatch = gate.dispatch.to(x.dtype)                       # (T, E, C)
         dispatched = torch.einsum("tec,th->ech", dispatch, xt)     # (E, C, H)
-        expert_out = _expert_ffn(dispatched, experts, activation)
+        expert_out = _experts(dispatched, experts, activation, groups)
         out = torch.einsum("tec,ech->th", gate.combine.to(x.dtype),
                            expert_out)
         return out.reshape(B, S, H), plan.aux_loss
 
     # flat slot per (token, assignment); dropped assignments write to the
     # dump slot E * C, sliced off below
-    slot = plan.expert_idx * C + plan.slot_pos                     # (T, K)
+    slot = plan.expert_idx * C + pos                               # (T, K)
     slot_in = torch.where(plan.valid, slot, torch.full_like(slot, E * C))
     flat = slot_in.reshape(-1)
     tok = torch.arange(T, device=x.device)[:, None].expand_as(slot_in)
@@ -329,7 +478,7 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor,
     # unfilled slots read token 0: the combine weights them 0
     dispatched = _DispatchGather.apply(xt, token_of_slot, slot,
                                        plan.valid).reshape(E, C, H)
-    expert_out = _expert_ffn(dispatched, experts, activation)
+    expert_out = _experts(dispatched, experts, activation, groups)
     y = expert_out.reshape(E * C, H)
     out = _CombineGather.apply(y, plan.weight.to(x.dtype), slot, plan.valid,
                                token_of_slot, wt_of_slot, filled)  # (T, H)

@@ -27,6 +27,13 @@ one after the other: the fp32 master, the moments and the grad accumulator
 are flat buffers of that length, so one Adam launch updates them all.
 
 Stages 0-2 have one unit, every leaf in tree order (``parts`` 1 at stage 0).
+Under expert parallelism (a ``Topology`` with ``ep > 1``) they have two:
+the dense leaves, partitioned over the world, then the rank's expert banks
+(``expert`` unit, its pieces the rank's slices of the global (L, E, ...)
+leaves), partitioned over the expert-data group: the ranks that hold the
+same banks (JAX shards the banks over ``expert`` and the rest of the state
+over ``(expert, data)``). Their grads are reduced over those groups, and
+the shard stays one flat buffer (the dense chunk, then the expert chunk).
 Stage 3 has a gather unit per layer (its slice of every stacked leaf), one
 for the other leaves (embedding, final norm, head), and one ``persistent``
 unit holding the leaves of fewer than ``stage3_param_persistence_threshold``
@@ -57,7 +64,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from .. import comm
-from ..models.core import tree_items, tree_set
+from ..models.core import tree_items, tree_map, tree_set
+from .topology import ExpertGroups, Topology
 
 ALIGN = 16
 
@@ -78,7 +86,9 @@ def sharded(stage: int, state: str) -> bool:
 class Piece:
     """Elements ``[start, start + numel)`` (C order) of the leaf at ``path``
     (full shape ``shape``), at ``offset`` of its unit's flat buffer.
-    ``layer``: the piece is that layer's slice of a stacked leaf."""
+    ``layer``: the piece is that layer's slice of a stacked leaf.
+    ``expert_axis``: the leaf is a rank's expert banks, ``shape`` its local
+    shape, the global leaf ``ep`` times as long on that axis."""
 
     path: Tuple[str, ...]
     shape: Tuple[int, ...]
@@ -86,6 +96,7 @@ class Piece:
     numel: int
     offset: int
     layer: Optional[int] = None
+    expert_axis: Optional[int] = None
 
     @property
     def view_shape(self) -> Tuple[int, ...]:
@@ -96,7 +107,8 @@ class Piece:
 class Unit:
     """One flat buffer of pieces, split into ``parts`` chunks of ``chunk``
     elements (the tail past ``numel`` is padding). ``gathered``: between
-    steps a rank holds only its chunk of the params (stage 3)."""
+    steps a rank holds only its chunk of the params (stage 3). ``expert``:
+    the rank's expert banks, split over its expert-data group."""
 
     name: str
     pieces: Tuple[Piece, ...]
@@ -105,14 +117,16 @@ class Unit:
     parts: int
     gathered: bool
     layer: Optional[int] = None
+    expert: bool = False
 
     @property
     def padded(self) -> int:
         return self.chunk * self.parts
 
-    def rank_range(self, rank: int) -> Tuple[int, int]:
-        """This rank's range of the unit's flat buffer."""
-        r = rank if self.parts > 1 else 0
+    def rank_range(self, pos: int) -> Tuple[int, int]:
+        """The range of the unit's flat buffer of the rank at ``pos`` of
+        the unit's group (``ZeroPartition.rank_range`` finds it)."""
+        r = pos if self.parts > 1 else 0
         return r * self.chunk, (r + 1) * self.chunk
 
 
@@ -123,8 +137,9 @@ def _chunk(numel: int, parts: int, pad: bool) -> int:
     return -(-per // ALIGN) * ALIGN
 
 
-def _pieces(leaves, layer: Optional[int] = None) -> Tuple[Tuple[Piece, ...],
-                                                          int]:
+def _pieces(leaves, layer: Optional[int] = None,
+            axes: Optional[Dict[Tuple[str, ...], int]] = None
+            ) -> Tuple[Tuple[Piece, ...], int]:
     out, offset = [], 0
     for path, shape in leaves:
         total = math.prod(shape)
@@ -133,19 +148,22 @@ def _pieces(leaves, layer: Optional[int] = None) -> Tuple[Tuple[Piece, ...],
         else:
             n = total // shape[0]
             start = layer * n
-        out.append(Piece(path, tuple(shape), start, n, offset, layer))
+        out.append(Piece(path, tuple(shape), start, n, offset, layer,
+                         (axes or {}).get(path)))
         offset += n
     return tuple(out), offset
 
 
 class ZeroPartition:
     """The units of a params tree at one stage, world and rank, and where
-    each unit's chunk sits in the rank's shard (``shard_offsets``)."""
+    each unit's chunk sits in the rank's shard (``shard_offsets``).
+    ``topology``: the ranks' expert layout (one expert group by default)."""
 
     def __init__(self, stage: int, world: int, rank: int,
-                 units: List[Unit]):
+                 units: List[Unit], topology: Optional[Topology] = None):
         self.stage, self.world, self.rank = stage, world, rank
         self.units = units
+        self.topology = topology or Topology(world, 1, rank)
         self.shard_offsets = []
         off = 0
         for u in units:
@@ -156,19 +174,40 @@ class ZeroPartition:
     @classmethod
     def build(cls, stage: int, params: Any, world: int = 1, rank: int = 0,
               persistence_threshold: int = 0,
-              layers_key: str = "layers") -> "ZeroPartition":
+              layers_key: str = "layers",
+              topology: Optional[Topology] = None,
+              experts: Optional[Dict[Tuple[str, ...], int]] = None
+              ) -> "ZeroPartition":
         """``params``: a nested dict of tensors (or shapes). At stage 3 the
         leaves under ``params[layers_key]`` are stacked on a leading layer
-        axis and make one gather unit a layer."""
+        axis and make one gather unit a layer. ``experts``: the leaves that
+        hold the rank's expert banks and their expert axis; with a
+        ``topology`` of ``ep > 1`` they make the ``expert`` unit."""
         sharded(stage, "params")
         leaves = [(path, tuple(getattr(t, "shape", t)))
                   for path, t in tree_items(params)]
+        ep = topology.ep if topology is not None else 1
+        split = ep > 1 and bool(experts)
+        if split and stage == 3:
+            raise NotImplementedError(
+                "expert parallelism at ZeRO stage 3 is not ported yet (JAX "
+                "shards the banks with fsdp over 'data')")
         if stage < 3:
-            pieces, n = _pieces(leaves)
-            parts = world if stage >= 1 else 1
-            return cls(stage, world, rank, [Unit(
-                "flat", pieces, n, _chunk(n, parts, parts > 1), parts,
-                False)])
+            groups = [("flat", [(p, s) for p, s in leaves
+                                if not split or p not in experts],
+                       world, False)]
+            if split:
+                groups.append(("experts", [(p, s) for p, s in leaves
+                                           if p in experts],
+                               topology.data, True))
+            units = []
+            for name, group, ranks, expert in groups:
+                pieces, n = _pieces(group, axes=experts if expert else None)
+                parts = ranks if stage >= 1 else 1
+                units.append(Unit(name, pieces, n,
+                                  _chunk(n, parts, parts > 1), parts, False,
+                                  expert=expert))
+            return cls(stage, world, rank, units, topology)
         keep = [(p, s) for p, s in leaves
                 if math.prod(s) < persistence_threshold]
         stacked = [(p, s) for p, s in leaves if (p, s) not in keep
@@ -186,11 +225,36 @@ class ZeroPartition:
             pieces, n = _pieces(group, layer)
             units.append(Unit(name, pieces, n, _chunk(n, world, True), world,
                               name != "persistent", layer))
-        return cls(stage, world, rank, units)
+        return cls(stage, world, rank, units, topology)
 
     def shard_slice(self, i: int) -> slice:
         off = self.shard_offsets[i]
         return slice(off, off + self.units[i].chunk)
+
+    def rank_range(self, i: int, rank: int) -> Tuple[int, int]:
+        """``rank``'s range of unit ``i``'s flat buffer: by its place in the
+        world, or in its expert-data group for the expert unit."""
+        u = self.units[i]
+        return u.rank_range(self.topology.data_index(rank) if u.expert
+                            else rank)
+
+    def global_shape(self, pc: Piece) -> Tuple[int, ...]:
+        """The shape of a piece's whole leaf over every rank."""
+        if pc.expert_axis is None:
+            return pc.shape
+        a = pc.expert_axis
+        return pc.shape[:a] + (pc.shape[a] * self.topology.ep,) \
+            + pc.shape[a + 1:]
+
+    def global_box(self, pc: Piece, box: List[List[int]],
+                   rank: int) -> List[List[int]]:
+        """A box of ``rank``'s copy of a piece's leaf in the whole leaf's
+        coordinates (an expert leaf's banks sit at the rank's offset)."""
+        if pc.expert_axis is None:
+            return box
+        a = pc.expert_axis
+        off = self.topology.expert_index(rank) * pc.shape[a]
+        return box[:a] + [[box[a][0] + off, box[a][1] + off]] + box[a + 1:]
 
     def layer_units(self) -> List[int]:
         return [i for i, u in enumerate(self.units) if u.layer is not None]
@@ -211,7 +275,7 @@ class ZeroPartition:
         first element in the leaf's C order, count, position in the rank's
         chunk)."""
         u = self.units[i]
-        lo, hi = u.rank_range(rank)
+        lo, hi = self.rank_range(i, rank)
         out = []
         for pc in u.pieces:
             a, b = max(lo, pc.offset), min(hi, pc.offset + pc.numel)
@@ -243,8 +307,11 @@ class ZeroPartition:
     def describe(self) -> str:
         total = sum(u.numel for u in self.units)
         gathered = sum(u.numel for u in self.units if u.gathered)
+        ep = (f", the experts' over {self.topology.data} rank(s) at ep "
+              f"{self.topology.ep}" if any(u.expert for u in self.units)
+              else "")
         return (f"ZeRO stage {self.stage}: {total / 1e6:.1f}M params in "
-                f"{len(self.units)} unit(s) over {self.world} rank(s), "
+                f"{len(self.units)} unit(s) over {self.world} rank(s){ep}, "
                 f"{gathered / max(total, 1) * 100:.0f}% gathered per use, "
                 f"shard {self.shard_numel} elements")
 
@@ -323,46 +390,68 @@ class ZeroParams:
 
     * ``full[i]``: unit ``i``'s whole padded buffer, for the units that are
       not gathered per use (all of them below stage 3, the persistent unit
-      at stage 3); ``grad_full[i]`` its grads. ``params`` holds their leaves
-      as views that require grad, each with its ``.grad`` a view of
-      ``grad_full``.
+      at stage 3); ``grad_full[i]`` its grads. Below stage 3 they are views
+      of one buffer each, ``whole`` and ``grad_whole``, the units one after
+      the other. ``params`` holds their leaves as views that require grad,
+      each with its ``.grad`` a view of ``grad_full``.
     * ``shard``: the rank's shard of the params in the compute dtype (what
-      the optimizer writes): ``full[0]`` itself at stage 0, a view of this
-      rank's range of ``full[0]`` at stages 1-2, a buffer of its own at
-      stage 3.
+      the optimizer writes): ``whole`` itself when no unit is split (stage
+      0), a view of this rank's range of it with one unit at stages 1-2,
+      else a buffer of its own (stage 3, or the expert unit beside the
+      dense one at stages 1-2), all-gathered back after the update.
     * ``acc``: the fp32 grad accumulator over the shard (stages 2-3),
       which the reduce-scatters add into.
+
+    ``groups``: the rank's ``ExpertGroups``, whose expert-data group
+    reduces and gathers the expert unit.
     """
 
     def __init__(self, partition: ZeroPartition, params: Any,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device,
+                 groups: Optional[ExpertGroups] = None):
         self.partition = p = partition
         self.dtype, self.device = dtype, device
+        self.groups = groups
         self.full: Dict[int, torch.Tensor] = {}
         self.grad_full: Dict[int, torch.Tensor] = {}
         self.params: Dict[str, Any] = {}
+        self.whole = self.grad_whole = None
         leaves = dict(tree_items(params))
         if p.stage == 3:
             self.shard = torch.empty(p.shard_numel, dtype=dtype,
                                      device=device)
+        else:
+            self.whole = torch.zeros(sum(u.padded for u in p.units),
+                                     dtype=dtype, device=device)
+            self.grad_whole = torch.zeros_like(self.whole)
+        at = 0
         for i, u in enumerate(p.units):
-            flat = self._pack(u, leaves)
+            if p.stage == 3:
+                flat = self._pack(u, leaves)
+            else:
+                flat = self._pack(u, leaves, self.whole[at:at + u.padded])
             if not u.gathered:
                 self.full[i] = flat
-                self.grad_full[i] = torch.zeros_like(flat)
+                self.grad_full[i] = (torch.zeros_like(flat) if p.stage == 3
+                                     else self.grad_whole[at:at + u.padded])
                 with torch.no_grad():
                     for pc in u.pieces:
                         v = self._view(flat, pc)
                         v.requires_grad_(True)
                         v.grad = self._view(self.grad_full[i], pc)
                         tree_set(self.params, pc.path, v)
+            at += u.padded
             if p.stage == 3:
-                lo, hi = u.rank_range(p.rank)
+                lo, hi = p.rank_range(i, p.rank)
                 self.shard[p.shard_slice(i)].copy_(flat[lo:hi])
         if p.stage < 3:
-            lo, hi = p.units[0].rank_range(p.rank)
-            self.shard = (self.full[0] if p.units[0].parts == 1
-                          else self.full[0][lo:hi])
+            if all(u.parts == 1 for u in p.units):
+                self.shard = self.whole
+            elif len(p.units) == 1:
+                lo, hi = p.rank_range(0, p.rank)
+                self.shard = self.whole[lo:hi]
+            else:
+                self.shard = self._shard_of(self.whole)
         self.acc = (torch.zeros(p.shard_numel, dtype=torch.float32,
                                 device=device)
                     if sharded(p.stage, "grads") else None)
@@ -371,9 +460,11 @@ class ZeroParams:
         self.live = self.peak_live = 0
 
     # -- layout ----------------------------------------------------------
-    def _pack(self, u: Unit, leaves: Dict[Tuple[str, ...], Any]
-              ) -> torch.Tensor:
-        flat = torch.zeros(u.padded, dtype=self.dtype, device=self.device)
+    def _pack(self, u: Unit, leaves: Dict[Tuple[str, ...], Any],
+              flat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if flat is None:
+            flat = torch.zeros(u.padded, dtype=self.dtype,
+                               device=self.device)
         with torch.no_grad():
             for pc in u.pieces:
                 src = leaves[pc.path].reshape(-1)[pc.start:pc.start
@@ -384,6 +475,24 @@ class ZeroParams:
     @staticmethod
     def _view(flat: torch.Tensor, pc: Piece) -> torch.Tensor:
         return flat[pc.offset:pc.offset + pc.numel].view(pc.view_shape)
+
+    def _shard_of(self, whole: torch.Tensor) -> torch.Tensor:
+        """The rank's chunk of each unit of a ``whole``-laid-out buffer, one
+        after the other (a new buffer)."""
+        p, at, parts = self.partition, 0, []
+        for i, u in enumerate(p.units):
+            lo, hi = p.rank_range(i, p.rank)
+            parts.append(whole[at + lo:at + hi])
+            at += u.padded
+        return torch.cat(parts)
+
+    # -- groups ------------------------------------------------------------
+    def group_of(self, i: int) -> Tuple[Any, int]:
+        """(process group, ranks) over which unit ``i`` is split and its
+        grads reduced: the world, or the expert-data group."""
+        if self.partition.units[i].expert:
+            return self.groups.expert_data, self.partition.topology.data
+        return None, self.partition.world
 
     def unit_views(self, i: int, flat: torch.Tensor) -> Dict[str, Any]:
         """The tree of unit ``i``'s pieces as views of ``flat`` (a layer
@@ -401,8 +510,13 @@ class ZeroParams:
 
     def _all_gather(self, i: int, out: torch.Tensor,
                     log_name: str = "zero_gather") -> None:
-        comm.all_gather(self.shard[self.partition.shard_slice(i)], out=out,
-                        log_name=log_name)
+        src = self.shard[self.partition.shard_slice(i)]
+        if self.partition.units[i].parts == 1:
+            if out.data_ptr() != src.data_ptr():
+                out.copy_(src)
+            return
+        group, _ = self.group_of(i)
+        comm.all_gather(src, out=out, group=group, log_name=log_name)
 
     def _gather_new(self, i: int) -> torch.Tensor:
         buf = torch.empty(self.partition.units[i].padded, dtype=self.dtype,
@@ -446,10 +560,48 @@ class ZeroParams:
         self.release(i)
 
     def reduce_into_acc(self, i: int, grad: torch.Tensor) -> None:
-        """Reduce-scatter unit ``i``'s whole grads into the rank's fp32
-        accumulator."""
-        part = comm.reduce_scatter(grad, log_name="zero_reduce_scatter")
+        """Reduce-scatter unit ``i``'s whole grads over its group into the
+        rank's fp32 accumulator."""
+        group, ranks = self.group_of(i)
+        if self.partition.units[i].expert and ranks == 1:
+            part = grad
+        else:
+            part = comm.reduce_scatter(
+                grad, group=group,
+                log_name=("expert_reduce_scatter"
+                          if self.partition.units[i].expert
+                          else "zero_reduce_scatter"))
         self.acc[self.partition.shard_slice(i)].add_(part)
+
+    def reduce_grads(self, full: torch.Tensor) -> torch.Tensor:
+        """Stages 0-1: whole grads laid out as ``whole`` (``full``, in any
+        float dtype) summed in place over each unit's group; returns the
+        rank's shard of them."""
+        p, at = self.partition, 0
+        for i, u in enumerate(p.units):
+            group, ranks = self.group_of(i)
+            if ranks > 1 or not u.expert:
+                comm.all_reduce(full[at:at + u.padded], group=group,
+                                log_name=("expert_grad_all_reduce" if u.expert
+                                          else "grad_all_reduce"))
+            at += u.padded
+        if self.shard is self.whole:
+            return full
+        if len(p.units) == 1:
+            lo, hi = p.rank_range(0, p.rank)
+            return full[lo:hi]
+        return self._shard_of(full)
+
+    def expert_norm(self) -> Optional[Tuple[int, Any]]:
+        """Stage 0 under expert parallelism: (where the expert unit starts in
+        the shard, the expert-parallel group). The grad norm sums the dense
+        part's squares once and the expert part's over that group, so each
+        bank counts once; None where the shard is not laid out so."""
+        p = self.partition
+        if (self.shard is not self.whole or len(p.units) < 2
+                or p.topology.ep == 1):
+            return None
+        return p.shard_offsets[1], self.groups.exchange
 
     def step_params(self) -> Dict[str, Any]:
         """The params tree a stage-3 loss reads: the persistent leaves, the
@@ -472,12 +624,16 @@ class ZeroParams:
         for i, g in self.grad_full.items():
             self.reduce_into_acc(i, g)
 
+    def _grad_bases(self) -> List[torch.Tensor]:
+        return ([self.grad_whole] if self.grad_whole is not None
+                else list(self.grad_full.values()))
+
     def release_grads(self) -> None:
         """Stages 2-3: free the whole units' grad buffers (the ``.grad``
         views stay valid as metadata until ``acquire_grads``)."""
         if self.acc is None:
             return
-        for g in self.grad_full.values():
+        for g in self._grad_bases():
             g.untyped_storage().resize_(0)
 
     def acquire_grads(self) -> None:
@@ -485,7 +641,7 @@ class ZeroParams:
         backward."""
         if self.acc is None:
             return
-        for g in self.grad_full.values():
+        for g in self._grad_bases():
             if not g.untyped_storage().nbytes():
                 g.untyped_storage().resize_(g.numel() * g.element_size())
                 g.zero_()
@@ -499,10 +655,19 @@ class ZeroParams:
             self._all_gather(i, flat, "param_all_gather")
 
     # -- whole leaves ------------------------------------------------------
+    def _whole_banks(self, leaf: torch.Tensor, pc: Piece) -> torch.Tensor:
+        """A rank's banks of an expert leaf -> the whole leaf, gathered over
+        the expert-parallel group (a collective)."""
+        a = pc.expert_axis
+        local = leaf.movedim(a, 0).contiguous()
+        return comm.all_gather(local, group=self.groups.exchange,
+                               log_name="expert_full_tree").movedim(0, a)
+
     def full_tree(self, shard: torch.Tensor) -> Dict[str, Any]:
         """The whole tree of a shard-space buffer (``shard`` itself, the
-        master or a moment), gathered from every rank: new tensors. A
-        collective at world > 1 (every rank calls it)."""
+        master or a moment), gathered from every rank: new tensors, expert
+        leaves with every bank. A collective at world > 1 (every rank
+        calls it)."""
         p = self.partition
         pieces = p.leaf_pieces()
         bufs = {}
@@ -511,7 +676,8 @@ class ZeroParams:
             if u.parts == 1:
                 bufs[i] = chunk
             else:
-                bufs[i] = comm.all_gather(chunk.contiguous(),
+                group, _ = self.group_of(i)
+                bufs[i] = comm.all_gather(chunk.contiguous(), group=group,
                                           log_name="zero_full_tree")
         out: Dict[str, Any] = {}
         for path, plist in pieces.items():
@@ -521,13 +687,25 @@ class ZeroParams:
             for i, pc in plist:
                 leaf[pc.start:pc.start + pc.numel] = \
                     bufs[i][pc.offset:pc.offset + pc.numel]
-            tree_set(out, path, leaf.view(shape))
+            leaf = leaf.view(shape)
+            if plist[0][1].expert_axis is not None:
+                leaf = self._whole_banks(leaf, plist[0][1])
+            tree_set(out, path, leaf)
         return out
 
     def full_params(self) -> Dict[str, Any]:
         """The whole params: the views at stages 0-2, gathered copies at
-        stage 3 (a collective)."""
-        if self.partition.stage < 3:
-            return self.params
+        stage 3 (a collective); under expert parallelism the expert leaves
+        gathered whole over the expert-parallel group beside the dense
+        views (a collective)."""
+        p = self.partition
         with torch.no_grad():
-            return self.full_tree(self.shard)
+            if p.stage == 3:
+                return self.full_tree(self.shard)
+            if len(p.units) == 1:
+                return self.params
+            out = tree_map(lambda t: t, self.params)
+            for pc in p.units[1].pieces:
+                tree_set(out, pc.path, self._whole_banks(
+                    self._view(self.full[1], pc), pc))
+            return out

@@ -477,15 +477,24 @@ class CheckpointReader:
         return key in self.arrays
 
     def shape(self, key: str) -> Tuple[int, ...]:
+        if key not in self.arrays:
+            raise KeyError(f"checkpoint '{self.tag}' has no array '{key}' "
+                           "(a model or optimizer mismatch?)")
         return tuple(self.arrays[key]["shape"])
 
     def read_range(self, key: str, lo: int, hi: int) -> torch.Tensor:
+        return self.read_boxes(key, range_boxes(self.shape(key), lo, hi))
+
+    def read_boxes(self, key: str, boxes: List[List[List[int]]]
+                   ) -> torch.Tensor:
+        """The elements of ``boxes`` of an array, each in C order, one after
+        the other (flat)."""
         if key not in self.arrays:
             raise KeyError(f"checkpoint '{self.tag}' has no array '{key}' "
                            "(a model or optimizer mismatch?)")
         info = self.arrays[key]
         parts = [_assemble_slice(self.arrays_dir, info, box).reshape(-1)
-                 for box in range_boxes(tuple(info["shape"]), lo, hi)]
+                 for box in boxes]
         flat = np.concatenate(parts) if len(parts) != 1 else parts[0]
         return _from_numpy(flat, info["dtype"])
 
@@ -560,21 +569,30 @@ def _plans(engine, prefix: str, shard: torch.Tensor,
     """One ``ArrayPlan`` a leaf for a buffer laid out as the params are:
     ``shard`` the rank's shard of it, ``whole[i]`` unit ``i``'s whole
     buffer where every rank holds all of it (rank 0 writes those leaves;
-    every other leaf is written by each rank as the boxes of its range)."""
+    every other leaf is written by each rank as the boxes of its range).
+    An expert leaf is the rank's banks of the global leaf: its boxes sit at
+    the banks' offset, and banks held whole are written by the first rank
+    of each expert-data group."""
     part = engine.partition
+    topo = part.topology
     dtype = _DTYPE_STR[shard.dtype]
     plans = []
     for path, plist in part.leaf_pieces().items():
-        shape = plist[0][1].shape
-        plan = ArrayPlan(_join(prefix, _leaf_key(path)), shape, dtype)
+        first = plist[0][1]
+        shape = first.shape
+        plan = ArrayPlan(_join(prefix, _leaf_key(path)),
+                         part.global_shape(first), dtype)
         plans.append(plan)
         if all(i in whole for i, _ in plist):
             def data(plist=plist, shape=shape):
                 leaf = torch.cat([whole[i][pc.offset:pc.offset + pc.numel]
                                   for i, pc in plist])
                 return _to_numpy(leaf).reshape(shape)
-            plan.add([[0, d] for d in shape],
-                     data if part.rank == 0 else None)
+            writers = ([0] if first.expert_axis is None
+                       else [e * topo.data for e in range(topo.ep)])
+            for r in writers:
+                plan.add(part.global_box(first, [[0, d] for d in shape], r),
+                         data if part.rank == r else None)
             continue
         for r in range(part.world):
             for i, pc in plist:
@@ -589,7 +607,7 @@ def _plans(engine, prefix: str, shard: torch.Tensor,
                             def fn(at=at, n=n, box_shape=_box_shape(box)):
                                 return _to_numpy(shard[at:at + n]).reshape(
                                     box_shape)
-                        plan.add(box, fn)
+                        plan.add(part.global_box(pc, box, r), fn)
                         at += n
     return plans
 
@@ -839,21 +857,26 @@ def _fill(engine, reader: CheckpointReader, key_of: Callable[[Tuple], str],
     ``shard``, and unit ``i`` whole into ``whole[i]`` where given."""
     part = engine.partition
     whole = whole or {}
+
+    def read(pc, start, count):
+        # elements [start, start + count) of the rank's copy of the leaf
+        boxes = range_boxes(pc.shape, start, start + count)
+        return reader.read_boxes(key_of(pc.path), [
+            part.global_box(pc, box, part.rank) for box in boxes])
+
     with torch.no_grad():
         for i, u in enumerate(part.units):
             if i in whole:
                 for pc in u.pieces:
-                    src = reader.read_range(key_of(pc.path), pc.start,
-                                            pc.start + pc.numel)
-                    whole[i][pc.offset:pc.offset + pc.numel].copy_(src)
-                lo, hi = u.rank_range(part.rank)
+                    whole[i][pc.offset:pc.offset + pc.numel].copy_(
+                        read(pc, pc.start, pc.numel))
+                lo, hi = part.rank_range(i, part.rank)
                 shard[part.shard_slice(i)].copy_(whole[i][lo:hi])
                 continue
             base = part.shard_offsets[i]
             for pc, start, count, pos in part.rank_pieces(i, part.rank):
-                src = reader.read_range(key_of(pc.path), start,
-                                        start + count)
-                shard[base + pos:base + pos + count].copy_(src)
+                shard[base + pos:base + pos + count].copy_(
+                    read(pc, start, count))
 
 
 def load_engine(engine, load_dir: str, tag: Optional[str],

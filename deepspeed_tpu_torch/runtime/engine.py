@@ -61,12 +61,18 @@ the collectives itself (``comm``, NCCL on the card, gloo on the CPU):
 ``train_batch`` returns the mean of the micro losses as a device tensor and
 reads nothing back from the device except at ``steps_per_print`` (and,
 under offload, the one scalar sync of the host update). MoE models
-(``moe_num_experts > 0``) train at world 1, ZeRO stages 0-3, with the Adam
-family (``check_moe``). Not ported yet (they raise): MoE at world > 1, with
-parameter or optimizer offload, LAMB or the 1-bit optimizers; parameter
-offload at world > 1, optimizer offload beside LAMB
-or the 1-bit optimizers, the NVMe tier in fp16, tensor / pipeline /
-sequence / expert parallelism, activation checkpointing, dropout /
+(``moe_num_experts > 0``) train with the Adam family at any world, ZeRO
+stages 0-3 (``check_moe``): the gating spans every rank's tokens, and with
+``parallel.expert_parallel_size`` ep > 1 (stages 0-2) a rank holds only its
+E / ep banks and their optimizer state (``parallel/topology.py`` lays the
+ranks out as JAX's mesh does; at world > 1 the loss gets the rank's
+``moe_groups``).
+Not ported yet (they raise): MoE with parameter or optimizer offload,
+LAMB or the 1-bit optimizers, expert parallelism at stage 3, Random Token
+Selection beyond one rank; parameter offload at world > 1, optimizer
+offload beside LAMB or the 1-bit optimizers, the NVMe tier in fp16,
+tensor / pipeline / sequence parallelism, activation checkpointing,
+dropout /
 progressive layer drop / random-LTD, compression, curriculum,
 observability, and optimizers other than the Adam family, LAMB and the
 1-bit family.
@@ -85,7 +91,10 @@ from ..comm.comms_logging import configure_comms_logger
 from ..comm.compressed import compressed_allreduce_flat, padded_length
 from ..config.config import ONEBIT_OPTIMIZERS, Config, load_config
 from ..inference.engine import resolve_device
-from ..models.core import Model, cast_floating, param_count, tree_map
+from ..models.core import (Model, cast_floating, param_count, tree_get,
+                           tree_map, tree_set)
+from ..models.transformer import expert_axes
+from ..parallel.topology import Topology, build_groups
 from ..parallel.zero import ZeroParams, ZeroPartition, sharded
 from ..utils.logging import log_dist
 from .checkpoint import load_engine, save_engine, save_flat_weights
@@ -103,8 +112,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
 
 
 def check_moe(model_cfg: Any, config: Config, world: int) -> None:
-    """MoE trains at world 1 with the Adam family, at ZeRO stages 0-3.
-    JAX's ``ValueError`` for experts that an expert-parallel degree does not
+    """MoE trains with the Adam family at any world, at ZeRO stages 0-3
+    (expert parallelism at 0-2, ``Config.check_ported``). JAX's
+    ``ValueError`` for experts that an expert-parallel degree does not
     divide comes first (JAX ``engine.py:263-272``); the rest raise
     ``NotImplementedError`` naming themselves."""
     experts = getattr(model_cfg, "moe_num_experts", 0) or 0
@@ -115,12 +125,9 @@ def check_moe(model_cfg: Any, config: Config, world: int) -> None:
     if not experts:
         return
     missing = []
-    if world > 1:
-        missing.append(
-            f"MoE at world {world}: JAX gates over the global batch (the "
-            "capacity, the queue positions and the aux loss's means span "
-            "every rank's tokens), which needs the router logits gathered "
-            "across ranks")
+    if world > 1 and getattr(model_cfg, "moe_use_rts", False):
+        missing.append(f"MoE with moe_use_rts at world {world} (every rank "
+                       "would draw its own priorities for the global plan)")
     zero = config.zero_optimization
     if zero.offload_param.device != "none":
         missing.append("MoE with zero_optimization.offload_param (the aux "
@@ -163,6 +170,10 @@ class TrainEngine:
         if dp not in (0, self.world):
             raise ValueError(f"parallel.data_parallel_size={dp} but the "
                              f"process group has {self.world} rank(s)")
+        self.topology = Topology(self.world,
+                                 config.parallel.expert_parallel_size,
+                                 self.rank)
+        self.moe_groups = None
         self.model = model
         self.config = config.resolve_batch_sizes(self.world)
         configure_comms_logger(self.config.comms_logger,
@@ -240,30 +251,43 @@ class TrainEngine:
         gen.manual_seed(self.config.seed)
         params = tree_map(lambda t: t.to(self.device),
                           cast_floating(model.init(gen), self.compute_dtype))
+        experts = {}
+        if getattr(model.config, "moe_num_experts", 0):
+            # the layers' process groups: global gating, and the rank's
+            # banks of the same seeded tree under expert parallelism
+            self.moe_groups = build_groups(self.topology)
+            if self.topology.ep > 1:
+                experts = expert_axes(model.config, params)
+                lo, hi = self.topology.banks(model.config.moe_num_experts)
+                for path, axis in experts.items():
+                    tree_set(params, path, tree_get(params, path).narrow(
+                        axis, lo, hi - lo))
         zcfg = self.config.zero_optimization
         self.partition = ZeroPartition.build(
             self.config.zero_stage, params, self.world, self.rank,
-            zcfg.stage3_param_persistence_threshold)
+            zcfg.stage3_param_persistence_threshold,
+            topology=self.topology, experts=experts)
         self.zero = ZeroParams(self.partition, params, self.compute_dtype,
-                               self.device)
+                               self.device, self.moe_groups)
         stage3 = sharded(self.config.zero_stage, "params")
         sizes, ids = self.partition.rank_segments(self.rank)
         self.opt_state = self.optimizer.init_shard(
             self.zero.shard, partitioned=self.partition.units[0].parts > 1,
             layout=(sizes, ids, len(self.partition.leaf_pieces())),
             offload=self._make_offload())
+        self.opt_state.expert_norm = self.zero.expert_norm()
         if not stage3:
             self.opt_state.params = self.zero.params
-            self.opt_state.param_flat = self.zero.full[0]
+            self.opt_state.param_flat = self.zero.whole
             self.opt_state.grads = tree_map(lambda t: t.grad,
                                             self.zero.params)
-            self.opt_state.grad_flat = self.zero.grad_full[0]
+            self.opt_state.grad_flat = self.zero.grad_whole
         if self.config.optimizer.type.lower() in ONEBIT_OPTIMIZERS:
             self._onebit = self._onebit_state()
         del params
         self.scaler_state: LossScaleState = self.loss_scaler.init(self.device)
         gas = self.gradient_accumulation_steps()
-        self._grad_acc = (torch.zeros(self.zero.full[0].numel(),
+        self._grad_acc = (torch.zeros(self.zero.whole.numel(),
                                       dtype=torch.float32, device=self.device)
                           if gas > 1 and self.compute_dtype != torch.float32
                           and self.zero.acc is None else None)
@@ -395,9 +419,15 @@ class TrainEngine:
 
     # -- the step -----------------------------------------------------------
     def _loss(self, batch: Dict[str, Any]) -> torch.Tensor:
-        if sharded(self.config.zero_stage, "params"):
-            return self.model.loss_fn(self.zero.step_params(), batch)
-        return self.model.loss_fn(self.zero.params, batch)
+        params = (self.zero.step_params()
+                  if sharded(self.config.zero_stage, "params")
+                  else self.zero.params)
+        if self.moe_groups is not None and self.world > 1:
+            # one rank's plan is the global one: a loss of two arguments
+            # serves there
+            return self.model.loss_fn(params, batch,
+                                      moe_groups=self.moe_groups)
+        return self.model.loss_fn(params, batch)
 
     def _backward(self, loss: torch.Tensor) -> None:
         """Grads of ``loss * scale / (gas * world)``: into the flat grad
@@ -415,8 +445,8 @@ class TrainEngine:
             self.zero.reduce_persistent_grads()
             self.zero.release_grads()
         elif self._grad_acc is not None:
-            self._grad_acc.add_(self.zero.grad_full[0])
-            self.zero.grad_full[0].zero_()
+            self._grad_acc.add_(self.zero.grad_whole)
+            self.zero.grad_whole.zero_()
 
     def _make_offload(self):
         """The optimizer-state tier of ``offload_optimizer.device``: None
@@ -493,15 +523,15 @@ class TrainEngine:
         update, and the grads zeroed for the next step."""
         if self.zero.acc is not None:
             grads = full = self.zero.acc
+        elif self._onebit is not None:
+            full = (self._grad_acc if self._grad_acc is not None
+                    else self.zero.grad_whole)
+            lo, hi = self.partition.rank_range(0, self.rank)
+            grads = self._onebit_average(full)[lo:hi]
         else:
             full = (self._grad_acc if self._grad_acc is not None
-                    else self.zero.grad_full[0])
-            if self._onebit is not None:
-                avg = self._onebit_average(full)
-            else:
-                avg = comm.all_reduce(full, log_name="grad_all_reduce")
-            lo, hi = self.partition.units[0].rank_range(self.rank)
-            grads = avg[lo:hi]
+                    else self.zero.grad_whole)
+            grads = self.zero.reduce_grads(full)
         fp16 = self.fp16_enabled()
         stats = self.optimizer.apply(
             self.opt_state, grads,
@@ -605,16 +635,39 @@ class TrainEngine:
 
     @torch.no_grad()
     def eval_loss(self, batch: Any) -> torch.Tensor:
-        """The eval loss of the whole ``batch`` on every rank."""
+        """The eval loss of the whole ``batch`` on every rank. Under expert
+        parallelism a rank holds only its banks: each computes its rows
+        ``[r * n / world, (r + 1) * n / world)`` with the global gating of
+        training, and the ranks' losses are averaged (a collective)."""
         if self._param_offload is not None:
             return self._param_offload.eval_forward(self._to_device(batch))
         fn = self.model.eval_loss_fn or self.model.loss_fn
         params = (self.zero.step_params()
                   if sharded(self.config.zero_stage, "params")
                   else self.zero.params)
-        out = fn(params, self._to_device(batch))
+        if self.moe_groups is not None and self.topology.ep > 1:
+            out = fn(params, self._eval_rows(batch),
+                     moe_groups=self.moe_groups)
+            out = comm.all_reduce(out.float(), op=comm.ReduceOp.AVG,
+                                  log_name="eval_loss")
+        else:
+            out = fn(params, self._to_device(batch))
         self.zero.release_all()
         return out
+
+    def _eval_rows(self, batch: Any) -> Any:
+        """This rank's equal share of an eval batch's rows, on the
+        device."""
+        def rows(x):
+            x = torch.as_tensor(x)
+            if x.shape[0] % self.world:
+                raise ValueError(
+                    f"under expert parallelism an eval batch splits over "
+                    f"the {self.world} ranks: {x.shape[0]} rows do not")
+            n = x.shape[0] // self.world
+            return x[self.rank * n:(self.rank + 1) * n]
+
+        return self._to_device(tree_map(rows, batch))
 
     # -- checkpointing (JAX engine.py:1829 / :1894 / :2010) ------------------
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,

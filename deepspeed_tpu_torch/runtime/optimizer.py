@@ -42,9 +42,11 @@ Under ZeRO (``parallel/zero.py``) the fp32 master and the moments cover
 only the rank's shard: ``init_shard`` builds them over the shard's
 compute-dtype buffer, ``apply`` takes the shard's grads, and with
 ``partitioned`` the squared grad norm of the shard is all-reduced over the
-data-parallel group before the square root, so every rank clips by the
-global norm and reads the fp16 overflow off it (a rank whose grads are not
-finite makes the sum not finite on every rank). LAMB's shard is made of
+data-parallel group before the square root (under expert parallelism at
+stage 0, only the expert banks' part, over the expert-parallel group:
+``expert_norm``), so every rank clips by the global norm and reads the
+fp16 overflow off it (a rank whose grads are not finite makes the sum not
+finite on every rank). LAMB's shard is made of
 parts of leaves (``ZeroPartition.rank_segments``): its segments carry their
 leaf's id, and phase 2 all-reduces the per-leaf sums of ||p||^2 and
 ||u||^2 before it takes each trust ratio, so every rank uses the ratio of
@@ -132,10 +134,14 @@ class OptimizerState:
     (``shard_param`` is ``param_flat``), whose views are ``params`` /
     ``grads``. ``count``: steps attempted (JAX's outer count);
     ``inner_count``: steps applied. ``partitioned``: the grads ``apply``
-    gets are the rank's shard, so the norm is all-reduced. ``offload``: the
-    tier that holds the state off the card (the host-memory tier's master
-    and moments are CPU tensors here; the NVMe tier's are None, they live
-    in its files)."""
+    gets are the rank's shard, so the norm is all-reduced.
+    ``expert_norm``: (start, group) when the grads from ``start`` on are a
+    rank's expert banks held whole by each rank of its expert-data group
+    (ZeRO stage 0 under expert parallelism): their squares are all-reduced
+    over the expert-parallel ``group``, so each bank counts once.
+    ``offload``: the tier that holds the state off the card (the
+    host-memory tier's master and moments are CPU tensors here; the NVMe
+    tier's are None, they live in its files)."""
 
     shard_param: torch.Tensor
     master: Optional[torch.Tensor]
@@ -152,6 +158,7 @@ class OptimizerState:
     lamb_update: Optional[torch.Tensor] = None
     segments: Optional[LambSegments] = None
     offload: Any = None
+    expert_norm: Optional[Tuple[int, Any]] = None
 
     @property
     def n(self) -> int:
@@ -290,7 +297,13 @@ class MixedPrecisionOptimizer:
             raise ValueError(f"grads must be flat ({state.n},), got "
                              f"{tuple(grads.shape)}")
         self._drain(state)
-        norm = grad_norm(grads)
+        if state.expert_norm is not None:
+            at, group = state.expert_norm
+            banks = comm.all_reduce(grad_norm(grads[at:]).square(),
+                                    group=group, log_name="grad_norm")
+            norm = (grad_norm(grads[:at]).square() + banks).sqrt()
+        else:
+            norm = grad_norm(grads)
         if state.partitioned:
             sq = comm.all_reduce(norm.square(), log_name="grad_norm")
             norm = sq.sqrt()

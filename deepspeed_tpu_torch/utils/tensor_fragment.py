@@ -18,7 +18,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import comm
 from ..models.core import tree_get
 
 
@@ -86,9 +85,6 @@ def safe_get_full_grad(engine, path: str) -> Optional[np.ndarray]:
         shard = zero.acc
     else:
         full = (engine._grad_acc if engine._grad_acc is not None
-                else zero.grad_full[0]).float().clone()
-        if engine.world > 1:
-            comm.all_reduce(full, log_name="safe_get_full_grad")
-        lo, hi = engine.partition.units[0].rank_range(engine.rank)
-        shard = full[lo:hi]
+                else zero.grad_whole).float().clone()
+        shard = zero.reduce_grads(full)
     return _leaf(zero.full_tree(shard), path)

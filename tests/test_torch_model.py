@@ -250,7 +250,9 @@ class TestPortRules:
          "pipeline_parallel_size"),
         ({"parallel": {"sequence_parallel_size": 2}},
          "sequence_parallel_size"),
-        ({"parallel": {"expert_parallel_size": 2}}, "expert_parallel_size"),
+        ({"parallel": {"expert_parallel_size": 2},
+          "zero_optimization": {"stage": 3}},
+         "expert_parallel_size=2 at ZeRO stage 3"),
         ({"zero_optimization": {"stage": 2, "offload_optimizer": {
             "device": "cpu"}}, "optimizer": {"type": "lamb"}},
          "offload_optimizer"),
@@ -267,9 +269,10 @@ class TestPortRules:
           "fp16": {"enabled": True}}, "'nvme' with fp16"),
     ])
     def test_check_ported_still_refuses(self, section, what):
-        """Data parallelism, optimizer and parameter offload, the 1-bit
-        optimizers at stages 0-1 and LAMB at any world are ported; the
-        other degrees, parameter offload beside pipeline parallelism and
+        """Data parallelism, expert parallelism at stages 0-2, optimizer
+        and parameter offload, the 1-bit optimizers at stages 0-1 and LAMB
+        at any world are ported; the other degrees, expert parallelism at
+        stage 3, parameter offload beside pipeline parallelism and
         the combinations the port does not run still raise, naming
         themselves."""
         from deepspeed_tpu_torch.config import load_config
@@ -278,6 +281,7 @@ class TestPortRules:
         with pytest.raises(NotImplementedError, match=what):
             load_config(cfg).check_ported()
         for ok in ({"parallel": {"data_parallel_size": 4}},
+                   {"parallel": {"expert_parallel_size": 2}},
                    {"optimizer": {"type": "lamb"},
                     "parallel": {"data_parallel_size": 4}},
                    {"optimizer": {"type": "onebitlamb"},

@@ -20,8 +20,9 @@
 * Greedy ``generate`` (fp32, and int8 over JAX's quantized weights) and
   serving streams equal to JAX's.
 * A format-2 checkpoint: JAX's key set, and a round trip bit for bit.
-* The refusals: MoE at world > 1, expert parallelism, parameter and
-  optimizer offload, LAMB and the 1-bit optimizers.
+* The refusals: MoE with parameter offload at world 2, expert parallelism
+  at ZeRO stage 3, optimizer offload, LAMB and the 1-bit optimizers
+  (``tests/test_torch_moe_ep.py`` trains MoE beyond one rank).
 """
 
 import jax
@@ -632,7 +633,9 @@ def test_checkpoint_keys_match_jax_and_round_trip(tmp_path, jax_run):
 # ---------------------------------------------------------------------------
 
 REFUSALS = [
-    ("world", {}, "MoE at world 2"),
+    ("world", {"zero_optimization": {
+        "stage": 3, "offload_param": {"device": "cpu"}}},
+     "MoE with zero_optimization.offload_param"),
     ("offload_param", {"zero_optimization": {
         "stage": 3, "offload_param": {"device": "cpu"}}},
      "offload_param"),
@@ -644,15 +647,19 @@ REFUSALS = [
     ("onebitadam", {"optimizer": {"type": "onebitadam",
                                   "params": {"lr": 1e-3}}},
      "optimizer 'onebitadam'"),
-    ("expert_parallel", {"parallel": {"expert_parallel_size": 2}},
-     "expert_parallel_size=2"),
+    ("expert_parallel", {"parallel": {"expert_parallel_size": 2},
+                         "zero_optimization": {"stage": 3}},
+     "expert_parallel_size=2 at ZeRO stage 3"),
 ]
 
 
 @pytest.mark.parametrize("what,extra,match", REFUSALS,
                          ids=[r[0] for r in REFUSALS])
 def test_refusals_name_themselves(what, extra, match, monkeypatch):
-    if what == "world":
+    """MoE at world 2 with parameter offload, and expert parallelism at
+    ZeRO stage 3 (a world of 2 that ep 2 divides), still raise by name, as
+    do the combinations MoE does not train with at any world."""
+    if what in ("world", "expert_parallel"):
         monkeypatch.setattr(comm, "get_world_size", lambda group=None: 2)
     model = create_model("moe-tiny", dtype=torch.float32, max_seq_len=SEQ)
     cfg = dict(_train_config(0), **extra)

@@ -16,7 +16,7 @@ import queue
 import shutil
 import tempfile
 import traceback
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -147,7 +147,8 @@ def port_model(case: Dict[str, Any], init: Any):
              "bfloat16": torch.bfloat16}[case["dtype"]]
     if case["model"] == "simple":
         return simple_model(params=init, dtype=dtype)
-    model = create_model(case["model"], dtype=dtype, max_seq_len=SEQ)
+    model = create_model(case["model"], dtype=dtype, max_seq_len=SEQ,
+                         **case.get("model_kw", {}))
     return Model(init=lambda g: params_from_jax(init, model.config,
                                                 device=g.device),
                  config=model.config, name=model.name,
@@ -186,12 +187,22 @@ def train_case(case: Dict[str, Any], init: Any, world: int, stage: int,
 
     eng = initialize(model=port_model(case, init),
                      config=case_config(case, world, stage), device="cpu")[0]
+    norms = []
+    apply = eng.optimizer.apply
+
+    def recording(*args, **kw):
+        # the global grad norm each step clips by (the optimizer's stats)
+        stats = apply(*args, **kw)
+        norms.append(float(stats.grad_norm))
+        return stats
+
+    eng.optimizer.apply = recording
     losses, scales = [], []
     for b in batches:
         losses.append(float(eng.train_batch(batch=b)))
         scales.append(eng.cur_scale)
     return {"losses": losses, "scales": scales,
-            "skipped": eng.skipped_steps,
+            "skipped": eng.skipped_steps, "grad_norms": norms,
             "params": params_to_numpy(eng.params),
             "memory": memory_stats(eng)}
 
@@ -221,27 +232,37 @@ def checkpoint_step(rank, world, case, init, ckpt) -> Dict[str, Any]:
     third step. At ``load_world``: load at ``load_stage`` and take the third
     step. Returns the loaded / saved params, the counters and the third
     loss."""
+    saving = world == ckpt["save_world"]
+    stage = ckpt["save_stage"] if saving else ckpt["load_stage"]
+    return checkpoint_case(case, init, world, stage, ckpt["dir"], "step2",
+                           saving)
+
+
+def checkpoint_case(case, init, world, stage, directory, tag, save
+                    ) -> Dict[str, Any]:
+    """``save``: train 2 steps, save as ``tag``, take a third step; else
+    load ``tag`` and take the third step. Returns the params saved or
+    loaded (whole), the counters, the shards' problems and the third
+    step's loss and params."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models import params_to_numpy
     from deepspeed_tpu_torch.models.core import tree_map
     from deepspeed_tpu_torch.runtime.checkpoint import verify_checkpoint
 
     batches = token_batches(3, case["gas"], seed=5)
-    saving = world == ckpt["save_world"]
-    stage = ckpt["save_stage"] if saving else ckpt["load_stage"]
     eng = initialize(model=port_model(case, init),
                      config=case_config(case, world, stage), device="cpu")[0]
-    if saving:
+    if save:
         for b in batches[:2]:
             eng.train_batch(batch=b)
-        eng.save_checkpoint(ckpt["dir"], tag="step2")
+        eng.save_checkpoint(directory, tag=tag)
     else:
-        eng.load_checkpoint(ckpt["dir"])
+        eng.load_checkpoint(directory, tag=tag)
     # a copy: on the CPU the arrays would alias the params the next step
     # updates in place
     state = {"params": tree_map(np.copy, params_to_numpy(eng.params)),
              "global_steps": eng.global_steps, "count": eng.opt_state.count,
-             "problems": verify_checkpoint(ckpt["dir"], "step2")}
+             "problems": verify_checkpoint(directory, tag)}
     state["loss3"] = float(eng.train_batch(batch=batches[2]))
     state["params3"] = params_to_numpy(eng.params)
     return state
@@ -403,3 +424,61 @@ def param_offload_refusal(rank: int, world: int) -> str:
     except NotImplementedError as e:
         return f"NotImplementedError: {e}"
     return "accepted"
+
+
+# ---------------------------------------------------------------------------
+# MoE beyond one rank
+# ---------------------------------------------------------------------------
+
+def moe_plan_rows(rank: int, world: int, logits: np.ndarray, top_k: int,
+                  capacity_factor: float) -> Dict[str, Any]:
+    """This rank's rows of the global plan over ``logits`` ((world * T, E)
+    fp32; the rank is given rows ``[rank * T, (rank + 1) * T)``), and the
+    grad its rows get from the aux loss (every rank's copy of it summed)."""
+    from deepspeed_tpu_torch.parallel.moe import global_plan
+    from deepspeed_tpu_torch.parallel.topology import Topology, build_groups
+
+    T = logits.shape[0] // world
+    x = torch.tensor(logits[rank * T:(rank + 1) * T], requires_grad=True)
+    plan = global_plan(x, top_k, capacity_factor,
+                       groups=build_groups(Topology(world, 1, rank)))
+    plan.aux_loss.backward()
+    out = {k: getattr(plan, k).detach().numpy().copy() for k in (
+        "expert_idx", "slot_pos", "weight", "valid", "aux_loss",
+        "expert_counts")}
+    out.update(capacity=plan.capacity, aux_grad=x.grad.numpy().copy())
+    return out
+
+
+def moe_eval(case: Dict[str, Any], init: Any, world: int) -> float:
+    """The eval loss of a global batch (``GLOBAL_ROWS`` rows) at the
+    init."""
+    from deepspeed_tpu_torch import initialize
+
+    eng = initialize(model=port_model(case, init),
+                     config=case_config(case, world, 0), device="cpu")[0]
+    return float(eng.eval_loss({"input_ids": token_batches(1, 1, seed=7)[0][
+        "input_ids"][0]}))
+
+
+def moe_ep_runs(rank: int, world: int, cases: Dict[Any, Dict],
+                inits: Dict[str, Any], plans: List[Tuple],
+                evals: Dict[str, Dict], checkpoints: List[Tuple]
+                ) -> Dict[Any, Any]:
+    """The global plans of ``plans`` ((logits, top_k, capacity factor)),
+    every case of ``cases`` (keyed (variant, ep, stage), ``train_case``),
+    the eval losses of ``evals`` (variant ``top2``), and the
+    ``checkpoints`` steps in order: (key, case, variant, stage, directory,
+    tag, save)."""
+    out: Dict[Any, Any] = {}
+    for i, (logits, k, cf) in enumerate(plans):
+        out[("plan", i)] = moe_plan_rows(rank, world, logits, k, cf)
+    for name, case in evals.items():
+        out[("eval", name)] = moe_eval(case, inits["top2"], world)
+    for key, case in cases.items():
+        batches = token_batches(case["steps"], case["gas"])
+        out[key] = train_case(case, inits[key[0]], world, key[2], batches)
+    for key, case, variant, stage, directory, tag, save in checkpoints:
+        out[key] = checkpoint_case(case, inits[variant], world, stage,
+                                   directory, tag, save)
+    return out
