@@ -200,14 +200,32 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    batch, stage 3's losses within the zero bound of stage 0's, or within
    ZERO_SPREAD_FACTOR times the repeat's spread where that is larger.
    Prints step ms, tokens/s, MFU on the active parameters and peak memory.
-28. ``moe_generate`` — ``init_inference("moe-gpt-350m-8e")`` in bf16, then
+28. ``moe_param_offload`` — the same model, batch and AdamW under ZeRO-3
+   parameter offload, one layer a block (24 blocks), on the nvme tier
+   then the cpu tier: the streamed init draws moe_train's weights, so the
+   first two losses are held to moe_train's stage-3 losses within 10x the
+   larger of moe_train's two run-to-run spreads (its stage-0 repeat's and
+   stage 3's), at least stage 3's bound; a warm-up step's routing (one
+   plan a layer: the backward's recompute routes again unlogged), then 2
+   timed steps with exact
+   launches (``param_offload_launches``: #16 once a block and once for the
+   resident part). Prints each step split into forward / backward
+   (recompute) / block updates, ``device_busy_s``, ``host_copy_s``, GB
+   each way and on disk, peak device memory beside moe_train stage 3's,
+   host RSS.
+29. ``moe_optim`` — the same model and batch, 3 steps each with exact
+   launches and falling losses under host-memory optimizer offload at ZeRO
+   1 (the host update over 1.76 B elements), LAMB at ZeRO 0 and 2 (#17 once
+   a step) and onebitadam at ZeRO 0 past its freeze step (compressed from
+   the second step). Prints step ms, peak memory, host RSS.
+30. ``moe_generate`` — ``init_inference("moe-gpt-350m-8e")`` in bf16, then
    int8 over the same weights (attention sites quantized, expert banks
    dense): two ``generate`` calls each on the generate phase's prompts;
    the first call of each launches the generate kernels, int8's exactly
    4 x 24 x 31 int8 GEMMs. Prints TTFT, decode tokens/s and the bf16 / int8
    token agreement (not a gate). ``moe_serve`` — ``init_serving`` over the
    bf16 weights, the serve phase's 8 requests; the serving kernels run.
-29. ``e2e_moe`` — the same widths at 2 layers, fp32: cache-less, dense-arena
+31. ``e2e_moe`` — the same widths at 2 layers, fp32: cache-less, dense-arena
    and paged logits of the kernel path within E2E_TOL of ``plain=True``,
    each with its routing margin guarded (``RouterSpy``: the smallest gap of
    a token's top-(k+1) gates above twice the two paths' gate difference),
@@ -248,7 +266,11 @@ moe-gpt-350m-8e's training shapes the norm (4096 x 1024, LayerNorm with
 bias), the flash forward and backward (B 4, S = T 1024, 16 heads of 64,
 causal) and fused Adam over the model's 1.76 B elements in one launch
 (``adam_model_case``: held to the plain version slice by slice) are given
-under ``moe_train``.
+under ``moe_train``; fused Adam at moe_param_offload's two calls (a layer's
+block and the resident part, bf16 grads) under ``moe_param_offload``, and
+the LAMB phase-1 kernel over the model's 1.76 B elements in its leaves
+(``lamb_model_case``: held to the plain version piece by piece) under
+``moe_optim``.
 
 Then one ``{"kernels": [...]}`` line (``kernel``: the CUDA kernel that runs
 at the main path's shape; ``launches``: each wrapper's count over
@@ -258,7 +280,8 @@ timed steps of each stage 1-3, lamb_zero's 2 timed steps a stage,
 offload's 2 timed steps, param_offload's 2 timed steps of each run, the 5
 timed sparse_train steps, the 5 timed
 spatial calls, the quantize phase's fake_quantize pass, moe_train's 3 + 2
-timed steps, the first bf16 and int8 moe_generate calls and the moe_serve
+timed steps, moe_param_offload's 2 timed steps a tier, moe_optim's 3
+steps a run, the first bf16 and int8 moe_generate calls and the moe_serve
 run), the nvidia-smi line, and as the last line ``{"ok":
 true, "device": {...}}``. Each phase's line carries ``at_s``, the seconds
 since the start, and the ``kernels`` phase's line the seconds each group
@@ -1240,12 +1263,12 @@ def check_adam(case: str, old, got, ref, g, scale, kw) -> float:
          ADAM_P_ROUND * ref[0].abs() + ADAM_RTOL * kw["lr"] * u_mag)))
 
 
-def llama_7b_offload_numels():
-    """Elements of one llama-7b layer (a block of parameter offload at the
-    default buffer_size) and of its resident part (embedding, final norm,
+def offload_numels(preset: str = "llama-7b"):
+    """Elements of one layer of ``preset`` (a block of parameter offload at
+    one layer a block) and of its resident part (embedding, final norm,
     head), from the model's shapes."""
-    tree = create_model("llama-7b", num_layers=1).init(torch.Generator(),
-                                                       device="meta")
+    tree = create_model(preset, num_layers=1).init(torch.Generator(),
+                                                   device="meta")
     items = list(tree_items(tree))
     return (sum(t.numel() for p, t in items if p[0] == "layers"),
             sum(t.numel() for p, t in items if p[0] != "layers"))
@@ -1258,67 +1281,93 @@ def adam_cases(dev, gen):
     parameter offload's sizes on llama-7b its two calls: a block (one
     layer) on the deferred path (fp32 accumulated grads, the bf16 copy, the
     clip coefficient) and the resident part on the fused path (bf16 grads,
-    the bf16 copy, no scale; the blocks take the same call). AdamW, lr
+    the bf16 copy, no scale; the blocks take the same call), and at
+    moe-gpt-350m-8e's (moe_param_offload's fused path: a layer's block and
+    the resident part, bf16 grads and copy, no scale). AdamW, lr
     1e-4, weight decay 0.01, bias correction at step 10. The second moments
     span 1e-16..1 (log-uniform), so some updates are ~lr-sized and depend
     on eps and the bias corrections, others are dominated by the weight
     decay. The yardstick is ``torch.optim.AdamW(fused=True)``'s step on the
     same sizes (fp32 grads: it takes the param's dtype)."""
-    kw = dict(step=10, lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
-              weight_decay=0.01, adam_w_mode=True)
-    block, resident = llama_7b_offload_numels()
-    results = []
-    for case, n, gdt, copy, scaled in (
-            ("train", 64 * 2 ** 20, torch.bfloat16, True, True),
-            ("fp32", 64 * 2 ** 20, torch.float32, False, True),
-            ("offload_block", block, torch.float32, True, True),
-            ("offload_resident", resident, torch.bfloat16, True, False)):
-        p = torch.randn(n, generator=gen, device=dev)
-        m = 1e-5 * torch.randn(n, generator=gen, device=dev)
-        v = torch.pow(10.0, -16 * torch.rand(n, generator=gen, device=dev))
-        g = (1e-5 * torch.randn(n, generator=gen, device=dev)).to(gdt)
-        one = torch.ones(1, device=dev)
-        scale = torch.tensor([0.37], device=dev) if scaled else None
-        bufs = [[x.clone() for x in (p, m, v)] for _ in range(2)]
-        copies = ([torch.empty(n, dtype=torch.bfloat16, device=dev)
-                   for _ in range(2)] if copy else [None, None])
-        fused_adam_flat(*bufs[0][:1], g, *bufs[0][1:], param_copy=copies[0],
-                        grad_scale=scale, **kw)
-        reference_adam_flat(*bufs[1][:1], g, *bufs[1][1:],
-                            param_copy=copies[1], grad_scale=scale, **kw)
-        err = check_adam(case, (p, m, v), bufs[0], bufs[1], g,
-                         one if scale is None else scale, kw)
-        if copy:
-            check(f"fused_adam {case} copy", copies[0], copies[1],
-                  ADAM_COPY_TOL)
-        nbytes = n * (12 + g.element_size() + 12 + (2 if copy else 0))
-        b_ms, b_by = bound_ms(nbytes, 16.0 * n, FP32_FLOPS)
-        kp, km, kv = bufs[0]
-        ms = time_ms(lambda: fused_adam_flat(kp, g, km, kv,
-                                             param_copy=copies[0],
-                                             grad_scale=scale, **kw),
-                     iters=5, reps=4)
-        pp, pm, pv = bufs[1]
-        plain = time_ms(lambda: reference_adam_flat(
-            pp, g, pm, pv, param_copy=copies[1], grad_scale=scale, **kw),
-            iters=2, reps=3)
-        del bufs, copies
-        param = torch.nn.Parameter(p)
-        param.grad = g.float()
-        opt = torch.optim.AdamW([param], lr=1e-4, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=0.01, fused=True)
-        library = time_eager_ms(opt.step)
-        del opt, param, p, m, v, g
-        results.append(dict(
-            case=case, n=n, grad_dtype=str(gdt), param_copy=copy,
-            grad_scale=scaled, dtype=str(gdt), max_abs_err=err,
-            tol=dict(rtol_of_terms=ADAM_RTOL, p_round=ADAM_P_ROUND),
-            ms=ms, plain_ms=plain,
-            library_ms=library, bound_ms=b_ms, bound_by=b_by))
-        torch.cuda.empty_cache()
+    kw = ADAM_KW
+    block, resident = offload_numels()
+    moe_block, moe_resident = offload_numels(MOE_PRESET)
+    results = [adam_case(dev, gen, *c) for c in (
+        ("train", 64 * 2 ** 20, torch.bfloat16, True, True),
+        ("fp32", 64 * 2 ** 20, torch.float32, False, True),
+        ("offload_block", block, torch.float32, True, True),
+        ("offload_resident", resident, torch.bfloat16, True, False),
+        ("moe_offload_block", moe_block, torch.bfloat16, True, False, True),
+        ("moe_offload_resident", moe_resident, torch.bfloat16, True, False,
+         True))]
     results.append(adam_model_case(dev, gen, "moe_train",
                                    moe_param_count(), kw))
     return results
+
+
+# AdamW as the kernel cases run it: bias correction at step 10
+ADAM_KW = dict(step=10, lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+               weight_decay=0.01, adam_w_mode=True)
+
+
+def adam_case(dev, gen, case: str, n: int, gdt, copy: bool, scaled: bool,
+              rounding_copy: bool = False):
+    """One ``adam_cases`` case: ``n`` elements, ``gdt`` grads, the bf16
+    copy written when ``copy``, a clip coefficient when ``scaled``; held
+    to the plain version and timed beside it and the library step. With
+    ``rounding_copy`` the copy is held to its master's rounding
+    (``check_adam_copy``, as ``adam_model_case`` holds it): over tens of
+    millions of elements some step cancels most of a param, and there the
+    two copies can sit more than ADAM_COPY_TOL apart."""
+    kw = ADAM_KW
+    p = torch.randn(n, generator=gen, device=dev)
+    m = 1e-5 * torch.randn(n, generator=gen, device=dev)
+    v = torch.pow(10.0, -16 * torch.rand(n, generator=gen, device=dev))
+    g = (1e-5 * torch.randn(n, generator=gen, device=dev)).to(gdt)
+    one = torch.ones(1, device=dev)
+    scale = torch.tensor([0.37], device=dev) if scaled else None
+    bufs = [[x.clone() for x in (p, m, v)] for _ in range(2)]
+    copies = ([torch.empty(n, dtype=torch.bfloat16, device=dev)
+               for _ in range(2)] if copy else [None, None])
+    fused_adam_flat(*bufs[0][:1], g, *bufs[0][1:], param_copy=copies[0],
+                    grad_scale=scale, **kw)
+    reference_adam_flat(*bufs[1][:1], g, *bufs[1][1:],
+                        param_copy=copies[1], grad_scale=scale, **kw)
+    err = check_adam(case, (p, m, v), bufs[0], bufs[1], g,
+                     one if scale is None else scale, kw)
+    outside = None
+    if copy and rounding_copy:
+        outside = check_adam_copy(case, copies[0], copies[1], bufs[0][0],
+                                  bufs[1][0])
+    elif copy:
+        check(f"fused_adam {case} copy", copies[0], copies[1],
+              ADAM_COPY_TOL)
+    nbytes = n * (12 + g.element_size() + 12 + (2 if copy else 0))
+    b_ms, b_by = bound_ms(nbytes, 16.0 * n, FP32_FLOPS)
+    kp, km, kv = bufs[0]
+    ms = time_ms(lambda: fused_adam_flat(kp, g, km, kv,
+                                         param_copy=copies[0],
+                                         grad_scale=scale, **kw),
+                 iters=5, reps=4)
+    pp, pm, pv = bufs[1]
+    plain = time_ms(lambda: reference_adam_flat(
+        pp, g, pm, pv, param_copy=copies[1], grad_scale=scale, **kw),
+        iters=2, reps=3)
+    del bufs, copies
+    param = torch.nn.Parameter(p)
+    param.grad = g.float()
+    opt = torch.optim.AdamW([param], lr=1e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.01, fused=True)
+    library = time_eager_ms(opt.step)
+    del opt, param, p, m, v, g
+    torch.cuda.empty_cache()
+    return dict(
+        case=case, n=n, grad_dtype=str(gdt), param_copy=copy,
+        grad_scale=scaled, dtype=str(gdt), max_abs_err=err,
+        copy_outside_copy_tol=outside,
+        tol=dict(rtol_of_terms=ADAM_RTOL, p_round=ADAM_P_ROUND),
+        ms=ms, plain_ms=plain,
+        library_ms=library, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_adam_copy(case: str, got, ref, got_p, ref_p) -> int:
@@ -1678,6 +1727,10 @@ def lamb_case_check(case: str, sizes, clamp, p, m, v, g, u, scale,
     return err
 
 
+# LAMB as the kernel cases run it (JAX fused_lamb_flat's eps)
+LAMB_KW = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
+
+
 def lamb_cases(dev, gen):
     """The LAMB phase-1 kernel. "flat": one segment of 64 Mi elements with
     JAX's defaults (clamp [0.01, 10]), bf16 and fp32 grads; "opt-1.3b":
@@ -1688,7 +1741,7 @@ def lamb_cases(dev, gen):
     single PyTorch call computes LAMB, so there is no yardstick; the bound
     is bytes (phase 1 reads p, g, m, v and writes m, v, u)."""
     results = []
-    kw = dict(beta1=0.9, beta2=0.999, eps=1e-6, weight_decay=0.01)
+    kw = LAMB_KW
     flat = [64 * 2 ** 20]
     for case, sizes, clamp, gdt in (
             ("flat", flat, (0.01, 10.0), torch.bfloat16),
@@ -1722,7 +1775,87 @@ def lamb_cases(dev, gen):
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
         del p, m, v, g, u, parts
         torch.cuda.empty_cache()
+    results.append(lamb_model_case(dev, gen, "moe-gpt-350m-8e",
+                                   moe_leaf_sizes(), kw))
     return results
+
+
+def moe_leaf_sizes():
+    """moe-gpt-350m-8e's leaves' sizes in the optimizer's order (its meta
+    init): the segments of moe_optim's LAMB launch at ZeRO stage 0."""
+    tree = create_model(MOE_PRESET).init(torch.Generator(), device="meta")
+    return [t.numel() for t in tree_leaves(tree)]
+
+
+# the plain LAMB phase 1 runs over pieces of this many elements (a multiple
+# of the kernel's block, so each piece's blocks are the kernel's)
+LAMB_CHECK_CHUNK = 1 << 27
+
+
+def lamb_model_case(dev, gen, case: str, sizes, kw):
+    """The LAMB phase-1 kernel over a whole model's leaves in one launch, as
+    the train path runs it (bf16 grads, a clip coefficient, step 10): its
+    new m, v, u and partial sums held to the plain version's piece by piece
+    (LAMB_CHECK_CHUNK elements of a leaf, block-aligned, so each piece's
+    partials are the kernel's; ``check_lamb_phase1``), since at 1.76 B
+    elements the plain version's temporaries over the whole buffer would
+    not fit beside it. ``plain_ms`` is the plain version over those
+    pieces, one after another; phase 2's time over the whole."""
+    seg = LambSegments.from_sizes(sizes)
+    n = seg.n
+    p, m, v, g = lamb_operands(dev, gen, n, torch.bfloat16)
+    scale = torch.tensor([0.37], device=dev)
+    km, kv, u = m.clone(), v.clone(), torch.empty_like(p)
+    parts = lamb_phase1(p, g, km, kv, u, seg, 10, grad_scale=scale, **kw)
+    pieces, off = [], 0
+    for size in sizes:
+        pieces += [(lo, min(off + size, lo + LAMB_CHECK_CHUNK))
+                   for lo in range(off, off + size, LAMB_CHECK_CHUNK)]
+        off += size
+    err = 0.0
+    for lo, hi in pieces:
+        sl = slice(lo, hi)
+        rm, rv = m[sl].clone(), v[sl].clone()
+        ru = torch.empty_like(rm)
+        rparts = reference_lamb_phase1(p[sl], g[sl], rm, rv, ru,
+                                       LambSegments.from_sizes([hi - lo]),
+                                       10, grad_scale=scale, **kw)
+        b0, b1 = np.searchsorted(seg.block_start, [lo, hi])
+        err = max(err, check_lamb_phase1(
+            case, (p[sl], m[sl], v[sl]), (km[sl], kv[sl], u[sl],
+                                          parts[b0:b1]),
+            (rm, rv, ru, rparts), g[sl], scale, 10, kw))
+        del rm, rv, ru, rparts
+    del m, v, parts
+    torch.cuda.empty_cache()
+    nbytes = n * (12 + g.element_size() + 12) + 8 * seg.nblocks
+    b_ms, b_by = bound_ms(nbytes, 16.0 * n, FP32_FLOPS)
+    ms = time_ms(lambda: lamb_phase1(p, g, km, kv, u, seg, 12,
+                                     grad_scale=scale, **kw),
+                 iters=3, reps=3)
+    piece_segs = {hi - lo: LambSegments.from_sizes([hi - lo])
+                  for lo, hi in pieces}
+
+    def plain():
+        for lo, hi in pieces:
+            reference_lamb_phase1(p[lo:hi], g[lo:hi], km[lo:hi], kv[lo:hi],
+                                  u[lo:hi], piece_segs[hi - lo], 12,
+                                  grad_scale=scale, **kw)
+
+    plain_ms = time_eager_ms(plain, iters=1)
+    parts = lamb_phase1(p, g, km, kv, u, seg, 13, grad_scale=scale, **kw)
+    phase2 = time_eager_ms(lambda: lamb_phase2(
+        p, u, parts, seg, 1e-3, max_coeff=float("inf"), min_coeff=0.0),
+        iters=2)
+    del p, g, km, kv, u, parts
+    torch.cuda.empty_cache()
+    return dict(case=case, n=n, segments=len(sizes), blocks=seg.nblocks,
+                grad_dtype=str(torch.bfloat16), dtype=str(torch.bfloat16),
+                max_abs_err=err,
+                tol=dict(rtol_of_terms=ADAM_RTOL, sum_rtol=LAMB_SUM_RTOL),
+                ms=ms, plain_ms=plain_ms, plain_pieces=len(pieces),
+                phase2_ms=phase2, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def gn_route(x: torch.Tensor, G: int):
@@ -4260,8 +4393,226 @@ def moe_train_phase(dev, bound):
                     loss_rel_err=rel, zero_bound=bound,
                     stage0_repeat=repeat, stage0_repeat_spread=spread,
                     bound=moe_bound,
+                    offload_bound=max(moe_bound, ZERO_SPREAD_FACTOR * rel),
                     step_ms=wall3 / MOE_ZERO3_STEPS * 1e3,
                     peak_mem_gb=peak3 / 1e9, gather_units_peak=units))
+
+
+# moe_param_offload: the tiers in order, one layer a block (24 blocks), a
+# warm-up step then this many timed ones a tier
+MOE_PARAM_OFFLOAD_TIERS = ("nvme", "cpu")
+MOE_PARAM_OFFLOAD_STEPS = 2
+
+
+def moe_param_offload_run(dev, tier: str, root: str, stage3):
+    """moe-gpt-350m-8e at full width and depth under ``offload_param`` on
+    ``tier`` (bf16, the train configuration's AdamW, ZeRO 3, one layer a
+    block, the moe_train batch, gas 1: the fused path). The streamed init
+    draws the resident engine's weights, so its first MOE_ZERO3_STEPS
+    losses are held to moe_train's stage-3 losses (``stage3``: its JSON)
+    within its ``offload_bound``: ZERO_SPREAD_FACTOR times the larger of
+    moe_train's two samples of MoE's run-to-run spread (its stage-0
+    repeat's and stage 3's against stage 0; the flash backward's dq sums
+    in another order each run and near-tied top-2 gates flip), at least
+    the stage-3 bound. A warm-up step records the routing (one plan a layer:
+    the backward's recompute is not logged), then MOE_PARAM_OFFLOAD_STEPS
+    timed steps with exact launches (``param_offload_launches``: #16 once
+    a block and once for the resident part)."""
+    model = create_model(MOE_PRESET, dtype=torch.bfloat16,
+                         max_seq_len=MOE_S)
+    cfg = model.config
+    check_moe_widths(cfg)
+    block, _ = offload_numels(MOE_PRESET)
+    config = dict(MOE_CONFIG, zero_optimization={
+        "stage": 3, "offload_param": {
+            "device": tier, "nvme_path": os.path.join(root, tier),
+            "buffer_size": block * 2}},
+        aio={"thread_count": 4, "queue_depth": 8})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = initialize(model=model, config=config)[0]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    ex = engine._param_offload
+    if ex.num_blocks != cfg.num_layers:
+        raise AssertionError(f"moe_param_offload {tier}: {ex.num_blocks} "
+                             f"blocks, not one a layer")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (1, MOE_B, MOE_S),
+                                        generator=gen, device=dev)}
+    moe.PLAN_LOG = []
+    t0 = time.perf_counter()
+    try:
+        losses = [float(engine.train_batch(batch=batch))]
+    finally:
+        log, moe.PLAN_LOG = moe.PLAN_LOG, None
+    warm_s = time.perf_counter() - t0
+    if len(log) != cfg.num_layers:
+        raise AssertionError(f"moe_param_offload {tier}: {len(log)} plans "
+                             f"logged in a step of {cfg.num_layers} layers")
+    routing = routing_stats(log)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    steps = []
+    for _ in range(MOE_PARAM_OFFLOAD_STEPS):
+        losses.append(float(engine.train_batch(batch=batch)))
+        st = dict(ex.last_step_stats)
+        steps.append(dict(
+            step_s=st["wall_s"], forward_s=st["forward_s"],
+            backward_recompute_s=st["backward_s"],
+            block_updates_s=st["update_s"],
+            device_busy_s=st["device_busy_s"],
+            host_copy_s=st["host_copy_s"], fetch_wait_s=st["fetch_wait_s"],
+            h2d_gb=st["h2d_bytes"] / 1e9, d2h_gb=st["d2h_bytes"] / 1e9,
+            disk_read_gb=st["read_bytes"] / 1e9,
+            disk_written_gb=st["write_bytes"] / 1e9))
+    counts = launch_counts()
+    want = {k: n * MOE_PARAM_OFFLOAD_STEPS for k, n in
+            param_offload_launches(tier, cfg.num_layers, ex.num_blocks,
+                                   1).items()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"moe_param_offload {tier}: launches {got}, "
+                             f"expected {want}")
+    ref = stage3["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    if (not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+            or not rel <= stage3["offload_bound"]):
+        raise AssertionError(
+            f"moe_param_offload {tier}: losses {losses} (the resident "
+            f"stage 3's {ref}, bound {stage3['offload_bound']}) not finite, "
+            "falling and within the bound")
+    if ex.peak_live > 2:
+        raise AssertionError(f"moe_param_offload {tier}: {ex.peak_live} "
+                             "blocks on the card at once")
+    peak = torch.cuda.max_memory_allocated()
+    rss, hwm = host_memory_gb()
+    step_s = sum(x["step_s"] for x in steps) / len(steps)
+    out = dict(tier=tier, blocks=ex.num_blocks, params=ex.n_params,
+               init_s=init_s, warmup_s=warm_s, losses=losses,
+               resident_stage3_losses=ref, loss_rel_err=rel,
+               bound=stage3["offload_bound"], steps=steps, step_s=step_s,
+               tokens_per_s=MOE_B * MOE_S / step_s,
+               host_state_gb=sum(ex.block_numel) * 12 / 1e9,
+               init_peak_mem_gb=init_peak / 1e9, peak_mem_gb=peak / 1e9,
+               resident_stage3_peak_mem_gb=stage3["peak_mem_gb"],
+               peak_live_blocks=ex.peak_live, host_rss_gb=rss,
+               host_peak_rss_gb=hwm, routing_warmup_step=routing,
+               launches=got)
+    ex.close(remove=True)
+    del engine, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def moe_param_offload_phase(dev, stage3):
+    """``moe_param_offload_run`` on each of MOE_PARAM_OFFLOAD_TIERS, the
+    nvme tier's block files on the largest local disk. Returns the timed
+    steps' launches and the phase's JSON."""
+    root = tempfile.mkdtemp(prefix="moe-param-offload-", dir=largest_disk())
+    counts, runs = {}, []
+    try:
+        for tier in MOE_PARAM_OFFLOAD_TIERS:
+            c, run = moe_param_offload_run(dev, tier, root, stage3)
+            runs.append(run)
+            for name, n in c.items():
+                counts[name] = counts.get(name, 0) + n
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, dict(phase="moe_param_offload", model=MOE_PRESET,
+                        dtype="bfloat16", batch=[MOE_B, MOE_S],
+                        config=MOE_CONFIG["optimizer"], runs=runs,
+                        reads="the page cache may hold them (warm)")
+
+
+# moe_optim: steps a run on one batch, all counted and timed
+MOE_OPTIM_STEPS = 3
+MOE_LAMB = {"type": "lamb", "params": {"lr": 1e-4}}
+# (name, the config's changes, launches a step)
+MOE_OPTIM_RUNS = (
+    ("offload_cpu_stage1",
+     dict(zero_optimization={"stage": 1,
+                             "sub_group_size": OFFLOAD_SUB_GROUP,
+                             "offload_optimizer": {"device": "cpu"}}),
+     dict(MOE_TRAIN_KERNELS, fused_adam=0)),
+    ("lamb_stage0", dict(optimizer=MOE_LAMB, zero_optimization={"stage": 0}),
+     dict(MOE_TRAIN_KERNELS, fused_adam=0, fused_lamb=1)),
+    ("lamb_stage2", dict(optimizer=MOE_LAMB, zero_optimization={"stage": 2}),
+     dict(MOE_TRAIN_KERNELS, fused_adam=0, fused_lamb=1)),
+    ("onebitadam_stage0",
+     dict(optimizer={"type": "onebitadam",
+                     "params": {"lr": 1e-4, "freeze_step": 1}},
+          zero_optimization={"stage": 0}),
+     MOE_TRAIN_KERNELS))
+
+
+def moe_optim_phase(dev):
+    """moe-gpt-350m-8e at full width and depth, the moe_train batch, under
+    the optimizers and state tiers MoE trains with beyond AdamW on the
+    card (MOE_OPTIM_RUNS): host-memory optimizer offload at ZeRO 1 (the
+    host update over 1.76 B elements), LAMB at ZeRO 0 and 2 (#17 once a
+    step), onebitadam at ZeRO 0 past its freeze step (its exchange
+    compressed from the second step). MOE_OPTIM_STEPS steps each, launch
+    counts zeroed before the first and held exactly after the last; losses
+    finite and falling. Prints step ms, peak memory and host RSS."""
+    counts, runs = {}, {}
+    for name, change, kernels in MOE_OPTIM_RUNS:
+        model = create_model(MOE_PRESET, dtype=torch.bfloat16,
+                             max_seq_len=MOE_S)
+        check_moe_widths(model.config)
+        t0 = time.perf_counter()
+        engine = initialize(model=model, config=dict(MOE_CONFIG, **change))[0]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(9)
+        batch = {"input_ids": torch.randint(
+            0, model.config.vocab_size, (1, MOE_B, MOE_S), generator=gen,
+            device=dev)}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, secs, kinds = [], [], []
+        for _ in range(MOE_OPTIM_STEPS):
+            ob = engine._onebit
+            if ob is not None:
+                kinds.append("dense" if engine.opt_state.count < ob["freeze"]
+                             else "compressed")
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch=batch)))
+            secs.append(time.perf_counter() - t0)
+        c = launch_counts()
+        got = {k: c[k] for k in kernels}
+        want = {k: n * MOE_OPTIM_STEPS for k, n in kernels.items()}
+        if got != want:
+            raise AssertionError(f"moe_optim {name}: launches {got}, "
+                                 f"expected {want}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"moe_optim {name}: losses {losses} not "
+                                 "finite and falling")
+        if ob is not None and "compressed" not in kinds:
+            raise AssertionError(f"moe_optim {name}: no compressed step "
+                                 f"({kinds})")
+        for k, n in got.items():
+            counts[k] = counts.get(k, 0) + n
+        rss, hwm = host_memory_gb()
+        st = engine.opt_state
+        runs[name] = dict(
+            config=change, init_s=init_s, losses=losses,
+            step_ms=[x * 1e3 for x in secs],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            host_rss_gb=rss, host_peak_rss_gb=hwm, launches=got,
+            exchange=kinds or None,
+            host_update=(dict(st.offload.stats) if st.offload is not None
+                         else None))
+        del engine, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, dict(phase="moe_optim", model=MOE_PRESET,
+                        dtype="bfloat16", batch=[MOE_B, MOE_S],
+                        steps=MOE_OPTIM_STEPS, runs=runs)
 
 
 def moe_generate_phase(dev):
@@ -4473,11 +4824,13 @@ def e2e_moe_phase(dev):
                 train={k_: v for k_, v in train.items() if k_ != "phase"})
 
 
-def moe_phases(dev, smi, bound):
-    """moe_train (in the world-1 group main() opened), moe_generate,
-    moe_serve and e2e_moe, each line with its seconds. Returns the launch
-    counts of the main-path runs (moe_train's timed steps at both stages,
-    the first generate call of each mode, the serve run)."""
+def moe_phases(dev, smi, bound, train_only: bool = False):
+    """moe_train (in the world-1 group main() opened), moe_param_offload,
+    moe_optim, moe_generate, moe_serve and e2e_moe, each line with its
+    seconds. Returns the launch counts of the main-path runs (moe_train's
+    timed steps at both stages, moe_param_offload's timed steps of each
+    tier, moe_optim's steps, the first generate call of each mode, the
+    serve run). ``train_only``: the first three alone."""
     counts = {}
 
     def add(c):
@@ -4488,6 +4841,17 @@ def moe_phases(dev, smi, bound):
     c, out = moe_train_phase(dev, bound)
     add(c)
     emit(dict(out, seconds=time.perf_counter() - t0, card=smi))
+    stage3 = out["stage3"]
+    for run, args in ((moe_param_offload_phase, (dev, stage3)),
+                      (moe_optim_phase, (dev,))):
+        t0 = time.perf_counter()
+        c, out = run(*args)
+        add(c)
+        emit(dict(out, seconds=time.perf_counter() - t0, card=smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if train_only:
+        return counts
     t0 = time.perf_counter()
     c, out, eng = moe_generate_phase(dev)
     add(c)
@@ -4686,11 +5050,22 @@ def main() -> int:
                 "plan", "kernel", "n", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")}
         if name == "fused_adam":
-            # parameter offload's two calls at llama-7b's sizes
-            extra["param_offload"] = {c["case"]: {k: c[k] for k in (
-                "n", "grad_dtype", "grad_scale", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                for c in cases[name] if c["case"].startswith("offload_")}
+            # parameter offload's two calls at llama-7b's sizes, and at
+            # moe-gpt-350m-8e's (moe_param_offload)
+            for key, prefix in (("param_offload", "offload_"),
+                                ("moe_param_offload", "moe_offload_")):
+                extra[key] = {c["case"]: {k: c[k] for k in (
+                    "n", "grad_dtype", "grad_scale", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                    for c in cases[name] if c["case"].startswith(prefix)}
+        if name == "fused_lamb":
+            # moe_optim's launch over moe-gpt-350m-8e's leaves
+            c = next(c for c in cases[name]
+                     if c["case"] == "moe-gpt-350m-8e")
+            extra["moe_optim"] = {k: c[k] for k in (
+                "n", "segments", "max_abs_err", "ms", "plain_ms",
+                "plain_pieces", "phase2_ms", "bound_ms", "bound_by",
+                "library_ms")}
         kernels.append(dict(
             name=name, kernel=kernel, route="cuda", source=source,
             replaces=replaces,

@@ -367,9 +367,9 @@ class Config(ConfigModel):
         """Raise ``NotImplementedError`` naming every setting of this config
         that the port does not run yet: a JAX-only root section, a tensor /
         pipeline / sequence degree above 1 (the port trains data- and
-        expert-parallel only), an expert degree above 1 at ZeRO stage 3,
-        parameter offload beside pipeline parallelism, random-LTD or
-        pruning (JAX's refusals), optimizer offload with an optimizer
+        expert-parallel only), parameter offload beside pipeline
+        parallelism, random-LTD or pruning (JAX's refusals), optimizer
+        offload with an optimizer
         outside the Adam family or with the NVMe tier in fp16, and the
         1-bit optimizers above ZeRO stage 1 or with zerooneadam in fp16 (as
         JAX refuses them)."""
@@ -383,10 +383,6 @@ class Config(ConfigModel):
                 missing.append(f"parallel.{name}={getattr(par, name)} "
                                "(the port trains data- and expert-parallel "
                                "only)")
-        if par.expert_parallel_size > 1 and zero.stage == 3:
-            missing.append(f"parallel.expert_parallel_size="
-                           f"{par.expert_parallel_size} at ZeRO stage 3 "
-                           "(JAX shards the banks with fsdp over 'data')")
         if zero.offload_param.device != "none":
             missing += self._param_offload_refusals()
         opt = self.optimizer.type.lower()

@@ -911,7 +911,8 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
     attention kernels on any device. ``with_aux``: return (logits, cache,
     aux) as JAX does, aux the sum over the layers of the MoE load-balancing
     loss (an fp32 zero for a dense model); ``rng``: the generator of MoE's
-    Random Token Selection (the device's default one when None);
+    Random Token Selection (when None, one seeded from each layer's router
+    logits: ``parallel.moe.input_generator``);
     ``moe_groups``: the rank's ``parallel.topology.ExpertGroups`` when the
     batch and the expert banks span ranks (training beyond one rank).
 
@@ -983,10 +984,12 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
     return logits, cache
 
 
-def _sum_aux(auxes: List[torch.Tensor], device) -> torch.Tensor:
-    """The layers' aux losses summed in layer order from an fp32 zero, as
-    JAX's scan carries them."""
-    total = torch.zeros((), dtype=torch.float32, device=device)
+def _sum_aux(auxes: List[torch.Tensor], device,
+             start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The layers' aux losses summed in layer order from an fp32 zero (or
+    ``start``), as JAX's scan carries them."""
+    total = (torch.zeros((), dtype=torch.float32, device=device)
+             if start is None else start)
     for aux in auxes:
         total = total + aux
     return total
@@ -1032,13 +1035,16 @@ def _rope(cfg: TransformerConfig, positions: torch.Tensor
 def layers_forward(layers: List[Dict[str, Any]], x: torch.Tensor,
                    cfg: TransformerConfig,
                    attention_mask: Optional[torch.Tensor] = None,
-                   plain: bool = False, with_aux: bool = False) -> Any:
+                   plain: bool = False, with_aux: bool = False,
+                   aux: Optional[torch.Tensor] = None) -> Any:
     """``x`` through ``layers`` (per-layer param dicts, in order) as the
     cache-less ``forward`` runs its layers: positions ``arange(S)``, the
     same rope table, attention (flash, or the config's impl) and causal
     mask. A block of parameter offload runs its layers through it (JAX
     ``block_fwd``), so a block launches the train path's kernels.
-    ``with_aux``: return (x, the sum of the layers' MoE aux losses)."""
+    ``with_aux``: return (x, the sum of the layers' MoE aux losses),
+    summed onto ``aux`` when given (a block carries the sum of the blocks
+    before it, so the stack's sum is taken in the whole forward's order)."""
     B, S = x.shape[:2]
     alibi, impl = _alibi_and_impl(cfg, x.device)
     step = _dense_step(S, B, None, attention_mask, 0, None, x.device)
@@ -1047,10 +1053,10 @@ def layers_forward(layers: List[Dict[str, Any]], x: torch.Tensor,
     rope = _rope(cfg, torch.arange(S, device=x.device))
     auxes = []
     for layer in layers:
-        x, aux = _layer_forward(cfg, x, layer, rope, attend, plain)
-        if aux is not None:
-            auxes.append(aux)
-    return (x, _sum_aux(auxes, x.device)) if with_aux else x
+        x, layer_aux = _layer_forward(cfg, x, layer, rope, attend, plain)
+        if layer_aux is not None:
+            auxes.append(layer_aux)
+    return (x, _sum_aux(auxes, x.device, aux)) if with_aux else x
 
 
 def _run_layers(layers: Any, num_layers: int, x: torch.Tensor,

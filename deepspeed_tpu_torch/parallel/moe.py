@@ -57,7 +57,8 @@ no collective.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+import contextlib
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +68,32 @@ from .. import comm
 # When a list, ``moe_mlp`` appends each call's routing statistics to it as
 # device tensors (no host read): a measurement hook, off by default.
 PLAN_LOG: Optional[List[Dict[str, Any]]] = None
+
+
+@contextlib.contextmanager
+def plans_unlogged() -> Iterator[None]:
+    """``PLAN_LOG`` off inside: a recompute of a forward (parameter
+    offload's backward) routes again without counting its plans twice."""
+    global PLAN_LOG
+    saved, PLAN_LOG = PLAN_LOG, None
+    try:
+        yield
+    finally:
+        PLAN_LOG = saved
+
+
+def input_generator(logits: torch.Tensor) -> torch.Generator:
+    """RTS's generator when the caller passes none: a ``torch.Generator``
+    on the logits' device seeded from the logits themselves (JAX derives
+    the key from the layer's activations, ``_activation_derived_key``), so
+    a given input keeps the same tokens on every rank, in every run and in
+    a recompute. The seed is the sum of the fp32 logits' bit patterns as
+    integers: exact, so no order of summation changes it. Reading it is a
+    host sync (one a layer, training with RTS only)."""
+    bits = logits.detach().float().contiguous().view(torch.int32)
+    gen = torch.Generator(device=logits.device)
+    gen.manual_seed(int(bits.sum(dtype=torch.int64)) & (2 ** 63 - 1))
+    return gen
 
 
 class GateOutput(NamedTuple):
@@ -110,7 +137,7 @@ def top1_plan(logits: torch.Tensor, capacity_factor: float = 1.0,
     ``drop_tokens=False`` is infinite capacity (C = T). ``use_rts``: Random
     Token Selection, an over-full expert keeps a random C of its tokens
     instead of the first C (draws from ``rng``, a ``torch.Generator`` on
-    the logits' device, or the device's default generator when None)."""
+    the logits' device, or when None from ``input_generator(logits)``)."""
     T, E = logits.shape
     C = T if not drop_tokens else _capacity(T, E, capacity_factor,
                                             min_capacity)
@@ -125,7 +152,8 @@ def top1_plan(logits: torch.Tensor, capacity_factor: float = 1.0,
 
     if use_rts and drop_tokens and C < T:
         # keep a random C-subset per expert: the top-C random priorities
-        pri = mask * torch.rand(mask.shape, generator=rng,
+        gen = rng if rng is not None else input_generator(logits)
+        pri = mask * torch.rand(mask.shape, generator=gen,
                                 device=mask.device)
         top_idx = torch.topk(pri.t(), C, dim=1).indices             # (E, C)
         sel = torch.zeros(E, T, device=mask.device).scatter_(1, top_idx,
@@ -375,17 +403,17 @@ def global_plan(logits: torch.Tensor, top_k: int = 2,
     backward), ``top1_plan`` / ``top2_plan`` over them, and rows ``[rank *
     T, (rank + 1) * T)`` kept; the capacity, the aux loss and the counts are
     the global ones. With no ``groups`` (one rank) the plan itself.
-    ``PLAN_LOG`` records the global plan."""
+    ``PLAN_LOG`` records the global plan. RTS with no ``rng`` draws from
+    the gathered logits (``input_generator``), so every rank draws the same
+    priorities."""
     if top_k == 2 and use_rts:
         raise ValueError("use_rts (Random Token Selection) is top-1 only, "
                          "as in the reference (sharded_moe.py top1gating)")
     T, E = logits.shape
     world = groups.world if groups is not None else 1
     if world > 1:
-        if use_rts and drop_tokens:
-            raise NotImplementedError(
-                "Random Token Selection beyond one rank: every rank would "
-                "draw its own priorities for the global plan")
+        # every rank holds the gathered logits bit-equal, so RTS's
+        # input-seeded draws are the same on each
         logits = _GatherRows.apply(logits)                       # (W T, E)
     plan = (top2_plan(logits, capacity_factor, min_capacity,
                       drop_tokens=drop_tokens) if top_k == 2 else

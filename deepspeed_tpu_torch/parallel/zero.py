@@ -38,20 +38,25 @@ Stage 3 has a gather unit per layer (its slice of every stacked leaf), one
 for the other leaves (embedding, final norm, head), and one ``persistent``
 unit holding the leaves of fewer than ``stage3_param_persistence_threshold``
 elements whole on every rank, as JAX's ``fsdp_min_size`` keeps them
-replicated (their optimizer state is still partitioned).
+replicated (their optimizer state is still partitioned). Under expert
+parallelism a layer has two gather units: its dense slice, split over the
+world, and its slice of the rank's banks (``layer<i>_experts``), split
+over the expert-data group (JAX ``rules.py:150-165``: the expert dim over
+``expert``, fsdp over ``data``); bank leaves are never persistent.
 
 ``ZeroParams`` owns the buffers at run time: the whole params of the
 persistent units (views with ``.grad`` views of a flat grad buffer), the
 rank's shard of the params, and stage 3's gathers. ``_Gather`` is the
-autograd function of one gather unit: its forward all-gathers the unit into
-a new buffer, its backward reduce-scatters the unit's grads into the rank's
-accumulator and frees the buffer. ``GatheredLayers`` stands for
-``params["layers"]`` at stage 3: the transformer's layer loop calls its
-``run``, which gathers each layer's unit before the layer and frees the
-storage right after it; a hook on the layer's output all-gathers it again
-just before the layer's backward (FSDP's free / re-fill), so at most two
-units (a layer and the embedding / head unit) hold gathered params at any
-time (``live`` / ``peak_live`` count them).
+autograd function of one gather unit: its forward all-gathers the unit over
+its group into a new buffer, its backward reduce-scatters the unit's grads
+over that group into the rank's accumulator and frees the buffer.
+``GatheredLayers`` stands for ``params["layers"]`` at stage 3: the
+transformer's layer loop calls its ``run``, which gathers each layer's
+units before the layer and frees the storage right after it; a hook on the
+layer's output all-gathers them again just before the layer's backward
+(FSDP's free / re-fill), so at most one layer's units and the embedding /
+head unit hold gathered params at any time (``live`` / ``peak_live`` count
+the units: two, three with a layer's expert unit).
 """
 
 from __future__ import annotations
@@ -188,10 +193,6 @@ class ZeroPartition:
                   for path, t in tree_items(params)]
         ep = topology.ep if topology is not None else 1
         split = ep > 1 and bool(experts)
-        if split and stage == 3:
-            raise NotImplementedError(
-                "expert parallelism at ZeRO stage 3 is not ported yet (JAX "
-                "shards the banks with fsdp over 'data')")
         if stage < 3:
             groups = [("flat", [(p, s) for p, s in leaves
                                 if not split or p not in experts],
@@ -208,23 +209,29 @@ class ZeroPartition:
                                   _chunk(n, parts, parts > 1), parts, False,
                                   expert=expert))
             return cls(stage, world, rank, units, topology)
+        banks = set(experts or {}) if split else set()
         keep = [(p, s) for p, s in leaves
-                if math.prod(s) < persistence_threshold]
+                if math.prod(s) < persistence_threshold and p not in banks]
         stacked = [(p, s) for p, s in leaves if (p, s) not in keep
                    and p[0] == layers_key]
+        dense = [(p, s) for p, s in stacked if p not in banks]
+        expert = [(p, s) for p, s in stacked if p in banks]
         rest = [(p, s) for p, s in leaves if (p, s) not in keep
                 and p[0] != layers_key]
+        plan = [("persistent", keep, None, False)]
+        for li in range(stacked[0][1][0] if stacked else 0):
+            plan += [(f"layer{li}", dense, li, False),
+                     (f"layer{li}_experts", expert, li, True)]
+        plan.append(("rest", rest, None, False))
         units = []
-        for name, group, layer in (
-                [("persistent", keep, None)]
-                + [(f"layer{li}", stacked, li)
-                   for li in range(stacked[0][1][0] if stacked else 0)]
-                + [("rest", rest, None)]):
+        for name, group, layer, is_expert in plan:
             if not group:
                 continue
-            pieces, n = _pieces(group, layer)
-            units.append(Unit(name, pieces, n, _chunk(n, world, True), world,
-                              name != "persistent", layer))
+            parts = topology.data if is_expert else world
+            pieces, n = _pieces(group, layer,
+                                axes=experts if is_expert else None)
+            units.append(Unit(name, pieces, n, _chunk(n, parts, True), parts,
+                              name != "persistent", layer, is_expert))
         return cls(stage, world, rank, units, topology)
 
     def shard_slice(self, i: int) -> slice:
@@ -256,8 +263,13 @@ class ZeroPartition:
         off = self.topology.expert_index(rank) * pc.shape[a]
         return box[:a] + [[box[a][0] + off, box[a][1] + off]] + box[a + 1:]
 
-    def layer_units(self) -> List[int]:
-        return [i for i, u in enumerate(self.units) if u.layer is not None]
+    def layer_units(self) -> List[List[int]]:
+        """Each layer's gather units, in layer order."""
+        out: Dict[int, List[int]] = {}
+        for i, u in enumerate(self.units):
+            if u.layer is not None:
+                out.setdefault(u.layer, []).append(i)
+        return [out[li] for li in sorted(out)]
 
     def leaf_pieces(self) -> Dict[Tuple[str, ...], List[Tuple[int, Piece]]]:
         """Each leaf's pieces with their unit index, in C order."""
@@ -361,12 +373,13 @@ class _Gather(torch.autograd.Function):
 
 class GatheredLayers:
     """``params["layers"]`` at stage 3. ``run(x, step)`` runs ``x = step(li,
-    layer, x)`` for each layer with the layer's params gathered (its unit
+    layer, x)`` for each layer with the layer's params gathered (its units
     plus the persistent leaves' slices) and frees them after; the layer's
-    output carries a hook that gathers them again for its backward."""
+    output carries a hook for each unit that gathers it again for the
+    layer's backward. ``units``: each layer's unit indices."""
 
     def __init__(self, zero: "ZeroParams", persistent: Dict[str, Any],
-                 units: List[int]):
+                 units: List[List[int]]):
         self.zero, self.persistent, self.units = zero, persistent, units
 
     def run(self, x: torch.Tensor,
@@ -375,13 +388,16 @@ class GatheredLayers:
         n = len(self.units)
         persist = (_unbind_layers(self.persistent, n) if self.persistent
                    else [{}] * n)
-        for li, i in enumerate(self.units):
-            layer = _merge(self.zero.unit_views(i, self.zero.gather(i)),
-                           persist[li])
+        for li, units in enumerate(self.units):
+            layer = persist[li]
+            for i in units:
+                layer = _merge(self.zero.unit_views(i, self.zero.gather(i)),
+                               layer)
             x = step(li, layer, x)
-            self.zero.release(i)
-            if x.requires_grad:
-                x.register_hook(partial(self.zero._refill_hook, i))
+            for i in units:
+                self.zero.release(i)
+                if x.requires_grad:
+                    x.register_hook(partial(self.zero._refill_hook, i))
         return x
 
 

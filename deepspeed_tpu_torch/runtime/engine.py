@@ -61,15 +61,17 @@ the collectives itself (``comm``, NCCL on the card, gloo on the CPU):
 ``train_batch`` returns the mean of the micro losses as a device tensor and
 reads nothing back from the device except at ``steps_per_print`` (and,
 under offload, the one scalar sync of the host update). MoE models
-(``moe_num_experts > 0``) train with the Adam family at any world, ZeRO
-stages 0-3 (``check_moe``): the gating spans every rank's tokens, and with
-``parallel.expert_parallel_size`` ep > 1 (stages 0-2) a rank holds only its
-E / ep banks and their optimizer state (``parallel/topology.py`` lays the
-ranks out as JAX's mesh does; at world > 1 the loss gets the rank's
-``moe_groups``).
-Not ported yet (they raise): MoE with parameter or optimizer offload,
-LAMB or the 1-bit optimizers, expert parallelism at stage 3, Random Token
-Selection beyond one rank; parameter offload at world > 1, optimizer
+(``moe_num_experts > 0``) train under every configuration above, as JAX's
+engine takes them (``check_moe``): the gating spans every rank's tokens
+(Random Token Selection draws from the gathered router logits, so every
+rank draws alike), and with ``parallel.expert_parallel_size`` ep > 1 a
+rank holds only its E / ep banks and their optimizer state, at stage 3
+gathered per layer over its expert-data group (``parallel/topology.py``
+lays the ranks out as JAX's mesh does; at world > 1 the loss gets the
+rank's ``moe_groups``); the 1-bit optimizers run at ep 1 only, each rank
+gating its own rows as JAX's data-parallel 1-bit step does, and raise
+JAX's ``ValueError`` beside any other parallel degree (``check_onebit``).
+Not ported yet (they raise): parameter offload at world > 1, optimizer
 offload beside LAMB or the 1-bit optimizers, the NVMe tier in fp16,
 tensor / pipeline / sequence parallelism, activation checkpointing,
 dropout /
@@ -111,36 +113,33 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
 
 
-def check_moe(model_cfg: Any, config: Config, world: int) -> None:
-    """MoE trains with the Adam family at any world, at ZeRO stages 0-3
-    (expert parallelism at 0-2, ``Config.check_ported``). JAX's
-    ``ValueError`` for experts that an expert-parallel degree does not
-    divide comes first (JAX ``engine.py:263-272``); the rest raise
-    ``NotImplementedError`` naming themselves."""
+def check_onebit(config: Config) -> None:
+    """JAX's ``ValueError`` for the 1-bit optimizers beside any parallel
+    degree other than data (JAX ``engine.py:94-100``), for every model:
+    the compressed exchange averages whole local grads over the data
+    ranks."""
+    opt = config.optimizer.type
+    if opt.lower() not in ONEBIT_OPTIMIZERS:
+        return
+    par = config.parallel
+    if (par.tensor_parallel_size > 1 or par.sequence_parallel_size > 1
+            or par.pipeline_parallel_size > 1
+            or par.expert_parallel_size > 1):
+        raise ValueError(f"{opt}: compressed allreduce is data-parallel "
+                         "only (tp/sp/pp/ep must be 1)")
+
+
+def check_moe(model_cfg: Any, config: Config) -> None:
+    """JAX's own gate of an MoE model (JAX ``engine.py:263-272``): an
+    expert-parallel degree must divide the experts. Beyond it MoE trains
+    under every configuration the engine takes (ZeRO 0-3 with expert
+    parallelism, parameter and optimizer offload, LAMB, the 1-bit
+    optimizers at ep 1, Random Token Selection at any world)."""
     experts = getattr(model_cfg, "moe_num_experts", 0) or 0
     ep = config.parallel.expert_parallel_size
     if ep > 1 and experts and experts % ep != 0:
         raise ValueError(f"moe_num_experts={experts} must be divisible by "
                          f"expert_parallel_size={ep}")
-    if not experts:
-        return
-    missing = []
-    if world > 1 and getattr(model_cfg, "moe_use_rts", False):
-        missing.append(f"MoE with moe_use_rts at world {world} (every rank "
-                       "would draw its own priorities for the global plan)")
-    zero = config.zero_optimization
-    if zero.offload_param.device != "none":
-        missing.append("MoE with zero_optimization.offload_param (the aux "
-                       "loss through the streamed executor)")
-    if zero.offload_optimizer.device != "none":
-        missing.append("MoE with zero_optimization.offload_optimizer")
-    opt = config.optimizer.type.lower()
-    if opt == "lamb" or opt in ONEBIT_OPTIMIZERS:
-        missing.append(f"MoE with optimizer '{opt}' (MoE trains with the "
-                       "Adam family)")
-    if missing:
-        raise NotImplementedError(
-            "not ported to deepspeed_tpu_torch yet: " + "; ".join(missing))
 
 
 class TrainEngine:
@@ -151,7 +150,8 @@ class TrainEngine:
                  optimizer: Optional[MixedPrecisionOptimizer] = None,
                  lr_scheduler=None, training_data=None, collate_fn=None,
                  device: Union[None, str, torch.device] = None):
-        check_moe(model.config, config, comm.get_world_size())
+        check_onebit(config)
+        check_moe(model.config, config)
         check_param_offload(config, comm.get_world_size())
         config.check_ported()
         if model.loss_fn is None:
@@ -422,9 +422,12 @@ class TrainEngine:
         params = (self.zero.step_params()
                   if sharded(self.config.zero_stage, "params")
                   else self.zero.params)
-        if self.moe_groups is not None and self.world > 1:
+        if (self.moe_groups is not None and self.world > 1
+                and self._onebit is None):
             # one rank's plan is the global one: a loss of two arguments
-            # serves there
+            # serves there. The 1-bit step is data-parallel only: each
+            # rank's loss and MoE gating over its own rows, as JAX computes
+            # it inside its shard_map over ``data``
             return self.model.loss_fn(params, batch,
                                       moe_groups=self.moe_groups)
         return self.model.loss_fn(params, batch)
@@ -454,7 +457,8 @@ class TrainEngine:
         zcfg = self.config.zero_optimization
         tier = zcfg.offload_optimizer.device
         if tier == "cpu":
-            return HostOptimizerState(self.zero.shard, zcfg.sub_group_size)
+            return HostOptimizerState(self.zero.shard, zcfg.sub_group_size,
+                                      tuple(self.partition.shard_offsets))
         if tier == "nvme":
             swapper = NVMeOptimizerSwapper(
                 os.path.join(zcfg.offload_optimizer.nvme_path,

@@ -383,20 +383,27 @@ class SubGroupPipeline:
             stats[kind] += a.elapsed_time(b)
 
 
-def contiguous_groups(n: int, sub_group_size: int) -> List[List[Span]]:
-    """[0, n) cut into runs of at most ``sub_group_size`` elements."""
+def contiguous_groups(n: int, sub_group_size: int,
+                      starts: Tuple[int, ...] = (0,)) -> List[List[Span]]:
+    """[0, n) cut into runs of at most ``sub_group_size`` elements, each
+    within one of the parts that begin at ``starts``."""
     size = max(int(sub_group_size), 1)
-    return [[(lo, min(size, n - lo))] for lo in range(0, n, size)]
+    ends = list(starts[1:]) + [n]
+    return [[(lo, min(size, hi - lo))] for a, hi in zip(starts, ends)
+            for lo in range(a, hi, size)]
 
 
 class HostOptimizerState(SubGroupPipeline):
     """Tier 1: the rank's fp32 master (a copy of the shard, also when the
     params are fp32) and zeroed moments as CPU tensors, updated in
-    sub-groups of ``sub_group_size`` elements."""
+    sub-groups of ``sub_group_size`` elements. ``starts``: where the
+    shard's units begin (under expert parallelism the dense chunk, then
+    the banks' chunk); no sub-group straddles two."""
 
-    def __init__(self, shard_param: torch.Tensor, sub_group_size: int):
+    def __init__(self, shard_param: torch.Tensor, sub_group_size: int,
+                 starts: Tuple[int, ...] = (0,)):
         n = shard_param.numel()
-        super().__init__(contiguous_groups(n, sub_group_size))
+        super().__init__(contiguous_groups(n, sub_group_size, starts))
         self.master = torch.empty(n, dtype=torch.float32)
         for (lo, size), in self.groups:
             self.master[lo:lo + size].copy_(shard_param[lo:lo + size])

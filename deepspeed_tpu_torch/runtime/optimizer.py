@@ -50,7 +50,9 @@ finite on every rank). LAMB's shard is made of
 parts of leaves (``ZeroPartition.rank_segments``): its segments carry their
 leaf's id, and phase 2 all-reduces the per-leaf sums of ||p||^2 and
 ||u||^2 before it takes each trust ratio, so every rank uses the ratio of
-the whole leaf.
+the whole leaf (an MoE bank leaf's too: at stages 1-3 the world's parts
+count each of its elements once; at stage 0 under expert parallelism its
+sums are added over the expert-parallel group, ``_reduce_bank_norms``).
 
 ``zerooneadam`` (JAX ``zero_one_adam_transform`` :96-139) is its own flat
 update, plain torch as in JAX (which has no kernel for it): momentum every
@@ -73,6 +75,7 @@ The other optimizer types of the JAX package (adagrad, sgd, lion) raise
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -333,8 +336,12 @@ class MixedPrecisionOptimizer:
                   skip=skip.reshape(1) if skip is not None else None)
         if self.lamb:
             # optax.lamb: per-leaf trust ratio, no clamp
-            reduce = ((lambda t: comm.all_reduce(t, log_name="lamb_norms"))
-                      if state.partitioned else None)
+            reduce = None
+            if state.partitioned:
+                reduce = lambda t: comm.all_reduce(  # noqa: E731
+                    t, log_name="lamb_norms")
+            elif state.expert_norm is not None:
+                reduce = partial(_reduce_bank_norms, state)
             lamb_step(target, grads, state.exp_avg, state.exp_avg_sq,
                       state.lamb_update, state.segments,
                       state.inner_count + 1, max_coeff=float("inf"),
@@ -399,6 +406,30 @@ class MixedPrecisionOptimizer:
         return StepStats(grad_norm=norm,
                          skipped=torch.tensor(skipped, device=grads.device),
                          lr=lr_outer)
+
+
+def _reduce_bank_norms(state: OptimizerState, per_leaf: torch.Tensor
+                       ) -> None:
+    """LAMB's per-leaf sums of p^2 and u^2 ((2, columns): a column a leaf,
+    or a segment where each segment is a leaf) at stage 0 under expert
+    parallelism: a rank holds only its expert-parallel rank's banks of each
+    expert leaf, whole, so those leaves' columns are summed over the
+    expert-parallel group (each bank once, as ``expert_norm`` sums the clip
+    norm's squares); the dense leaves' stay the rank's own."""
+    at, group = state.expert_norm
+    seg = state.segments
+    if "bank_cols" not in seg._cache:
+        starts = np.cumsum((0,) + seg.sizes[:-1])
+        leaves = (seg.leaf if seg.leaf is not None
+                  else np.arange(len(seg.sizes)))
+        real = seg.n_leaves if seg.leaf is not None else len(seg.sizes)
+        cols = sorted({int(leaf) for leaf, s in zip(leaves, starts)
+                       if s >= at and leaf < real})
+        seg._cache["bank_cols"] = torch.tensor(cols, dtype=torch.long,
+                                               device=per_leaf.device)
+    cols = seg._cache["bank_cols"]
+    per_leaf[:, cols] = comm.all_reduce(per_leaf[:, cols].contiguous(),
+                                        group=group, log_name="lamb_norms")
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,16 @@ JAX, the train step is a loop the host drives over blocks of layers:
                        the same way (an overflow step touches no state)
   embed     the embedding's grads from dx_0 (``transformer.embed``)
 
+MoE models (JAX :516-552, :967-1018, :1269-1281): each block's forward
+also returns the sum of its layers' load-balancing aux losses, carried
+from block to block in layer order; the loss adds ``coef * aux / L`` as the
+resident loss does, and its grad ``scale * coef / L / gas`` (autograd's,
+through the same expression) enters each block's recompute as the aux
+output's cotangent. The recompute routes as the forward did: its router
+logits are bit-equal, so its capacity drops are, and Random Token
+Selection draws from them (``parallel.moe.input_generator``); its plans
+are not logged a second time (``moe.plans_unlogged``).
+
 The embedding, the final norm and the head ("resident") stay on the card
 with their fp32 state and get one ``fused_adam_flat`` launch a step. Peak
 device memory is the resident part, at most two blocks of params (two
@@ -91,6 +101,7 @@ from ..models.transformer import (TransformerConfig, cross_entropy_loss,
                                   layers_forward)
 from ..ops.aio import AIOHandle
 from ..ops.fused_adam import fused_adam_flat
+from ..parallel import moe
 from ..utils.logging import logger
 from .offload import PinnedStaging, as_bytes
 from .optimizer import ADAM_FAMILY, StepStats
@@ -294,6 +305,9 @@ class ParamOffloadExecutor:
         self.cfg, self.config, self.device, self.dtype = (cfg, config,
                                                           device, dtype)
         self.cuda = device.type == "cuda"
+        # the MoE aux loss's weight in the loss (0: a dense model)
+        self.aux_coef = (float(cfg.moe_aux_loss_coef)
+                         if cfg.moe_num_experts > 0 else 0.0)
         zo = config.zero_optimization
         self.tier = zo.offload_param.device
         self.optimizer = optimizer
@@ -360,7 +374,11 @@ class ParamOffloadExecutor:
         self.slots = [torch.empty(self.max_block, dtype=dtype, device=device)
                       for _ in range(2)]
         self._slot_block: List[Optional[int]] = [None, None]
-        self._slot_free: List[Any] = [None, None]
+        # the side stream fills a slot only after this event: the caching
+        # allocator may have handed the slots memory that main-stream work
+        # still queued was using
+        ready = self._record()
+        self._slot_free: List[Any] = [ready, ready]
         self._fetched: List[Any] = [None, None]
         self._dev_state: Optional[List[torch.Tensor]] = None
         self._state_free = None
@@ -517,9 +535,13 @@ class ParamOffloadExecutor:
         want = 4 if acc else 3
         if self._dev_state is None:
             self._dev_state = []
-        while len(self._dev_state) < want:
-            self._dev_state.append(torch.empty(
-                self.max_block, dtype=torch.float32, device=self.device))
+        if len(self._dev_state) < want:
+            while len(self._dev_state) < want:
+                self._dev_state.append(torch.empty(
+                    self.max_block, dtype=torch.float32, device=self.device))
+            # new buffers may reuse memory that main-stream work still queued
+            # was using: the side stream fills them after it
+            self._state_free = self._record()
         return [t[:n] for t in self._dev_state[:want]]
 
     def _adam(self, master, grads, m, v, copy, grad_scale, step, lr):
@@ -601,27 +623,45 @@ class ParamOffloadExecutor:
         if self.res_acc is None:
             self.res_acc = torch.zeros_like(self.res_m)
 
-    def _forward(self, mask, cfg, x0: torch.Tensor) -> List[torch.Tensor]:
-        """The boundary activations x_0..x_G, streaming the blocks; the
-        last block stays in its slot."""
+    def _forward(self, mask, cfg, x0: torch.Tensor
+                 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+        """The boundary activations x_0..x_G, streaming the blocks (the
+        last block stays in its slot), and an MoE model's summed aux loss
+        (None for a dense one)."""
         G = self.num_blocks
         acts = [x0]
         self._prefetch(0)
         self._prefetch(1)
         self._fetch(0)
-        x = x0
+        x, aux = x0, None
         with torch.no_grad():
             for g in range(G):
                 flat = self._slot(g)
                 t = self._tick()
-                x = layers_forward(self.block_layers(flat, g), x, cfg, mask)
+                if self.aux_coef:
+                    x, aux = layers_forward(self.block_layers(flat, g), x,
+                                            cfg, mask, with_aux=True,
+                                            aux=aux)
+                else:
+                    x = layers_forward(self.block_layers(flat, g), x, cfg,
+                                       mask)
                 self._busy_from(t)
                 acts.append(x)
                 self._slot_free[g % 2] = self._record()
                 if g + 1 < G:
                     self._fetch(g + 1)
                     self._prefetch(g + 2)
-        return acts
+        return acts, aux
+
+    def _head_loss(self, res: Dict[str, Any], x: torch.Tensor, labels,
+                   mask, cfg, aux: Optional[torch.Tensor]) -> torch.Tensor:
+        """The loss from the last block's output: the cross entropy, plus
+        ``coef * aux / L`` for an MoE model (the resident ``loss_fn``'s
+        expression)."""
+        loss = cross_entropy_loss(head_logits(res, x, cfg), labels, mask)
+        if aux is not None:
+            loss = loss + self.aux_coef * aux / max(cfg.num_layers, 1)
+        return loss
 
     def train_step(self, micros: List[Dict[str, Any]]
                    ) -> Tuple[torch.Tensor, StepStats]:
@@ -653,15 +693,19 @@ class ParamOffloadExecutor:
             x0 = embed(self.res_tree(rf_e), ids,
                        torch.arange(S, device=ids.device), cfg)
             self._busy_from(t)
-            acts = self._forward(mask, cfg, x0.detach())
+            acts, aux = self._forward(mask, cfg, x0.detach())
             t = self._tick()
             rf_h = self.res_flat.detach().requires_grad_(True)
             x_top = acts[G].requires_grad_(True)
-            loss = cross_entropy_loss(head_logits(self.res_tree(rf_h), x_top,
-                                                  cfg), labels, mask)
+            inputs = [rf_h, x_top]
+            if aux is not None:
+                aux = aux.requires_grad_(True)
+                inputs.append(aux)
+            loss = self._head_loss(self.res_tree(rf_h), x_top, labels, mask,
+                                   cfg, aux)
             scaled = loss * self.scaler_state.scale if self.fp16 else loss
-            d_head, dx = torch.autograd.grad(scaled / self.gas,
-                                             [rf_h, x_top])
+            d_head, dx, *daux = torch.autograd.grad(scaled / self.gas,
+                                                    inputs)
             self._busy_from(t)
             losses.append(loss.detach().float())
             t_fwd += time.perf_counter() - t0
@@ -670,10 +714,13 @@ class ParamOffloadExecutor:
                 t = self._tick()
                 bf = flat.detach().requires_grad_(True)
                 x_in = acts[g].detach().requires_grad_(True)
-                with torch.enable_grad():
+                with torch.enable_grad(), moe.plans_unlogged():
                     y = layers_forward(self.block_layers(bf, g), x_in, cfg,
-                                       mask)
-                dblock, dx = torch.autograd.grad(y, [bf, x_in], dx)
+                                       mask, with_aux=bool(daux))
+                # an MoE block's aux sum takes the loss's aux grad
+                outs, cots = ((list(y), [dx] + daux) if daux
+                              else ([y], [dx]))
+                dblock, dx = torch.autograd.grad(outs, [bf, x_in], cots)
                 self._busy_from(t)
                 del y, bf, x_in
                 if self.grad_hook is not None:
@@ -888,16 +935,16 @@ class ParamOffloadExecutor:
     @torch.no_grad()
     def eval_forward(self, mb: Dict[str, Any]) -> torch.Tensor:
         """The eval loss of one micro-batch, streaming the blocks (JAX
-        :1264-1281)."""
+        :1264-1281; an MoE model's adds its aux term)."""
         ids, mask = mb["input_ids"], mb.get("attention_mask")
         cfg = eval_config(self.cfg)
         res = self.res_tree(self.res_flat)
         x0 = embed(res, ids, torch.arange(ids.shape[1], device=ids.device),
                    cfg)
-        acts = self._forward(mask, cfg, x0)
+        acts, aux = self._forward(mask, cfg, x0)
         self._release_slots()
-        return cross_entropy_loss(head_logits(res, acts[-1], cfg),
-                                  self.labels_of(mb), mask)
+        return self._head_loss(res, acts[-1], self.labels_of(mb), mask, cfg,
+                               aux)
 
     # -- whole leaves ---------------------------------------------------------
     def block_params(self, g: int) -> torch.Tensor:

@@ -55,7 +55,9 @@ Entry = Tuple[str, Tuple[Tuple[int, int], ...], Tuple[int, ...], int, int]
 
 def swap_entries(partition, rank: int) -> List[Entry]:
     """(keystr, region, region shape, elements, position in the shard) of
-    every box of ``rank``'s pieces, in JAX's leaf order."""
+    every box of ``rank``'s pieces, in JAX's leaf order. A region is in the
+    whole leaf's coordinates: an MoE bank leaf's boxes sit at the rank's
+    banks (``ZeroPartition.global_box``)."""
     out = []
     for i, _ in enumerate(partition.units):
         base = partition.shard_offsets[i]
@@ -64,6 +66,8 @@ def swap_entries(partition, rank: int) -> List[Entry]:
             for box in range_boxes(pc.shape, start, start + count):
                 shape = tuple(b - a for a, b in box)
                 size = math.prod(shape)
+                box = partition.global_box(pc, [list(ab) for ab in box],
+                                           rank)
                 out.append((pc.path, tuple(start for start, _ in box),
                             keystr(pc.path), tuple(tuple(ab) for ab in box),
                             shape, size, at))

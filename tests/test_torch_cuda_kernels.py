@@ -2352,6 +2352,69 @@ def test_param_offload_trains_on_the_card(dev):
     assert abs(first - losses[0]) <= 1e-5 * abs(first)
 
 
+@pytest.mark.parametrize("preset,widths", [
+    ("tiny-llama", dict(hidden_size=512, ffn_hidden_size=2048, num_heads=8)),
+    ("moe-tiny", dict(hidden_size=256))])
+def test_param_offload_fills_new_buffers_after_main_stream_work(
+        dev, preset, widths, monkeypatch):
+    """The caching allocator may hand parameter offload's card buffers
+    memory that main-stream work still queued was using; the side stream
+    fills them only after that work. The first update's state buffers are
+    made to take memory freed while a kernel queued behind a long sleep
+    will still write NaN over it: the block state lands after that write,
+    so two steps stay finite and every block's fp32 master equals an
+    undelayed run's within two Adam steps (4 x lr: the flash backward's dq
+    is not bit-repeatable)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import create_model
+
+    lr = 1e-3
+    model = create_model(preset, dtype=torch.bfloat16, max_seq_len=64,
+                         **widths)
+    config = {"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True},
+              "steps_per_print": 1000,
+              "optimizer": {"type": "adamw",
+                            "params": {"lr": lr, "weight_decay": 0.01}},
+              "zero_optimization": {"stage": 3, "offload_param": {
+                  "device": "cpu", "buffer_size": 1}}}
+    ids = torch.randint(0, 250, (1, 2, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    runs = []
+    for delayed in (False, True):
+        eng = initialize(model=model, config=config, device=dev)[0]
+        ex = eng._param_offload
+        freed = []
+        if delayed:
+            real = ex._state_on_card
+
+            def late(n, acc):
+                if ex._dev_state is None:
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    junk = torch.empty(3 * ex.max_block, dtype=torch.float32,
+                                       device=dev)
+                    freed.append(junk.data_ptr())
+                    torch.cuda._sleep(500_000_000)
+                    junk.fill_(float("nan"))
+                    del junk
+                return real(n, acc)
+
+            monkeypatch.setattr(ex, "_state_on_card", late)
+        losses = [float(eng.train_batch(batch={"input_ids": ids}))
+                  for _ in range(2)]
+        torch.cuda.synchronize()
+        if delayed:
+            assert ex._dev_state[0].data_ptr() == freed[0], \
+                "the state buffers did not take the freed memory"
+        runs.append((losses, [m.clone() for m in ex.master]))
+        del eng, ex
+    (_, base), (losses, late_masters) = runs
+    assert all(np.isfinite(losses)), losses
+    for want, got in zip(base, late_masters):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=4 * lr, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # Mixture-of-Experts on the card
 # ---------------------------------------------------------------------------

@@ -250,9 +250,8 @@ class TestPortRules:
          "pipeline_parallel_size"),
         ({"parallel": {"sequence_parallel_size": 2}},
          "sequence_parallel_size"),
-        ({"parallel": {"expert_parallel_size": 2},
-          "zero_optimization": {"stage": 3}},
-         "expert_parallel_size=2 at ZeRO stage 3"),
+        ({"activation_checkpointing": {"partition_activations": True}},
+         "config section 'activation_checkpointing'"),
         ({"zero_optimization": {"stage": 2, "offload_optimizer": {
             "device": "cpu"}}, "optimizer": {"type": "lamb"}},
          "offload_optimizer"),
@@ -269,12 +268,11 @@ class TestPortRules:
           "fp16": {"enabled": True}}, "'nvme' with fp16"),
     ])
     def test_check_ported_still_refuses(self, section, what):
-        """Data parallelism, expert parallelism at stages 0-2, optimizer
+        """Data parallelism, expert parallelism at stages 0-3, optimizer
         and parameter offload, the 1-bit optimizers at stages 0-1 and LAMB
-        at any world are ported; the other degrees, expert parallelism at
-        stage 3, parameter offload beside pipeline parallelism and
-        the combinations the port does not run still raise, naming
-        themselves."""
+        at any world are ported; the other degrees, the JAX-only sections,
+        parameter offload beside pipeline parallelism and the combinations
+        the port does not run still raise, naming themselves."""
         from deepspeed_tpu_torch.config import load_config
 
         cfg = dict({"train_micro_batch_size_per_gpu": 1}, **section)
@@ -282,6 +280,8 @@ class TestPortRules:
             load_config(cfg).check_ported()
         for ok in ({"parallel": {"data_parallel_size": 4}},
                    {"parallel": {"expert_parallel_size": 2}},
+                   {"parallel": {"expert_parallel_size": 2},
+                    "zero_optimization": {"stage": 3}},
                    {"optimizer": {"type": "lamb"},
                     "parallel": {"data_parallel_size": 4}},
                    {"optimizer": {"type": "onebitlamb"},

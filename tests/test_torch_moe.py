@@ -20,9 +20,12 @@
 * Greedy ``generate`` (fp32, and int8 over JAX's quantized weights) and
   serving streams equal to JAX's.
 * A format-2 checkpoint: JAX's key set, and a round trip bit for bit.
-* The refusals: MoE with parameter offload at world 2, expert parallelism
-  at ZeRO stage 3, optimizer offload, LAMB and the 1-bit optimizers
-  (``tests/test_torch_moe_ep.py`` trains MoE beyond one rank).
+* The refusals: MoE with parameter offload at world 2 (as every model),
+  and JAX's ``ValueError`` for the 1-bit optimizers beside expert
+  parallelism, dense and MoE; the combinations once refused (parameter
+  and optimizer offload, LAMB, 1-bit, expert parallelism at stage 3) each
+  train (``tests/test_torch_moe_ep.py``, ``test_torch_moe_zero3.py`` and
+  ``test_torch_moe_offload.py`` hold them to JAX).
 """
 
 import jax
@@ -43,7 +46,7 @@ from deepspeed_tpu.serving import ServingEngine as JaxServingEngine
 from deepspeed_tpu_torch import comm, initialize, init_inference
 from deepspeed_tpu_torch.inference import InferenceConfig
 from deepspeed_tpu_torch.models import (Model, create_model, params_from_jax,
-                                        transformer_config)
+                                        params_to_numpy, transformer_config)
 from deepspeed_tpu_torch.inference import init_cache
 from deepspeed_tpu_torch.models.transformer import (_layer_views, embed,
                                                     forward, layers_forward)
@@ -632,39 +635,76 @@ def test_checkpoint_keys_match_jax_and_round_trip(tmp_path, jax_run):
 # refusals
 # ---------------------------------------------------------------------------
 
+ONEBIT_EP2 = {"optimizer": {"type": "onebitadam", "params": {"lr": 1e-3}},
+              "parallel": {"expert_parallel_size": 2}}
 REFUSALS = [
-    ("world", {"zero_optimization": {
+    ("world", "moe-tiny", {"zero_optimization": {
         "stage": 3, "offload_param": {"device": "cpu"}}},
-     "MoE with zero_optimization.offload_param"),
-    ("offload_param", {"zero_optimization": {
-        "stage": 3, "offload_param": {"device": "cpu"}}},
-     "offload_param"),
-    ("offload_optimizer", {"zero_optimization": {
-        "stage": 1, "offload_optimizer": {"device": "cpu"}}},
-     "offload_optimizer"),
-    ("lamb", {"optimizer": {"type": "lamb", "params": {"lr": 1e-3}}},
-     "optimizer 'lamb'"),
-    ("onebitadam", {"optimizer": {"type": "onebitadam",
-                                  "params": {"lr": 1e-3}}},
-     "optimizer 'onebitadam'"),
-    ("expert_parallel", {"parallel": {"expert_parallel_size": 2},
-                         "zero_optimization": {"stage": 3}},
-     "expert_parallel_size=2 at ZeRO stage 3"),
+     NotImplementedError, "offload_param at world 2 is not ported yet"),
+    ("onebit_ep2_dense", "tiny", ONEBIT_EP2, ValueError,
+     r"onebitadam: compressed allreduce is data-parallel only \(tp/sp/pp/ep "
+     r"must be 1\)"),
+    ("onebit_ep2_moe", "moe-tiny", ONEBIT_EP2, ValueError,
+     r"onebitadam: compressed allreduce is data-parallel only \(tp/sp/pp/ep "
+     r"must be 1\)"),
 ]
 
 
-@pytest.mark.parametrize("what,extra,match", REFUSALS,
+@pytest.mark.parametrize("what,preset,extra,error,match", REFUSALS,
                          ids=[r[0] for r in REFUSALS])
-def test_refusals_name_themselves(what, extra, match, monkeypatch):
-    """MoE at world 2 with parameter offload, and expert parallelism at
-    ZeRO stage 3 (a world of 2 that ep 2 divides), still raise by name, as
-    do the combinations MoE does not train with at any world."""
-    if what in ("world", "expert_parallel"):
-        monkeypatch.setattr(comm, "get_world_size", lambda group=None: 2)
-    model = create_model("moe-tiny", dtype=torch.float32, max_seq_len=SEQ)
+def test_refusals_name_themselves(what, preset, extra, error, match,
+                                  monkeypatch):
+    """At world 2: MoE with parameter offload raises as every model does
+    there; the 1-bit optimizers beside expert parallelism raise JAX's
+    ``ValueError`` for a dense model and for MoE alike."""
+    monkeypatch.setattr(comm, "get_world_size", lambda group=None: 2)
+    model = create_model(preset, dtype=torch.float32, max_seq_len=SEQ)
     cfg = dict(_train_config(0), **extra)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         initialize(model=model, config=cfg, device="cpu")
+
+
+# the combinations MoE once refused, each of which trains now
+LIFTED = [
+    ("offload_param", {"zero_optimization": {
+        "stage": 3, "offload_param": {"device": "cpu"}}}),
+    ("offload_optimizer", {"zero_optimization": {
+        "stage": 1, "offload_optimizer": {"device": "cpu"}}}),
+    ("lamb", {"optimizer": {"type": "lamb", "params": {"lr": 1e-3}}}),
+    ("onebitadam", {"optimizer": {"type": "onebitadam",
+                                  "params": {"lr": 1e-3, "freeze_step": 1}}}),
+    ("expert_parallel", {"parallel": {"expert_parallel_size": 2},
+                         "zero_optimization": {"stage": 3}}),
+]
+
+
+@pytest.mark.parametrize("what,extra", LIFTED, ids=[c[0] for c in LIFTED])
+def test_lifted_combinations_train(what, extra):
+    """Three steps of ``moe-tiny`` on one batch under each combination: the
+    losses are finite and fall. Expert parallelism at stage 3 runs at world
+    2 over gloo (``tests/test_torch_moe_zero3.py`` holds it to JAX)."""
+    from torch_dist_workers import spawn, train_worker
+
+    batch = _train_batches(1, seed=6)[0]
+    if what == "expert_parallel":
+        case = dict(model="moe-tiny", dtype="float32", gas=1,
+                    config=dict(_train_config(0), **extra))
+        init = params_to_numpy(create_model(
+            "moe-tiny", dtype=torch.float32, max_seq_len=SEQ).init(
+                torch.Generator().manual_seed(0)))
+        two = {"input_ids": np.concatenate([batch["input_ids"]] * 2, 1)}
+        runs = spawn(train_worker, 2, case, init, 3, [two] * 3)
+        losses = runs[0]["losses"]
+        assert runs[1]["losses"] == losses
+    else:
+        model = create_model("moe-tiny", dtype=torch.float32,
+                             max_seq_len=SEQ)
+        cfg = dict(_train_config(0), **extra)
+        cfg["zero_optimization"] = dict(_train_config(0)[
+            "zero_optimization"], **extra.get("zero_optimization", {}))
+        eng = initialize(model=model, config=cfg, device="cpu")[0]
+        losses = [float(eng.train_batch(batch=batch)) for _ in range(3)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
 
 
 def test_expert_counts_the_parallel_degree_does_not_divide():

@@ -207,6 +207,12 @@ def train_case(case: Dict[str, Any], init: Any, world: int, stage: int,
             "memory": memory_stats(eng)}
 
 
+def train_worker(rank: int, world: int, case: Dict[str, Any], init: Any,
+                 stage: int, batches: List[Dict]) -> Dict[str, Any]:
+    """``train_case`` on every rank of a spawned group."""
+    return train_case(case, init, world, stage, batches)
+
+
 def zero_runs(rank: int, world: int, cases: Dict[str, Dict],
               inits: Dict[str, Any], ckpt: Dict[str, Any]) -> Dict:
     """Every case of ``cases`` whose ``worlds`` include ``world``, at each
@@ -382,14 +388,21 @@ def offload_case(case: Dict[str, Any], init: Any, world: int, stage: int,
            "params": tree_map(np.copy, params_to_numpy(eng.params)),
            "state": offload_state(eng),
            "state_device": (None if st.exp_avg is None
-                            else str(st.exp_avg.device))}
+                            else str(st.exp_avg.device)),
+           "shard_offsets": list(eng.partition.shard_offsets)}
     if tier == "nvme":
+        import json
+
         sw = st.offload
+        with open(os.path.join(sw.swap_dir, "manifest.json")) as fh:
+            manifest = json.load(fh)
         out.update(peak_live_groups=sw.peak_live_groups,
                    groups=len(sw.groups),
                    sets=sum(s is not None for s in sw._sets),
-                   group_sizes=list(sw.group_sizes))
+                   group_sizes=list(sw.group_sizes), manifest=manifest)
         sw.close(remove=True)
+    elif tier == "cpu":
+        out["group_spans"] = [list(g) for g in st.offload.groups]
     return out
 
 
@@ -431,22 +444,30 @@ def param_offload_refusal(rank: int, world: int) -> str:
 # ---------------------------------------------------------------------------
 
 def moe_plan_rows(rank: int, world: int, logits: np.ndarray, top_k: int,
-                  capacity_factor: float) -> Dict[str, Any]:
+                  capacity_factor: float, use_rts: bool = False
+                  ) -> Dict[str, Any]:
     """This rank's rows of the global plan over ``logits`` ((world * T, E)
     fp32; the rank is given rows ``[rank * T, (rank + 1) * T)``), and the
-    grad its rows get from the aux loss (every rank's copy of it summed)."""
+    grad its rows get from the aux loss (every rank's copy of it summed).
+    With ``use_rts`` (Random Token Selection, no generator passed) also
+    whether a second plan of the same rows keeps the same tokens."""
     from deepspeed_tpu_torch.parallel.moe import global_plan
     from deepspeed_tpu_torch.parallel.topology import Topology, build_groups
 
     T = logits.shape[0] // world
+    groups = build_groups(Topology(world, 1, rank))
     x = torch.tensor(logits[rank * T:(rank + 1) * T], requires_grad=True)
-    plan = global_plan(x, top_k, capacity_factor,
-                       groups=build_groups(Topology(world, 1, rank)))
+    plan = global_plan(x, top_k, capacity_factor, use_rts=use_rts,
+                       groups=groups)
     plan.aux_loss.backward()
     out = {k: getattr(plan, k).detach().numpy().copy() for k in (
         "expert_idx", "slot_pos", "weight", "valid", "aux_loss",
         "expert_counts")}
     out.update(capacity=plan.capacity, aux_grad=x.grad.numpy().copy())
+    if use_rts:
+        again = global_plan(x.detach(), top_k, capacity_factor,
+                            use_rts=True, groups=groups)
+        out["same_again"] = bool(torch.equal(again.valid, plan.valid))
     return out
 
 
@@ -465,14 +486,15 @@ def moe_ep_runs(rank: int, world: int, cases: Dict[Any, Dict],
                 inits: Dict[str, Any], plans: List[Tuple],
                 evals: Dict[str, Dict], checkpoints: List[Tuple]
                 ) -> Dict[Any, Any]:
-    """The global plans of ``plans`` ((logits, top_k, capacity factor)),
+    """The global plans of ``plans`` ((logits, top_k, capacity factor[,
+    use_rts])),
     every case of ``cases`` (keyed (variant, ep, stage), ``train_case``),
     the eval losses of ``evals`` (variant ``top2``), and the
     ``checkpoints`` steps in order: (key, case, variant, stage, directory,
     tag, save)."""
     out: Dict[Any, Any] = {}
-    for i, (logits, k, cf) in enumerate(plans):
-        out[("plan", i)] = moe_plan_rows(rank, world, logits, k, cf)
+    for i, (logits, k, cf, *rts) in enumerate(plans):
+        out[("plan", i)] = moe_plan_rows(rank, world, logits, k, cf, *rts)
     for name, case in evals.items():
         out[("eval", name)] = moe_eval(case, inits["top2"], world)
     for key, case in cases.items():
